@@ -1,0 +1,41 @@
+"""Carry dense tables between the reference package and the port.
+
+A reference ``TableState`` is a tuple of seven int32 [P, N] arrays (JAX
+arrays, or the numpy arrays of a ``PeerNetworkSim.snapshot()``); anything
+``numpy.asarray`` accepts works, so this module needs no JAX import.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .ops.merge import FIELDS, TableState
+
+
+def table_from_numpy(fields: Sequence, device) -> TableState:
+    """Seven int32 [P, N] arrays -> a port TableState on ``device``. Always
+    copies: the port updates tables in place."""
+    if len(fields) != len(FIELDS):
+        raise ValueError(f"expected {len(FIELDS)} fields, got {len(fields)}")
+    arrays = [np.asarray(f) for f in fields]
+    shape = arrays[0].shape
+    for a in arrays:
+        if a.dtype != np.int32 or a.ndim != 2 or a.shape != shape:
+            raise ValueError(f"expected int32 {shape} fields, got {a.dtype} {a.shape}")
+    return TableState(*(_to_tensor(a, device) for a in arrays))
+
+
+def _to_tensor(a: np.ndarray, device) -> torch.Tensor:
+    # torch.from_numpy shares memory and must not see a read-only array
+    # (a JAX array's numpy view is one); the .to() makes the device copy
+    if not (a.flags.writeable and a.flags.c_contiguous):
+        a = np.array(a, order="C")
+    return torch.from_numpy(a).to(device, copy=True)
+
+
+def table_to_numpy(table: TableState) -> Tuple[np.ndarray, ...]:
+    """A port TableState -> seven int32 numpy arrays (copies)."""
+    return tuple(f.detach().to("cpu", copy=True).numpy() for f in table)

@@ -1,0 +1,152 @@
+// Shared device helpers for the dense-layout kernels: the 7-field entry,
+// the lexicographic priority compare, the Jacobi column sweep that one
+// ring/chain round runs, and block reductions.
+//
+// Field order is the TableState order: cls, khi, klo, vid, writer, ctr, tick.
+// Priority keys (compared as SIGNED int32; tick is carried, never compared):
+//   reference: (cls, khi, klo, vid, writer, ctr)
+//   lww:       (ctr, cls, khi, klo, vid, writer)
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace bt {
+
+constexpr int NF = 7;
+
+struct Fields {
+  int32_t* f[NF];
+};
+
+struct CFields {
+  const int32_t* f[NF];
+};
+
+// b > a strictly under the mode's priority order.
+template <bool LWW>
+__device__ __forceinline__ bool lex_gt(const int32_t (&b)[NF],
+                                       const int32_t (&a)[NF]) {
+  if (LWW && b[5] != a[5]) return b[5] > a[5];
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+    if (b[i] != a[i]) return b[i] > a[i];
+  }
+  if (!LWW && b[5] != a[5]) return b[5] > a[5];
+  return false;
+}
+
+__device__ __forceinline__ void copy_entry(int32_t (&dst)[NF],
+                                           const int32_t (&src)[NF]) {
+#pragma unroll
+  for (int i = 0; i < NF; ++i) dst[i] = src[i];
+}
+
+__device__ __forceinline__ void zero_entry(int32_t (&dst)[NF]) {
+#pragma unroll
+  for (int i = 0; i < NF; ++i) dst[i] = 0;
+}
+
+__device__ __forceinline__ void load_entry(int32_t (&dst)[NF], const Fields& t,
+                                           int64_t idx) {
+#pragma unroll
+  for (int i = 0; i < NF; ++i) dst[i] = t.f[i][idx];
+}
+
+__device__ __forceinline__ void store_entry(const Fields& t, int64_t idx,
+                                            const int32_t (&src)[NF]) {
+#pragma unroll
+  for (int i = 0; i < NF; ++i) t.f[i][idx] = src[i];
+}
+
+// One ring (wrap) or chain round on column `col` of a [p, n] table, in
+// place: row r <- lexmax(lexmax(row r, row r-1), row r+1), every neighbour
+// taken from the PRE-round table. The thread keeps the pre-round rows r-1
+// and r, and the original row 0 (the ring's wrap-around for row p-1), in
+// registers, so overwriting row r never corrupts a later read. A chain's
+// missing neighbour is an all-zero entry that is still compared. Returns
+// the changed count sum(gt1) + sum(gt2) (an entry can count twice).
+template <bool LWW>
+__device__ __forceinline__ unsigned sweep_column(const Fields& t, int64_t col,
+                                                 int p, int64_t n, bool wrap) {
+  int32_t row0[NF], up[NF], cur[NF], down[NF];
+  load_entry(row0, t, col);
+  if (wrap) {
+    load_entry(up, t, (int64_t)(p - 1) * n + col);
+  } else {
+    zero_entry(up);
+  }
+  copy_entry(cur, row0);
+  unsigned changed = 0;
+  for (int r = 0; r < p; ++r) {
+    if (r + 1 < p) {
+      load_entry(down, t, (int64_t)(r + 1) * n + col);
+    } else if (wrap) {
+      copy_entry(down, row0);
+    } else {
+      zero_entry(down);
+    }
+    int32_t m[NF];
+    copy_entry(m, cur);
+    if (lex_gt<LWW>(up, m)) {
+      copy_entry(m, up);
+      ++changed;
+    }
+    if (lex_gt<LWW>(down, m)) {
+      copy_entry(m, down);
+      ++changed;
+    }
+    store_entry(t, (int64_t)r * n + col, m);
+    copy_entry(up, cur);
+    copy_entry(cur, down);
+  }
+  return changed;
+}
+
+// Block-wide sum; the result is valid in thread 0. Every thread of the
+// block must call it (it synchronises). blockDim.x is a multiple of 32.
+__device__ __forceinline__ unsigned block_sum(unsigned v) {
+  __shared__ unsigned warp_part[32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  __syncthreads();  // warp_part may still be read by an earlier call
+  if (lane == 0) warp_part[warp] = v;
+  __syncthreads();
+  const int warps = blockDim.x >> 5;
+  v = (threadIdx.x < warps) ? warp_part[threadIdx.x] : 0u;
+  if (warp == 0) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  }
+  return v;
+}
+
+// Block-wide max of non-negative ints; the result is valid in thread 0.
+__device__ __forceinline__ int block_max(int v) {
+  __shared__ int warp_part[32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = max(v, __shfl_down_sync(0xffffffffu, v, off));
+  __syncthreads();
+  if (lane == 0) warp_part[warp] = v;
+  __syncthreads();
+  const int warps = blockDim.x >> 5;
+  v = (threadIdx.x < warps) ? warp_part[threadIdx.x] : 0;
+  if (warp == 0) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) v = max(v, __shfl_down_sync(0xffffffffu, v, off));
+  }
+  return v;
+}
+
+inline int sm_count() {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms > 0 ? sms : 1;
+}
+
+}  // namespace bt

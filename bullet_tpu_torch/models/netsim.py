@@ -1,0 +1,886 @@
+"""PeerNetworkSim on PyTorch: P replicated peers, one dense graph table each.
+
+The port of ``bullet_tpu.models.netsim`` for the dense layout:
+
+    step = apply op batch  ->  gossip round(s) over the topology
+
+with the tables resident on ``device``. On a CUDA device the ring/chain
+rounds, the compacting frontier convergence and the reconcile merges run
+the hand-written kernels of ``bullet_tpu_torch/csrc``; on the CPU the same
+routes run their plain PyTorch versions. ``use_kernels`` (default: the
+device is CUDA) picks the kernel routes, as ``use_pallas`` does in the
+reference package; only a CPU sim may turn it off.
+
+Convergence is deterministic: the merge is a join-semilattice, so
+``run_until_converged`` reaches the unique fixed point in at most
+diameter + 1 rounds, with the same round count as the reference.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from bullet_tpu.utils.encode import CLS_ABSENT, VID_NULL
+
+from ..convert import table_from_numpy, table_to_numpy
+from ..ops.apply import OpBatch, apply_ops
+from ..ops.merge import TableState, init_table, lex_gt, priority_keys
+from ..parallel import topology as topo
+from ..parallel.gossip import gossip_round, gossip_round_mesh, gossip_until_converged
+from .table import MISSING, GraphHost, flatten_value
+
+TopologyLike = Union[str, topo.Topology]
+
+
+class ConvergenceCell(NamedTuple):
+    """The dispatch-relevant shape of a convergence request. Built by
+    ``PeerNetworkSim._convergence_cell``; consumed by the strategy table."""
+
+    ring_chain: bool  # topology kind is ring or chain
+    frontier: bool  # the frontier kernel tiles this shape (tile > 0)
+    kernels: bool  # use_kernels
+
+
+# Convergence strategy table: (name, predicate, runner method name) — FIRST
+# match wins. The reference package's table has more rows (packed layouts,
+# multi-device); these are the two rows of a single-device dense sim.
+CONVERGENCE_STRATEGIES: Tuple[Tuple[str, Callable, str], ...] = (
+    (
+        "dense-frontier",  # compacting frontier, fused rounds on the card
+        lambda c: c.frontier and c.ring_chain and c.kernels,
+        "_converge_dense_frontier",
+    ),
+    (
+        "dense-loop",  # whole-table round loop (any topology)
+        lambda c: True,
+        "_converge_dense_loop",
+    ),
+)
+
+
+def _group_positions(peers: np.ndarray, num_peers: int):
+    """Within-batch sequence position of each op among its peer's ops, plus
+    per-peer counts (stable order). Shared by put_bulk and _drain_ops so the
+    Lamport stamps and dense batch positions can never diverge."""
+    from bullet_tpu import native
+
+    fast = native.group_positions(peers, num_peers)
+    if fast is not None:
+        return fast
+    k = len(peers)
+    counts = np.bincount(peers, minlength=num_peers)
+    order = np.argsort(peers, kind="stable")
+    sorted_peers = peers[order]
+    boundaries = np.flatnonzero(np.diff(sorted_peers)) + 1
+    starts = np.concatenate(([0], boundaries))
+    group_sizes = np.diff(np.concatenate((starts, [k])))
+    seq_sorted = np.arange(k) - np.repeat(starts, group_sizes)
+    seq = np.empty(k, dtype=np.int64)
+    seq[order] = seq_sorted
+    return seq, counts
+
+
+def _resolve_topology(t: TopologyLike, num_peers: int) -> topo.Topology:
+    if isinstance(t, topo.Topology):
+        return t
+    builders = {
+        "ring": topo.ring,
+        "chain": topo.chain,
+        "mesh": topo.full_mesh,
+        "full_mesh": topo.full_mesh,
+        "star": topo.star,
+    }
+    if t == "bridge":
+        # the bullet-js bridge example: 2 clusters × 5 + 1 bridge node
+        if num_peers < 3:
+            raise ValueError("bridge topology needs at least 3 peers")
+        built = topo.bridge()
+        if built.num_peers != num_peers:
+            per = max(1, (num_peers - 1) // 2)
+            built = topo.bridge((per, num_peers - 1 - per), 1)
+        return built
+    if t not in builders:
+        raise ValueError(f"unknown topology: {t}")
+    return builders[t](num_peers)
+
+
+def _rekey(table: TableState, cls_map, khi_map, klo_map) -> TableState:
+    """Refresh (cls, khi, klo) from vid after a string-rank rebalance
+    (vids clamp into the map, as the reference's gathers do)."""
+    present = table.cls > 0
+    vid = table.vid.to(torch.int64).clamp_(0, cls_map.numel() - 1)
+    return table._replace(
+        cls=torch.where(present, cls_map[vid], table.cls),
+        khi=torch.where(present, khi_map[vid], table.khi),
+        klo=torch.where(present, klo_map[vid], table.klo),
+    )
+
+
+def _closure_join_dense(table: TableState, idx, members, mode: str) -> TableState:
+    """Join rows ``table[idx]`` under ``mode``'s priority order by
+    roll-doubling and write the join to rows ``members``, in place — one
+    step of the per-SCC reconcile (see PeerNetworkSim._reconcile_weak)."""
+    rows = [f[idx] for f in table]
+    for s in range((len(idx) - 1).bit_length()):
+        rolled = [torch.roll(f, 1 << s, 0) for f in rows]
+        gt = lex_gt(
+            priority_keys(TableState(*rolled), mode),
+            priority_keys(TableState(*rows), mode),
+        )
+        rows = [torch.where(gt, b, a) for a, b in zip(rows, rolled)]
+    for f, r in zip(table, rows):
+        f[members] = r[0]
+    return table
+
+
+class PeerNetworkSim:
+    """P simulated peers over a topology, tables resident on ``device``.
+
+    Parameters
+    ----------
+    num_peers : int — simulated peer count
+    capacity : int — leaf-slot capacity (grows by doubling)
+    topology : "ring" | "chain" | "mesh" | "star" | "bridge" | Topology
+    mode : "reference" (converged-state parity) | "lww" (Lamport LWW)
+    use_kernels : bool | None — take the kernel routes (the compacting
+        frontier in ``run_until_converged``); default: the device is CUDA.
+        A CUDA sim always takes them; on the CPU they run the kernels'
+        plain versions, and False picks the whole-table round loop
+    layout : "dense" only; the packed and rank layouts are not ported yet
+    device : where the tables live ("cuda", "cpu", a torch.device)
+    """
+
+    def __init__(
+        self,
+        num_peers: int,
+        capacity: int = 1024,
+        topology: TopologyLike = "ring",
+        mode: str = "reference",
+        mesh_devices: Optional[int] = None,
+        use_kernels: Optional[bool] = None,
+        use_shard_map: bool = False,
+        lean_gossip: bool = False,
+        layout: str = "dense",
+        *,
+        device,
+    ) -> None:
+        if layout != "dense":
+            raise NotImplementedError(
+                f"layout={layout!r} is not ported yet "
+                "(ROADMAP.md Queue 1: packed layout, rank layouts)"
+            )
+        if mesh_devices or use_shard_map:
+            raise NotImplementedError(
+                "mesh_devices / use_shard_map: the multi-device path is not "
+                "ported yet (ROADMAP.md Queue 1: multi-GPU)"
+            )
+        if lean_gossip:
+            raise NotImplementedError(
+                "lean_gossip is not ported yet (ROADMAP.md Queue 1: dense "
+                "variants)"
+            )
+        if mode not in ("reference", "lww"):
+            raise ValueError(f"unknown merge mode: {mode}")
+        self.layout = layout
+        self.mode = mode
+        self.device = torch.device(device)
+        if use_kernels is None:
+            use_kernels = self.device.type == "cuda"
+        elif not use_kernels and self.device.type == "cuda":
+            raise ValueError(
+                "use_kernels=False: a sim on a CUDA device always runs the kernels"
+            )
+        self.use_kernels = bool(use_kernels)
+        self.num_peers = num_peers
+        self.topology = _resolve_topology(topology, num_peers)
+        if self.topology.num_peers != num_peers:
+            raise ValueError("topology size != num_peers")
+        self.host = GraphHost(capacity)
+        self.table = init_table(num_peers, capacity, self.device)
+        self.capacity = capacity
+        self.tick = 0
+        self._clock = np.zeros(num_peers, dtype=np.int64)
+        # scalar-put hot path reads/writes this LIST shadow (plain list
+        # index ops beat np scalar indexing ~3x); the np array is
+        # materialized at every vectorized boundary (_clock_sync_np)
+        self._clock_list = [0] * num_peers
+        self._pending: List[List[Tuple[int, int, int, int, int, int]]] = [
+            [] for _ in range(num_peers)
+        ]
+        self._pending_bulk: List[Tuple[np.ndarray, ...]] = []
+        # scalar-put fast-path memoization (see _put_scalar_fast)
+        self._slot_cache: Dict[str, int] = {}
+        self._enc_num_cache: Dict[Any, Tuple[int, int, int, int]] = {}
+        self._enc_str_cache: Dict[str, Tuple[int, int, int, int]] = {}
+        self._enc_str_epoch = -1
+        self._subs: List[dict] = []
+        # frontier bookkeeping (ring/chain): per-stripe dirty flags known
+        # only between a completed frontier convergence and the next
+        # non-frontier mutation; None = unknown -> start all-dirty
+        self._frontier_dirty: Optional[np.ndarray] = None
+        self.stats = {
+            "ops_enqueued": 0,
+            "ops_applied": 0,
+            "gossip_rounds": 0,
+            "merged_entries": 0,
+            "steps": 0,
+        }
+        self.last_residual: Optional[int] = None
+
+    # ------------------------------------------------------------ write path
+
+    def put(self, peer: int, path: str, value: Any) -> bool:
+        """Queue a local put at ``peer`` (applied on the next step). Object
+        values decompose into leaves. Returns True (put hooks and schemas,
+        which could veto, are not ported yet)."""
+        if type(value) is not dict:
+            # hot scalar path: memoized path->slot and numeric
+            # value->encoding; the common numeric-hit case is inlined here,
+            # misses and other types take the helper
+            enc = None
+            t = type(value)
+            if t is float or t is int:
+                enc = self._enc_num_cache.get(value)
+            if enc is not None:
+                slot = self._slot_cache.get(path)
+                if slot is not None:
+                    clock = self._clock_list
+                    c = clock[peer] + 1
+                    clock[peer] = c
+                    self._pending[peer].append((slot, *enc, c))
+                    self.stats["ops_enqueued"] += 1
+                    return True
+            return self._put_scalar_fast(peer, path, value)
+        leaves = list(flatten_value(path, value))
+        if any(not leaf_path for leaf_path, _ in leaves):
+            raise ValueError(
+                "cannot put a scalar at the root path (empty leaf path)"
+            )
+        if len(leaves) > 4:
+            # tree puts batch through the bulk machinery: one intern_batch
+            # call + vectorized value encode instead of a Python loop per
+            # leaf (outcome identical — enqueue order never affects the
+            # converged state)
+            from bullet_tpu.utils.encode import bulk_encode_values
+
+            slots = self.host.intern_batch([p for p, _ in leaves])
+            cls, khi, klo, vid = bulk_encode_values(
+                self.host.values, [v for _, v in leaves]
+            )
+            self._enqueue_bulk(
+                np.full(len(leaves), peer, dtype=np.int32),
+                slots.astype(np.int32), cls, khi, klo, vid,
+            )
+        else:
+            for leaf_path, leaf_value in leaves:
+                slot = self.host.intern_path(leaf_path)
+                cls, khi, klo, vid = self.host.encode_value(leaf_value)
+                c = self._clock_list[peer] + 1
+                self._clock_list[peer] = c
+                self._pending[peer].append((slot, cls, khi, klo, vid, c))
+                self.stats["ops_enqueued"] += 1
+        return True
+
+    # scalar-fast-path cache bound: keeps pathological workloads (e.g.
+    # unbounded-distinct values) from growing the dicts without limit; a
+    # clear only costs re-encoding
+    _FAST_CACHE_MAX = 1 << 20
+
+    def _put_scalar_fast(self, peer: int, path: str, value: Any) -> bool:
+        """Hot scalar ``put`` for a non-dict value.
+
+        Two memoizations carry the speedup: path -> slot (the interner is
+        append-only, so slots are stable), and numeric value -> encoding
+        (number order keys never re-rank). String encodings re-rank when
+        the order-statistic tree rebalances, so the string cache is
+        validated against the interner epoch and flushed on change."""
+        if not path:
+            raise ValueError(
+                "cannot put a scalar at the root path (empty leaf path)"
+            )
+        slot = self._slot_cache.get(path)
+        if slot is None:
+            slot = self.host.intern_path(path)
+            if len(self._slot_cache) >= self._FAST_CACHE_MAX:
+                self._slot_cache.clear()
+            self._slot_cache[path] = slot
+        t = type(value)
+        if (t is float or t is int) and value == value:
+            enc = self._enc_num_cache.get(value)
+            if enc is None:
+                enc = self.host.encode_value(value)
+                if len(self._enc_num_cache) >= self._FAST_CACHE_MAX:
+                    self._enc_num_cache.clear()
+                self._enc_num_cache[value] = enc
+        elif t is str:
+            epoch = self.host.values.epoch
+            if epoch != self._enc_str_epoch:
+                self._enc_str_cache.clear()
+                self._enc_str_epoch = epoch
+            enc = self._enc_str_cache.get(value)
+            if enc is None:
+                enc = self.host.encode_value(value)
+                if self.host.values.epoch != epoch:
+                    # this very insert rebalanced: ranks just moved
+                    self._enc_str_cache.clear()
+                    self._enc_str_epoch = self.host.values.epoch
+                if len(self._enc_str_cache) >= self._FAST_CACHE_MAX:
+                    self._enc_str_cache.clear()
+                self._enc_str_cache[value] = enc
+        else:
+            enc = self.host.encode_value(value)
+        clock = self._clock_list
+        c = clock[peer] + 1
+        clock[peer] = c
+        self._pending[peer].append((slot, *enc, c))
+        self.stats["ops_enqueued"] += 1
+        return True
+
+    def put_bulk(self, peers, paths, values) -> None:
+        """Vectorized ingestion: enqueue many scalar puts at once.
+
+        ``peers`` — int array [K], or a single int to load every row into
+        one peer; ``values`` — numeric array [K] (the fast path) or any list
+        of leaf values; ``paths`` — list of K path strings, or an int32
+        array of pre-interned slot ids (see ``intern_path``)."""
+        peers = np.asarray(peers, dtype=np.int32)
+        if peers.ndim == 0:
+            peers = np.full(len(paths), int(peers), dtype=np.int32)
+        if len(peers) == 0:
+            return
+        pre_interned = isinstance(paths, np.ndarray) and paths.dtype.kind == "i"
+        slots = (
+            paths.astype(np.int32) if pre_interned
+            else self.host.intern_batch(paths)
+        )
+        # the numeric fast path requires an EXPLICIT numeric ndarray:
+        # np.asarray on a mixed list would silently coerce bools (and
+        # mixed strings) to numbers, diverging from scalar-put encoding
+        if isinstance(values, np.ndarray) and values.dtype.kind in "ifu":
+            from bullet_tpu.utils.encode import bulk_encode_numbers
+
+            cls, khi, klo, vid = bulk_encode_numbers(self.host.values, values)
+        else:
+            from bullet_tpu.utils.encode import bulk_encode_values
+
+            raw_vals = (
+                values.tolist() if isinstance(values, np.ndarray) else list(values)
+            )
+            cls, khi, klo, vid = bulk_encode_values(self.host.values, raw_vals)
+        self._enqueue_bulk(peers, slots, cls, khi, klo, vid)
+
+    def _enqueue_bulk(self, peers, slots, cls, khi, klo, vid) -> None:
+        """Stamp per-op Lamport counters (clock[peer] + within-batch
+        sequence) and queue one bulk chunk — the single enqueue point shared
+        by ``put_bulk`` and batched tree ``put``s."""
+        seq, counts = _group_positions(peers, self.num_peers)
+        self._clock_sync_np()
+        ctr = (self._clock[peers] + seq + 1).astype(np.int32)
+        self._clock += counts
+        self._clock_list = self._clock.tolist()
+        self._pending_bulk.append((peers, slots, cls, khi, klo, vid, ctr))
+        self.stats["ops_enqueued"] += len(peers)
+
+    def _clock_sync_np(self) -> None:
+        np.copyto(self._clock, self._clock_list)
+
+    def _clock_snapshot(self) -> np.ndarray:
+        self._clock_sync_np()
+        return self._clock.copy()
+
+    def intern_path(self, path: str) -> int:
+        """Pre-intern a path for slot-id based ``put_bulk`` ingestion."""
+        return self.host.intern_path(path)
+
+    def remove(self, peer: int, path: str) -> bool:
+        """Put null at ``path`` and every known descendant leaf. In
+        reference mode null loses to greater scalars; lww deletes."""
+        pid = self.host.intern_path(path)
+        self.put(peer, path, None)
+        for slot in self.host.leaf_slots_under(pid):
+            self.put(peer, self.host.paths.path(slot), None)
+        return True
+
+    # ----------------------------------------------------------------- step
+
+    def _drain_ops(self) -> Optional[OpBatch]:
+        """Pack queued ops (scalar puts + bulk batches) into dense [P, B]
+        arrays via numpy scatter, then move them to the device."""
+        peer_list, field_cols = [], [[] for _ in range(6)]
+        for p, ops in enumerate(self._pending):
+            for op in ops:
+                peer_list.append(p)
+                for f in range(6):
+                    field_cols[f].append(op[f])
+            ops.clear()
+        chunks_peers = []
+        chunks_fields = [[] for _ in range(6)]
+        if peer_list:
+            chunks_peers.append(np.asarray(peer_list, dtype=np.int32))
+            for f in range(6):
+                chunks_fields[f].append(np.asarray(field_cols[f], dtype=np.int32))
+        for bulk in self._pending_bulk:
+            chunks_peers.append(bulk[0])
+            for f in range(6):
+                chunks_fields[f].append(bulk[f + 1])
+        self._pending_bulk.clear()
+        if not chunks_peers:
+            return None
+
+        peers = np.concatenate(chunks_peers)
+        flat = [np.concatenate(c) for c in chunks_fields]
+        bpos, counts = _group_positions(peers, self.num_peers)
+        # pow2 batch width, as the reference pads (padded entries are
+        # cls 0 — they never win)
+        batch = max(8, 1 << max(int(counts.max()) - 1, 1).bit_length())
+
+        fields = [np.zeros((self.num_peers, batch), dtype=np.int32) for _ in range(6)]
+        for f in range(6):
+            fields[f][peers, bpos] = flat[f]
+        # keep the host copy of the slot batch for frontier seeding (padded
+        # entries are slot 0 / cls 0 — they dirty stripe 0 conservatively)
+        self._drained_slots_np = fields[0]
+        return OpBatch(*(torch.from_numpy(f).to(self.device) for f in fields))
+
+    def _ensure_capacity(self) -> None:
+        needed = len(self.host.paths)
+        if needed <= self.capacity:
+            return
+        new_cap = self.capacity
+        while new_cap < needed:
+            new_cap *= 2
+        self._frontier_dirty = None  # stripe count changes with capacity
+        grown = init_table(self.num_peers, new_cap, self.device)
+        for g, f in zip(grown, self.table):
+            g[:, : self.capacity] = f
+        self.table = grown
+        self.capacity = new_cap
+
+    def _maybe_rekey(self) -> None:
+        if not self.host.needs_rekey:
+            return
+        maps = (
+            torch.from_numpy(np.asarray(m, dtype=np.int32)).to(self.device)
+            for m in self.host.key_tables()
+        )
+        self.table = _rekey(self.table, *maps)
+        self.host.needs_rekey = False
+
+    def _apply_pending(self) -> int:
+        """Drain + apply; returns the applied count."""
+        drained = self._drain_ops()
+        if drained is None:
+            return 0
+        if self._frontier_dirty is not None:
+            tile_n = self._frontier_tile()
+            if tile_n and len(self._frontier_dirty) == self.table.cls.shape[1] // tile_n:
+                self._frontier_dirty[
+                    np.unique(self._drained_slots_np // tile_n)
+                ] = True
+            else:
+                self._frontier_dirty = None
+        self.table, applied = apply_ops(self.table, drained, self.tick, mode=self.mode)
+        return int(applied)
+
+    def _frontier_tile(self) -> int:
+        """Stripe width the frontier convergence path would use at the
+        current shape; 0 = no stripe width fits and dirty-stripe
+        bookkeeping is pointless."""
+        from ..ops.ring_kernel import frontier_tile_n_dense
+
+        return frontier_tile_n_dense(self.table.cls.shape[1])
+
+    def _one_round(self):
+        return gossip_round(self.table, self.topology, self.mode)
+
+    def step(self, rounds: int = 1) -> int:
+        """Apply queued ops, run ``rounds`` gossip rounds; returns residual
+        (entries changed in the last round)."""
+        self._ensure_capacity()
+        self._maybe_rekey()
+        self.tick += 1
+        self.stats["ops_applied"] += self._apply_pending()
+        residual = 0
+        if rounds:
+            self._frontier_dirty = None  # untracked gossip advances stripes
+        for _ in range(rounds):
+            self.table, changed = self._one_round()
+            residual = int(changed)
+            self.stats["gossip_rounds"] += 1
+            self.stats["merged_entries"] += residual
+        self.stats["steps"] += 1
+        self.last_residual = residual if rounds else None
+        self._sync_clocks()
+        self._fire_subscriptions()
+        return residual
+
+    def run_until_converged(self, max_rounds: Optional[int] = None) -> int:
+        """Apply pending ops then gossip to the fixed point. Returns the
+        classic round count (the first round that changed nothing, or the
+        cap)."""
+        self._ensure_capacity()
+        self._maybe_rekey()
+        self.tick += 1
+        self.stats["ops_applied"] += self._apply_pending()
+        if max_rounds is None:
+            max_rounds = max(2 * self.topology.diameter + 2, 4)
+        _, runner = self._convergence_strategy()
+        return runner(max_rounds)
+
+    # -- convergence strategy dispatch (see CONVERGENCE_STRATEGIES) --------
+
+    def _convergence_cell(self) -> ConvergenceCell:
+        return ConvergenceCell(
+            ring_chain=self.topology.kind in ("ring", "chain"),
+            frontier=self._frontier_tile() > 0,
+            kernels=self.use_kernels,
+        )
+
+    def _convergence_strategy(self) -> Tuple[str, Callable[[int], int]]:
+        """(row name, runner) for the current sim state — the single place
+        run_until_converged picks a loop implementation."""
+        cell = self._convergence_cell()
+        for name, pred, method in CONVERGENCE_STRATEGIES:
+            if pred(cell):
+                return name, getattr(self, method)
+        raise AssertionError("unreachable: dense-loop matches every cell")
+
+    def _frontier_seed(self, t_total: int) -> torch.Tensor:
+        """Dirty-stripe seed for a frontier loop: the incrementally tracked
+        set when valid (only stripes touched since the last completed
+        convergence need work), else all-dirty."""
+        if self._frontier_dirty is not None and len(self._frontier_dirty) == t_total:
+            return torch.from_numpy(self._frontier_dirty).to(self.device)
+        return torch.ones(t_total, dtype=torch.bool, device=self.device)
+
+    def _finish_frontier(self, t_total, rounds, final_changed, max_rounds):
+        if rounds < max_rounds or final_changed == 0:
+            # true fixed point: every stripe is settled until new ops land
+            self._frontier_dirty = np.zeros(t_total, dtype=bool)
+        else:
+            self._frontier_dirty = None  # cutoff: tracking is stale
+
+    def _finish_converge(self, rounds, final_changed) -> int:
+        rounds = int(rounds)
+        self.stats["gossip_rounds"] += rounds
+        self.stats["steps"] += 1
+        # honest residual: 0 only if the loop actually reached the fixed
+        # point; nonzero when max_rounds cut it off mid-convergence
+        self.last_residual = int(final_changed)
+        self._sync_clocks()
+        self._fire_subscriptions()
+        return rounds
+
+    def _converge_dense_frontier(self, max_rounds: int) -> int:
+        """Compacting frontier loop; on the card STRIPE_FUSE rounds fuse
+        per kernel step, with the exact classic round count rebuilt on the
+        host. On the CPU the plain version runs unfused, as the reference
+        runs interpret mode unfused."""
+        from ..ops.packed import STRIPE_FUSE
+        from ..ops.ring_kernel import gossip_frontier_dense
+
+        tile_n = self._frontier_tile()
+        t_total = self.table.cls.shape[1] // tile_n
+        fuse = STRIPE_FUSE if self.device.type == "cuda" else 1
+        self.table, rounds, final_changed = gossip_frontier_dense(
+            self.table, self._frontier_seed(t_total),
+            self.topology.kind == "ring", self.mode, max_rounds,
+            fuse=fuse, tile_n=tile_n,
+        )
+        self._finish_frontier(t_total, rounds, final_changed, max_rounds)
+        return self._finish_converge(rounds, final_changed)
+
+    def _converge_dense_loop(self, max_rounds: int) -> int:
+        """Whole-table round loop for any topology, one residual read per
+        round."""
+        self.table, rounds, final_changed = gossip_until_converged(
+            self.table, self.topology, self.mode, max_rounds
+        )
+        return self._finish_converge(rounds, final_changed)
+
+    def reconcile(self) -> None:
+        """Directly reconcile every replica to the gossip fixed point —
+        WITHOUT simulating protocol rounds — on ANY topology.
+
+        On a strongly connected topology every peer reaches every peer, and
+        ceil(log2 P) doubling merges (the merge kernel on the card) join
+        every row. Otherwise a dynamic program over the SCC condensation
+        joins each component's members plus one representative row per
+        successor component. Either way the result is bit-identical to
+        run_until_converged's fixed point. Pending ops apply first;
+        subscriptions fire as usual."""
+        self._ensure_capacity()
+        self._maybe_rekey()
+        self.tick += 1
+        self.stats["ops_applied"] += self._apply_pending()
+        if not self.topology.is_connected():
+            self._reconcile_weak()
+        else:
+            self.table, _ = gossip_round_mesh(self.table, self.mode)
+        self.stats["steps"] += 1
+        self.last_residual = 0
+        tile_n = self._frontier_tile()
+        if tile_n:
+            self._frontier_dirty = np.zeros(
+                self.table.cls.shape[1] // tile_n, dtype=bool
+            )
+        self._sync_clocks()
+        self._fire_subscriptions()
+
+    def _reconcile_weak(self) -> None:
+        """Reconcile a non-strongly-connected topology: per-SCC-closure
+        joins over the condensation. Components are processed in ascending
+        id order, which Topology.strong_components guarantees is reverse
+        topological order of the condensation — every component this one
+        pulls from is already at ITS closure, so one representative row
+        per successor suffices."""
+        comp = self.topology.strong_components()
+        n_comp = int(comp.max()) + 1
+        members = [np.flatnonzero(comp == c) for c in range(n_comp)]
+        succs: List[set] = [set() for _ in range(n_comp)]
+        for p in range(self.num_peers):
+            cp = int(comp[p])
+            for q in self.topology.neighbors[p]:
+                if q >= 0 and comp[q] != cp:
+                    succs[cp].add(int(comp[q]))
+        for c in range(n_comp):
+            idx = [
+                *members[c].tolist(),
+                *(int(members[s][0]) for s in sorted(succs[c])),
+            ]
+            if len(idx) == 1:
+                continue  # singleton with no pulls: already its closure
+            self.table = _closure_join_dense(
+                self.table,
+                torch.tensor(idx, dtype=torch.int64, device=self.device),
+                torch.from_numpy(members[c]).to(self.device),
+                self.mode,
+            )
+
+    def _sync_clocks(self) -> None:
+        """Lamport clock advance: after gossip every peer's clock must exceed
+        any counter it has seen, or later writes could lose ties (lww only;
+        reference mode resolves by value and doesn't need it)."""
+        if self.mode != "lww":
+            return
+        row_max = self.table.ctr.max(dim=1).values.cpu().numpy().astype(np.int64)
+        self._clock_sync_np()
+        np.maximum(self._clock, row_max, out=self._clock)
+        self._clock_list = self._clock.tolist()
+
+    def converged(self) -> bool:
+        """True iff one more gossip round would change nothing. The round
+        runs on a scratch copy: the port's rounds update in place."""
+        self._sync_device_state()
+        scratch = TableState(*(f.clone() for f in self.table))
+        _, changed = gossip_round(scratch, self.topology, self.mode)
+        return int(changed) == 0
+
+    # ----------------------------------------------------------------- reads
+
+    def _sync_device_state(self) -> None:
+        """Reads may follow fresh path/value interning: grow the table and
+        re-key BEFORE any device access."""
+        self._ensure_capacity()
+        self._maybe_rekey()
+
+    def _gather(self, fields, peers, slots) -> List[np.ndarray]:
+        idx = tuple(
+            torch.from_numpy(np.ascontiguousarray(a, dtype=np.int64)).to(self.device)
+            for a in (peers, slots)
+        )
+        return [f[idx].cpu().numpy() for f in fields]
+
+    def _decode_slots(self, peer: int, slots: List[int]) -> Dict[int, Any]:
+        if not slots:
+            return {}
+        self._sync_device_state()
+        slots_np = np.asarray(slots, dtype=np.int64)
+        cls, vid = self._gather(
+            (self.table.cls, self.table.vid),
+            np.full(len(slots_np), peer, dtype=np.int64), slots_np,
+        )
+        sel = cls != CLS_ABSENT
+        dec = self.host.values.decode_batch(np.where(vid[sel] == VID_NULL, 0, vid[sel]))
+        out: Dict[int, Any] = {}
+        for slot, v, d in zip(slots_np[sel].tolist(), vid[sel].tolist(), dec):
+            out[slot] = None if v == VID_NULL else d
+        return out
+
+    def get(self, peer: int, path: str = "") -> Any:
+        """Read a value/subtree at ``peer`` (device gather + host tree
+        rebuild). Missing paths return None."""
+        if path:
+            pid = self.host.paths.lookup(path)
+            if pid is None:
+                return None
+            slots = [pid, *self.host.leaf_slots_under(pid)]
+            values = self._decode_slots(peer, slots)
+            tree = self.host.build_tree(pid, values)
+            return None if tree is MISSING else tree
+        roots = self.host.paths.top_level()
+        values = self._decode_slots(peer, list(range(len(self.host.paths))))
+        out = {}
+        for r in roots:
+            sub = self.host.build_tree(r, values)
+            if sub is not MISSING:
+                out[self.host.paths.segment(r)] = sub
+        return out
+
+    def get_bulk(self, peers, paths) -> List[Any]:
+        """Batched point reads — the read twin of ``put_bulk``: ONE device
+        gather for all K (peer, path) pairs, then a columnar host decode.
+        ``peers`` is an int array [K] or a single int; ``paths`` is a list
+        of K path strings or an int32 array of pre-interned slot ids.
+        Returns K leaf values (None for null, absent, unknown, or interior
+        paths)."""
+        if isinstance(paths, np.ndarray) and paths.dtype.kind == "i":
+            slots = paths.astype(np.int32)
+            valid = slots >= 0
+        else:
+            slots = self.host.paths.lookup_batch(list(paths))
+            valid = slots >= 0
+            slots = np.where(valid, slots, 0).astype(np.int32)
+        k = len(slots)
+        peers_arr = np.broadcast_to(np.asarray(peers, dtype=np.int32), (k,))
+        self._sync_device_state()
+        cls, vid = self._gather((self.table.cls, self.table.vid), peers_arr, slots)
+        present = valid & (cls != CLS_ABSENT) & (vid != VID_NULL)
+        out_arr = np.full(k, None, dtype=object)
+        if present.any():
+            uniq, inverse = np.unique(vid[present], return_inverse=True)
+            out_arr[present] = self.host.values.decode_batch(uniq)[inverse]
+        return out_arr.tolist()
+
+    # ---------------------------------------------------------- subscriptions
+
+    def peer(self, index: int):
+        """Peer-scoped fluent view: ``sim.peer(3).get("users/a").put(...)``."""
+        from .node import SimPeer
+
+        return SimPeer(self, index)
+
+    def off(self, peer: int, path: str, callback: Optional[Callable] = None) -> None:
+        """Unsubscribe."""
+        self._subs = [
+            s for s in self._subs
+            if not (
+                s["peer"] == peer
+                and s["path"] == path
+                and (callback is None or s["callback"] is callback)
+            )
+        ]
+        self._watch_dirty = True
+
+    def on(self, peer: int, path: str, callback: Callable[[Any], None]) -> None:
+        """Subscribe to a path at a peer; fires immediately with the current
+        value and after any step that changes it (ancestor bubbling falls
+        out: a subtree read changes when any descendant leaf changes)."""
+        self.host.intern_path(path)
+        current = self.get(peer, path)
+        callback(current)
+        self._subs.append(
+            {"peer": peer, "path": path, "callback": callback, "last": current}
+        )
+        self._watch_dirty = True
+
+    # -- changed-slot dispatch: ONE gather pulls the (cls, vid) of every
+    # watched slot, a numpy compare against the previous snapshot yields
+    # the subscriptions whose slots changed, and only THOSE re-read their
+    # subtree.
+
+    def _build_watch_index(self) -> None:
+        peers, slots, sub_of = [], [], []
+        for si, sub in enumerate(self._subs):
+            pid = self.host.paths.lookup(sub["path"]) if sub["path"] else None
+            if sub["path"]:
+                watch = ([pid, *self.host.leaf_slots_under(pid)]
+                         if pid is not None else [])
+            else:  # root watch: every slot
+                watch = list(range(len(self.host.paths)))
+            for s in watch:
+                peers.append(sub["peer"])
+                slots.append(s)
+                sub_of.append(si)
+        self._watch_peers = np.asarray(peers, dtype=np.int32)
+        self._watch_slots = np.asarray(slots, dtype=np.int32)
+        self._watch_subof = np.asarray(sub_of, dtype=np.int64)
+        self._watch_paths_len = len(self.host.paths)
+        self._watch_dirty = False
+        self._watch_prev = None  # unknown baseline: check every sub once
+
+    def _gather_watch_values(self) -> np.ndarray:
+        if len(self._watch_peers) == 0:
+            return np.empty((0,), dtype=np.int64)
+        cls, vid = self._gather(
+            (self.table.cls, self.table.vid), self._watch_peers, self._watch_slots
+        )
+        return (cls.astype(np.int64) << 32) | vid.astype(np.int64)
+
+    def _fire_subscriptions(self) -> None:
+        if not self._subs:
+            return
+        self._sync_device_state()
+        if (
+            getattr(self, "_watch_dirty", True)
+            or self._watch_paths_len != len(self.host.paths)
+        ):
+            self._build_watch_index()
+        values = self._gather_watch_values()
+        if self._watch_prev is None:
+            changed_subs = range(len(self._subs))
+        else:
+            diff = values != self._watch_prev
+            changed_subs = np.unique(self._watch_subof[diff]).tolist()
+        self._watch_prev = values
+        for si in changed_subs:
+            sub = self._subs[si]
+            value = self.get(sub["peer"], sub["path"])
+            if value != sub["last"]:
+                sub["last"] = value
+                try:
+                    sub["callback"](value)
+                except Exception:  # noqa: BLE001 - listener isolation
+                    pass
+
+    # ------------------------------------------------------------- lifecycle
+
+    def snapshot(self) -> dict:
+        """Host checkpoint of device state, in the reference package's
+        snapshot format. Pending puts are FLUSHED (applied) first, so a
+        snapshot captures every put issued before it."""
+        if any(self._pending) or self._pending_bulk:
+            self.step(rounds=0)
+        self._sync_device_state()
+        return {
+            "table": list(table_to_numpy(self.table)),
+            "tick": self.tick,
+            "clock": self._clock_snapshot(),
+            "capacity": self.capacity,
+        }
+
+    def restore(self, snap: dict) -> None:
+        """Rewind to EXACTLY the snapshot state; accepts this class's
+        snapshots and the reference package's dense ``snapshot()`` dicts.
+        Pending (un-applied) puts are DISCARDED: they belong to the
+        abandoned post-snapshot timeline. The host interners are not part
+        of a snapshot."""
+        for ops in self._pending:
+            ops.clear()
+        self._pending_bulk.clear()
+        self._frontier_dirty = None
+        self.table = table_from_numpy(snap["table"], self.device)
+        self.tick = snap["tick"]
+        self._clock = np.asarray(snap["clock"], dtype=np.int64).copy()
+        self._clock_list = self._clock.tolist()
+        self.capacity = snap["capacity"]
+
+    def tables_equal(self) -> bool:
+        """All peers bit-identical in (cls, vid) — the convergence
+        acceptance check. Computed on the device; one scalar crosses to the
+        host."""
+        t = self.table
+        return bool((t.vid == t.vid[0:1]).all() & (t.cls == t.cls[0:1]).all())

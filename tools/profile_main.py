@@ -1,0 +1,85 @@
+#!/usr/bin/env python3
+"""Trace the device over the main path of chip_smoke.py (its phase 4).
+
+    python3 tools/profile_main.py [--seed S] [--peers P] [--capacity N] [--ops K]
+
+Runs the same main path as ``chip_smoke.py`` (same data, windows and
+checks) with each timed window under ``torch.profiler`` (CUDA activity
+only). For each window it prints the wall seconds (the profiler's own cost
+included), the device busy seconds (the union of the intervals of device
+activity), the idle share 1 - busy / wall, and the device time of the
+kernels that take most of it. The card's name and power limit come first.
+Needs one CUDA device; imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import subprocess
+import sys
+from collections import defaultdict
+from pathlib import Path
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+import chip_smoke  # noqa: E402
+
+TOP = 6
+# window name -> device events recorded in it
+EVENTS: dict = {}
+
+
+def busy_seconds(spans) -> float:
+    """Length of the union of [start, end) intervals given in microseconds."""
+    total, cur_start, cur_end = 0.0, None, None
+    for start, end in sorted(spans):
+        if cur_end is None or start > cur_end:
+            if cur_end is not None:
+                total += cur_end - cur_start
+            cur_start, cur_end = start, end
+        else:
+            cur_end = max(cur_end, end)
+    if cur_end is not None:
+        total += cur_end - cur_start
+    return total / 1e6
+
+
+@contextlib.contextmanager
+def traced_window(name: str, seconds: dict):
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with chip_smoke.wall_window(name, seconds):
+            yield
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    EVENTS[name] = len(events)
+    busy = busy_seconds((e.time_range.start, e.time_range.end) for e in events)
+    wall = seconds[name]
+    by_name = defaultdict(lambda: [0.0, 0])
+    for e in events:
+        by_name[e.name][0] += e.time_range.end - e.time_range.start
+        by_name[e.name][1] += 1
+    print(f"{name}: wall {wall:.4f} s, device busy {busy:.4f} s, "
+          f"idle share {1 - busy / wall:.4f}, device events {len(events)}", flush=True)
+    for kname, (us, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:TOP]:
+        print(f"    {kname[:72]:72s} {us / 1e3:10.3f} ms  x{count}", flush=True)
+
+
+def main() -> int:
+    args = chip_smoke.build_parser().parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_main: torch.cuda.is_available() is false")
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip(), flush=True)
+    chip_smoke.main_path(args, torch.device("cuda", 0), window=traced_window)
+    if not any(EVENTS.values()):
+        raise RuntimeError(f"the profiler recorded no device activity: {EVENTS}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
