@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels, and count their launches.
 
-The sources in ``csrc/`` have a plain C interface. On first use they are
-compiled for Hopper with ``nvcc`` into one shared library under
-``build/bullet_tpu_torch/<hash of the sources>/`` at the repository root and
+The sources in ``csrc/`` have a plain C interface. On first use each is
+compiled for Hopper by its own ``nvcc`` process, all started together, and
+the objects are linked into one shared library under
+``build/bullet_tpu_torch/<hash of the sources>/`` at the repository root,
 loaded with ctypes. The build writes to a temporary file and renames it, so
 two processes building at once cannot corrupt each other's library.
 
@@ -25,17 +26,24 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("merge.cu", "ring_round.cu", "frontier_dense.cu")
-HEADERS = ("lexmax.cuh",)
+SOURCES = (
+    "merge.cu", "ring_round.cu", "frontier_dense.cu",
+    "apply_packed.cu", "packed_round.cu", "reconcile_packed.cu", "frontier_packed.cu",
+)
+HEADERS = ("lexmax.cuh", "frontier.cuh")
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "bullet_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 # kernel name -> launches since the last reset; each wrapper adds one where
 # it launches its kernel, and nowhere else
-LAUNCHES = {"merge": 0, "ring_round": 0, "frontier_round_dense": 0}
+LAUNCHES = {
+    "merge": 0, "ring_round": 0, "frontier_round_dense": 0,
+    "apply_packed": 0, "packed_round": 0, "reconcile_packed": 0,
+    "frontier_round_packed": 0,
+}
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
@@ -46,6 +54,18 @@ _SIGNATURES = {
     "bt_frontier_round_dense": (
         _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P,
+    ),
+    "bt_apply_packed": (
+        _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, _P, _P,
+    ),
+    "bt_packed_round": (
+        _P, _P, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, _P,
+    ),
+    "bt_reconcile_packed": (_P, ctypes.c_int, ctypes.c_longlong, _P),
+    "bt_frontier_round_packed": (
+        _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, _P,
     ),
 }
 
@@ -77,21 +97,33 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _run(cmds) -> None:
+    """Run the commands at once; raise with the output of any that fails."""
+    procs = [
+        subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for cmd in cmds
+    ]
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)} ({proc.returncode}):\n{out}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+
+
 def _compile(target: Path) -> None:
     target.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=target.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
-    try:
-        done = subprocess.run(cmd, capture_output=True, text=True)
-        if done.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({done.returncode}):\n{done.stdout}{done.stderr}"
-            )
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=target.parent) as work:
+        objs = [os.path.join(work, Path(src).stem + ".o") for src in SOURCES]
+        _run([
+            [nvcc, *NVCC_FLAGS, "-c", str(CSRC / src), "-o", obj]
+            for src, obj in zip(SOURCES, objs)
+        ])
+        tmp = os.path.join(work, "lib.so")
+        _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
         os.replace(tmp, target)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
 
 
 def library() -> ctypes.CDLL:

@@ -1,7 +1,8 @@
-"""Carry dense tables between the reference package and the port.
+"""Carry tables between the reference package and the port.
 
-A reference ``TableState`` is a tuple of seven int32 [P, N] arrays (JAX
-arrays, or the numpy arrays of a ``PeerNetworkSim.snapshot()``); anything
+A reference ``TableState`` is a tuple of seven int32 [P, N] arrays and a
+reference ``PackedTable`` a tuple of three, (khi, klo, cv): JAX arrays, or
+the numpy arrays of a ``PeerNetworkSim.snapshot()``. Anything
 ``numpy.asarray`` accepts works, so this module needs no JAX import.
 """
 
@@ -13,19 +14,18 @@ import numpy as np
 import torch
 
 from .ops.merge import FIELDS, TableState
+from .ops.packed import PackedTable
 
 
-def table_from_numpy(fields: Sequence, device) -> TableState:
-    """Seven int32 [P, N] arrays -> a port TableState on ``device``. Always
-    copies: the port updates tables in place."""
-    if len(fields) != len(FIELDS):
-        raise ValueError(f"expected {len(FIELDS)} fields, got {len(fields)}")
+def _fields_from_numpy(fields: Sequence, count: int, device) -> Tuple[torch.Tensor, ...]:
+    if len(fields) != count:
+        raise ValueError(f"expected {count} fields, got {len(fields)}")
     arrays = [np.asarray(f) for f in fields]
     shape = arrays[0].shape
     for a in arrays:
         if a.dtype != np.int32 or a.ndim != 2 or a.shape != shape:
             raise ValueError(f"expected int32 {shape} fields, got {a.dtype} {a.shape}")
-    return TableState(*(_to_tensor(a, device) for a in arrays))
+    return tuple(_to_tensor(a, device) for a in arrays)
 
 
 def _to_tensor(a: np.ndarray, device) -> torch.Tensor:
@@ -36,6 +36,21 @@ def _to_tensor(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device, copy=True)
 
 
-def table_to_numpy(table: TableState) -> Tuple[np.ndarray, ...]:
-    """A port TableState -> seven int32 numpy arrays (copies)."""
+def table_from_numpy(fields: Sequence, device) -> TableState:
+    """Seven int32 [P, N] arrays -> a port TableState on ``device``. Always
+    copies: the port updates tables in place."""
+    return TableState(*_fields_from_numpy(fields, len(FIELDS), device))
+
+
+def packed_from_numpy(fields: Sequence, device) -> PackedTable:
+    """Three int32 [P, N] arrays (khi, klo, cv) -> a port PackedTable on
+    ``device`` (copies)."""
+    return PackedTable(*_fields_from_numpy(fields, len(PackedTable._fields), device))
+
+
+def table_to_numpy(table) -> Tuple[np.ndarray, ...]:
+    """A port table of any layout -> its int32 numpy arrays (copies)."""
     return tuple(f.detach().to("cpu", copy=True).numpy() for f in table)
+
+
+packed_to_numpy = table_to_numpy

@@ -1,0 +1,151 @@
+// Compacting frontier step, shared by every layout: m ring/chain rounds, in
+// place, on the active slot stripes only, then the next round's ids array.
+// frontier_dense.cu and frontier_packed.cu instantiate it for their entry
+// types (lexmax.cuh).
+//
+// ids layout (as the reference's ops/packed.py frontier loops use it):
+//   [0, count)    active stripe ids, ascending
+//   [t_total]     count
+//   [t_total+1]   entries changed by the step that produced this array
+//   [t_total+2]   max over stripes of the last round that changed it (m > 1)
+//
+// Design: block j owns stripe ids[j]; thread c of the block owns column c
+// of that stripe and runs m in-place column sweeps (bt::sweep_column) back
+// to back. Columns are independent under ring gossip, so no block-wide sync
+// is needed between rounds. The grid is t_total blocks; blocks with
+// j >= ids[t_total] exit at once, so the host never reads the count to size
+// the grid. The TPU appended ids in its sequential grid order; CUDA blocks
+// run in no order, so the round kernel writes each stripe's changed count
+// and last-changed round to scratch, and a second single-block kernel
+// compacts the surviving stripes (last == m) in ascending order with a
+// block prefix scan and writes the count, the changed total (wrapping mod
+// 2^32 like an int32 sum) and max(last).
+#pragma once
+
+#include "lexmax.cuh"
+
+namespace bt {
+
+// widest stripe a block takes (one thread per column); the wrappers'
+// FRONTIER_TILE_MAX
+constexpr int kMaxTile = 256;
+
+template <typename E>
+__global__ void __launch_bounds__(kMaxTile)
+    frontier_round_kernel(Fields<E::NF> t, const int32_t* ids, int p, int64_t n,
+                          int tile_n, int t_total, int m, int wrap,
+                          unsigned* stripe_changed, int32_t* stripe_last) {
+  const int j = blockIdx.x;
+  if (j >= ids[t_total]) return;  // uniform across the block
+  const int64_t col = (int64_t)ids[j] * tile_n + threadIdx.x;
+  unsigned total = 0;
+  int last = 0;
+  if (threadIdx.x < tile_n && col < n) {
+    for (int k = 1; k <= m; ++k) {
+      const unsigned c = sweep_column<E>(t, col, p, n, wrap != 0);
+      total += c;
+      if (c) last = k;
+    }
+  }
+  total = block_sum(total);
+  last = block_max(last);
+  if (threadIdx.x == 0) {
+    stripe_changed[j] = total;
+    stripe_last[j] = last;
+  }
+}
+
+// Exclusive prefix sum of a 0/1 flag over the block; *total gets the sum.
+__device__ __forceinline__ int block_exclusive_scan(int flag, int* total) {
+  __shared__ int warp_part[32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int incl = flag;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += v;
+  }
+  __syncthreads();
+  if (lane == 31) warp_part[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    const int warps = blockDim.x >> 5;
+    int w = (lane < warps) ? warp_part[lane] : 0;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, w, off);
+      if (lane >= off) w += v;
+    }
+    warp_part[lane] = w;  // inclusive prefix over warps
+  }
+  __syncthreads();
+  const int before = (warp > 0) ? warp_part[warp - 1] : 0;
+  *total = warp_part[(blockDim.x >> 5) - 1];
+  return before + incl - flag;
+}
+
+// internal linkage: every source that includes this header gets its own
+namespace {
+
+__global__ void frontier_compact_kernel(const int32_t* ids, int32_t* ids_out,
+                                        const unsigned* stripe_changed,
+                                        const int32_t* stripe_last,
+                                        int t_total, int m) {
+  const int count = ids[t_total];
+  int next = 0;
+  unsigned changed = 0;
+  int max_last = 0;
+  for (int start = 0; start < count; start += blockDim.x) {
+    const int j = start + threadIdx.x;
+    int flag = 0;
+    if (j < count) {
+      const int last = stripe_last[j];
+      flag = (last == m) ? 1 : 0;
+      changed += stripe_changed[j];
+      max_last = max(max_last, last);
+    }
+    int chunk_total;
+    const int pos = block_exclusive_scan(flag, &chunk_total);
+    if (flag) ids_out[next + pos] = ids[j];
+    next += chunk_total;
+  }
+  changed = block_sum(changed);
+  max_last = block_max(max_last);
+  if (threadIdx.x == 0) {
+    ids_out[t_total] = next;
+    ids_out[t_total + 1] = (int32_t)changed;
+    if (m > 1) ids_out[t_total + 2] = max_last;
+  }
+}
+
+}  // namespace
+
+// fields: host array of E::NF device pointers to [p, n] int32 (updated in
+// place). ids: [t_total + 2] (m = 1) or [t_total + 3] (m > 1) int32 on the
+// device; ids_out: a separate array of the same length. stripe_changed and
+// stripe_last: [t_total] int32 scratch. tile_n divides n; tile_n is a
+// multiple of 32 and at most kMaxTile.
+template <typename E>
+cudaError_t launch_frontier_round(void* const* fields, const void* ids, void* ids_out,
+                                  void* stripe_changed, void* stripe_last, int p,
+                                  long long n, int tile_n, int t_total, int m,
+                                  int wrap, cudaStream_t s) {
+  if (tile_n < 32 || tile_n > kMaxTile || tile_n % 32 || m < 1) {
+    return cudaErrorInvalidValue;
+  }
+  auto* in = static_cast<const int32_t*>(ids);
+  auto* sc = static_cast<unsigned*>(stripe_changed);
+  auto* sl = static_cast<int32_t*>(stripe_last);
+  if (t_total > 0) {
+    frontier_round_kernel<E><<<t_total, tile_n, 0, s>>>(
+        fields_of<E::NF>(fields), in, p, n, tile_n, t_total, m, wrap, sc, sl);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  frontier_compact_kernel<<<1, 1024, 0, s>>>(
+      in, static_cast<int32_t*>(ids_out), sc, sl, t_total, m);
+  return cudaGetLastError();
+}
+
+}  // namespace bt

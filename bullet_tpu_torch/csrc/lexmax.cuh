@@ -1,11 +1,15 @@
-// Shared device helpers for the dense-layout kernels: the 7-field entry,
-// the lexicographic priority compare, the Jacobi column sweep that one
+// Shared device helpers for every table layout: the entry types with their
+// lexicographic priority compares, the Jacobi column sweep that one
 // ring/chain round runs, and block reductions.
 //
-// Field order is the TableState order: cls, khi, klo, vid, writer, ctr, tick.
-// Priority keys (compared as SIGNED int32; tick is carried, never compared):
-//   reference: (cls, khi, klo, vid, writer, ctr)
-//   lww:       (ctr, cls, khi, klo, vid, writer)
+// An entry type E gives the field count E::NF and E::gt(b, a), "b beats a
+// strictly", comparing SIGNED int32 keys:
+//   DenseEntry<false>: fields (cls, khi, klo, vid, writer, ctr, tick), the
+//     TableState order, keyed (cls, khi, klo, vid, writer, ctr) (reference);
+//   DenseEntry<true>:  the same fields keyed (ctr, cls, khi, klo, vid,
+//     writer) (lww); tick is carried, never compared;
+//   PackedEntry:       fields (khi, klo, cv) with cv = cls << 28 | vid, keyed
+//     (cv >> 28, khi, klo, cv) == (cls, khi, klo, vid).
 #pragma once
 
 #include <cstdint>
@@ -13,62 +17,88 @@
 
 namespace bt {
 
-constexpr int NF = 7;
-
+template <int N>
 struct Fields {
-  int32_t* f[NF];
+  int32_t* f[N];
 };
 
+template <int N>
 struct CFields {
-  const int32_t* f[NF];
+  const int32_t* f[N];
 };
 
-// b > a strictly under the mode's priority order.
+constexpr int kCvShift = 28;
+
 template <bool LWW>
-__device__ __forceinline__ bool lex_gt(const int32_t (&b)[NF],
-                                       const int32_t (&a)[NF]) {
-  if (LWW && b[5] != a[5]) return b[5] > a[5];
+struct DenseEntry {
+  static constexpr int NF = 7;
+  __device__ __forceinline__ static bool gt(const int32_t (&b)[NF],
+                                            const int32_t (&a)[NF]) {
+    if (LWW && b[5] != a[5]) return b[5] > a[5];
 #pragma unroll
-  for (int i = 0; i < 5; ++i) {
-    if (b[i] != a[i]) return b[i] > a[i];
+    for (int i = 0; i < 5; ++i) {
+      if (b[i] != a[i]) return b[i] > a[i];
+    }
+    if (!LWW && b[5] != a[5]) return b[5] > a[5];
+    return false;
   }
-  if (!LWW && b[5] != a[5]) return b[5] > a[5];
-  return false;
-}
+};
 
-__device__ __forceinline__ void copy_entry(int32_t (&dst)[NF],
-                                           const int32_t (&src)[NF]) {
+struct PackedEntry {
+  static constexpr int NF = 3;
+  __device__ __forceinline__ static bool gt(const int32_t (&b)[NF],
+                                            const int32_t (&a)[NF]) {
+    const int32_t bc = b[2] >> kCvShift, ac = a[2] >> kCvShift;
+    if (bc != ac) return bc > ac;
+    if (b[0] != a[0]) return b[0] > a[0];
+    if (b[1] != a[1]) return b[1] > a[1];
+    return b[2] > a[2];
+  }
+  // a live op: cls (the top bits of cv) > 0
+  __device__ __forceinline__ static bool present(const int32_t (&v)[NF]) {
+    return (v[2] >> kCvShift) > 0;
+  }
+};
+
+template <int N>
+__device__ __forceinline__ void copy_entry(int32_t (&dst)[N], const int32_t (&src)[N]) {
 #pragma unroll
-  for (int i = 0; i < NF; ++i) dst[i] = src[i];
+  for (int i = 0; i < N; ++i) dst[i] = src[i];
 }
 
-__device__ __forceinline__ void zero_entry(int32_t (&dst)[NF]) {
+template <int N>
+__device__ __forceinline__ void zero_entry(int32_t (&dst)[N]) {
 #pragma unroll
-  for (int i = 0; i < NF; ++i) dst[i] = 0;
+  for (int i = 0; i < N; ++i) dst[i] = 0;
 }
 
-__device__ __forceinline__ void load_entry(int32_t (&dst)[NF], const Fields& t,
+template <int N>
+__device__ __forceinline__ void load_entry(int32_t (&dst)[N], const Fields<N>& t,
                                            int64_t idx) {
 #pragma unroll
-  for (int i = 0; i < NF; ++i) dst[i] = t.f[i][idx];
+  for (int i = 0; i < N; ++i) dst[i] = t.f[i][idx];
 }
 
-__device__ __forceinline__ void store_entry(const Fields& t, int64_t idx,
-                                            const int32_t (&src)[NF]) {
+template <int N>
+__device__ __forceinline__ void store_entry(const Fields<N>& t, int64_t idx,
+                                            const int32_t (&src)[N]) {
 #pragma unroll
-  for (int i = 0; i < NF; ++i) t.f[i][idx] = src[i];
+  for (int i = 0; i < N; ++i) t.f[i][idx] = src[i];
 }
 
-// One ring (wrap) or chain round on column `col` of a [p, n] table, in
-// place: row r <- lexmax(lexmax(row r, row r-1), row r+1), every neighbour
-// taken from the PRE-round table. The thread keeps the pre-round rows r-1
-// and r, and the original row 0 (the ring's wrap-around for row p-1), in
-// registers, so overwriting row r never corrupts a later read. A chain's
-// missing neighbour is an all-zero entry that is still compared. Returns
-// the changed count sum(gt1) + sum(gt2) (an entry can count twice).
-template <bool LWW>
-__device__ __forceinline__ unsigned sweep_column(const Fields& t, int64_t col,
+// One ring (wrap) or chain round on column `col` of a [p, n] table: row
+// r <- lexmax(lexmax(row r, row r-1), row r+1), every neighbour taken from
+// the PRE-round table. With STORE the round runs in place: the thread
+// keeps the pre-round rows r-1 and r, and the original row 0 (the ring's
+// wrap-around for row p-1), in registers, so overwriting row r never
+// corrupts a later read. Without STORE nothing is written (the count-only
+// probe). A chain's missing neighbour is an all-zero entry that is still
+// compared. Returns the changed count sum(gt1) + sum(gt2) (an entry can
+// count twice).
+template <typename E, bool STORE = true>
+__device__ __forceinline__ unsigned sweep_column(const Fields<E::NF>& t, int64_t col,
                                                  int p, int64_t n, bool wrap) {
+  constexpr int NF = E::NF;
   int32_t row0[NF], up[NF], cur[NF], down[NF];
   load_entry(row0, t, col);
   if (wrap) {
@@ -88,15 +118,15 @@ __device__ __forceinline__ unsigned sweep_column(const Fields& t, int64_t col,
     }
     int32_t m[NF];
     copy_entry(m, cur);
-    if (lex_gt<LWW>(up, m)) {
+    if (E::gt(up, m)) {
       copy_entry(m, up);
       ++changed;
     }
-    if (lex_gt<LWW>(down, m)) {
+    if (E::gt(down, m)) {
       copy_entry(m, down);
       ++changed;
     }
-    store_entry(t, (int64_t)r * n + col, m);
+    if (STORE) store_entry(t, (int64_t)r * n + col, m);
     copy_entry(up, cur);
     copy_entry(cur, down);
   }
@@ -140,6 +170,13 @@ __device__ __forceinline__ int block_max(int v) {
     for (int off = 16; off > 0; off >>= 1) v = max(v, __shfl_down_sync(0xffffffffu, v, off));
   }
   return v;
+}
+
+template <int N>
+inline Fields<N> fields_of(void* const* ptrs) {
+  Fields<N> t;
+  for (int f = 0; f < N; ++f) t.f[f] = static_cast<int32_t*>(ptrs[f]);
+  return t;
 }
 
 inline int sm_count() {

@@ -16,21 +16,23 @@
 namespace {
 
 template <bool LWW>
-__global__ void merge_kernel(bt::CFields a, bt::CFields b, bt::Fields out,
+__global__ void merge_kernel(bt::CFields<7> a, bt::CFields<7> b, bt::Fields<7> out,
                              unsigned* count, int64_t n) {
+  using E = bt::DenseEntry<LWW>;
+  constexpr int NF = E::NF;
   unsigned wins = 0;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += stride) {
-    int32_t va[bt::NF], vb[bt::NF];
+    int32_t va[NF], vb[NF];
 #pragma unroll
-    for (int f = 0; f < bt::NF; ++f) {
+    for (int f = 0; f < NF; ++f) {
       va[f] = a.f[f][i];
       vb[f] = b.f[f][i];
     }
-    const bool take_b = bt::lex_gt<LWW>(vb, va);
+    const bool take_b = E::gt(vb, va);
 #pragma unroll
-    for (int f = 0; f < bt::NF; ++f) out.f[f][i] = take_b ? vb[f] : va[f];
+    for (int f = 0; f < NF; ++f) out.f[f][i] = take_b ? vb[f] : va[f];
     wins += take_b ? 1u : 0u;
   }
   wins = bt::block_sum(wins);
@@ -44,13 +46,12 @@ __global__ void merge_kernel(bt::CFields a, bt::CFields b, bt::Fields out,
 extern "C" cudaError_t bt_merge(void* const* a, void* const* b,
                                 void* const* out, void* count, long long n,
                                 int lww, void* stream) {
-  bt::CFields fa, fb;
-  bt::Fields fo;
-  for (int f = 0; f < bt::NF; ++f) {
+  bt::CFields<7> fa, fb;
+  for (int f = 0; f < 7; ++f) {
     fa.f[f] = static_cast<const int32_t*>(a[f]);
     fb.f[f] = static_cast<const int32_t*>(b[f]);
-    fo.f[f] = static_cast<int32_t*>(out[f]);
   }
+  const bt::Fields<7> fo = bt::fields_of<7>(out);
   const int threads = 256;
   long long blocks = (n + threads - 1) / threads;
   const long long cap = 8LL * bt::sm_count();

@@ -22,11 +22,11 @@
 namespace {
 
 template <bool LWW>
-__global__ void ring_round_kernel(bt::Fields t, int p, int64_t n, int wrap,
+__global__ void ring_round_kernel(bt::Fields<7> t, int p, int64_t n, int wrap,
                                   unsigned* count) {
   const int64_t col = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   unsigned changed = 0;
-  if (col < n) changed = bt::sweep_column<LWW>(t, col, p, n, wrap != 0);
+  if (col < n) changed = bt::sweep_column<bt::DenseEntry<LWW>>(t, col, p, n, wrap != 0);
   changed = bt::block_sum(changed);
   if (threadIdx.x == 0 && changed) atomicAdd(count, changed);
 }
@@ -38,8 +38,7 @@ __global__ void ring_round_kernel(bt::Fields t, int p, int64_t n, int wrap,
 extern "C" cudaError_t bt_ring_round(void* const* fields, void* count, int p,
                                      long long n, int wrap, int lww,
                                      void* stream) {
-  bt::Fields t;
-  for (int f = 0; f < bt::NF; ++f) t.f[f] = static_cast<int32_t*>(fields[f]);
+  const bt::Fields<7> t = bt::fields_of<7>(fields);
   const int threads = 128;
   const long long blocks = (n + threads - 1) / threads;
   auto s = static_cast<cudaStream_t>(stream);

@@ -1,15 +1,18 @@
-"""PeerNetworkSim on PyTorch: P replicated peers, one dense graph table each.
+"""PeerNetworkSim on PyTorch: P replicated peers, one graph table each.
 
-The port of ``bullet_tpu.models.netsim`` for the dense layout:
+The port of ``bullet_tpu.models.netsim`` for the dense (7 fields,
+28 B/entry) and packed (3 fields, 12 B/entry, reference mode only)
+layouts:
 
     step = apply op batch  ->  gossip round(s) over the topology
 
-with the tables resident on ``device``. On a CUDA device the ring/chain
-rounds, the compacting frontier convergence and the reconcile merges run
-the hand-written kernels of ``bullet_tpu_torch/csrc``; on the CPU the same
-routes run their plain PyTorch versions. ``use_kernels`` (default: the
-device is CUDA) picks the kernel routes, as ``use_pallas`` does in the
-reference package; only a CPU sim may turn it off.
+with the tables resident on ``device``. On a CUDA device the op apply
+(packed), the ring/chain rounds, the compacting frontier convergence and
+the reconcile run the hand-written kernels of ``bullet_tpu_torch/csrc``;
+on the CPU the same routes run their plain PyTorch versions.
+``use_kernels`` (default: the device is CUDA) picks the kernel routes, as
+``use_pallas`` does in the reference package; only a CPU sim may turn it
+off.
 
 Convergence is deterministic: the merge is a join-semilattice, so
 ``run_until_converged`` reaches the unique fixed point in at most
@@ -23,13 +26,13 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from bullet_tpu.utils.encode import CLS_ABSENT, VID_NULL
-
-from ..convert import table_from_numpy, table_to_numpy
+from ..convert import packed_from_numpy, table_from_numpy, table_to_numpy
+from ..ops import packed as pk
 from ..ops.apply import OpBatch, apply_ops
 from ..ops.merge import TableState, init_table, lex_gt, priority_keys
 from ..parallel import topology as topo
 from ..parallel.gossip import gossip_round, gossip_round_mesh, gossip_until_converged
+from ..utils.encode import CLS_ABSENT, VID_NULL
 from .table import MISSING, GraphHost, flatten_value
 
 TopologyLike = Union[str, topo.Topology]
@@ -39,15 +42,26 @@ class ConvergenceCell(NamedTuple):
     """The dispatch-relevant shape of a convergence request. Built by
     ``PeerNetworkSim._convergence_cell``; consumed by the strategy table."""
 
+    layout: str  # "dense" | "packed"
     ring_chain: bool  # topology kind is ring or chain
     frontier: bool  # the frontier kernel tiles this shape (tile > 0)
     kernels: bool  # use_kernels
 
 
 # Convergence strategy table: (name, predicate, runner method name) — FIRST
-# match wins. The reference package's table has more rows (packed layouts,
-# multi-device); these are the two rows of a single-device dense sim.
+# match wins. The reference package's table has more rows (rank layouts,
+# multi-device); these are the rows of a single-device dense or packed sim.
 CONVERGENCE_STRATEGIES: Tuple[Tuple[str, Callable, str], ...] = (
+    (
+        "packed-frontier-local",  # packed compacting frontier, fused on the card
+        lambda c: c.layout == "packed" and c.frontier and c.ring_chain and c.kernels,
+        "_converge_frontier_local",
+    ),
+    (
+        "packed-loop",  # packed whole-table round loop (any topology)
+        lambda c: c.layout == "packed",
+        "_converge_packed_loop",
+    ),
     (
         "dense-frontier",  # compacting frontier, fused rounds on the card
         lambda c: c.frontier and c.ring_chain and c.kernels,
@@ -65,7 +79,7 @@ def _group_positions(peers: np.ndarray, num_peers: int):
     """Within-batch sequence position of each op among its peer's ops, plus
     per-peer counts (stable order). Shared by put_bulk and _drain_ops so the
     Lamport stamps and dense batch positions can never diverge."""
-    from bullet_tpu import native
+    from .. import native
 
     fast = native.group_positions(peers, num_peers)
     if fast is not None:
@@ -119,6 +133,36 @@ def _rekey(table: TableState, cls_map, khi_map, klo_map) -> TableState:
     )
 
 
+def _rekey_packed(table: pk.PackedTable, cls_map, khi_map, klo_map) -> pk.PackedTable:
+    """Packed twin of ``_rekey``, in place on column blocks (a whole-table
+    pass would need int64 temporaries several times the table)."""
+    p, n = table.cv.shape
+    width = max(1, (1 << 24) // max(p, 1))  # 2^24-entry blocks
+    last = cls_map.numel() - 1
+    for c0 in range(0, n, width):
+        khi, klo, cv = (f[:, c0:c0 + width] for f in table)
+        present = (cv >> pk.CV_SHIFT) > 0
+        vid = cv & pk.VID_MASK
+        idx = vid.to(torch.int64).clamp_(0, last)  # vids clamp, as in _rekey
+        khi.copy_(torch.where(present, khi_map[idx], khi))
+        klo.copy_(torch.where(present, klo_map[idx], klo))
+        cv.copy_(torch.where(present, pk.pack_cv(cls_map[idx], vid), cv))
+    return table
+
+
+def _closure_join_packed(table: pk.PackedTable, idx, members) -> pk.PackedTable:
+    """Packed twin of ``_closure_join_dense`` (reference mode): join rows
+    ``table[idx]`` by roll-doubling, write the join to rows ``members``."""
+    rows = pk.PackedTable(*(f[idx] for f in table))
+    for s in range((len(idx) - 1).bit_length()):
+        rows, _ = pk.merge_packed_torch(
+            rows, pk.PackedTable(*(torch.roll(f, 1 << s, 0) for f in rows))
+        )
+    for f, r in zip(table, rows):
+        f[members] = r[0]
+    return table
+
+
 def _closure_join_dense(table: TableState, idx, members, mode: str) -> TableState:
     """Join rows ``table[idx]`` under ``mode``'s priority order by
     roll-doubling and write the join to rows ``members``, in place — one
@@ -149,8 +193,11 @@ class PeerNetworkSim:
         frontier in ``run_until_converged``); default: the device is CUDA.
         A CUDA sim always takes them; on the CPU they run the kernels'
         plain versions, and False picks the whole-table round loop
-    layout : "dense" only; the packed and rank layouts are not ported yet
-    device : where the tables live ("cuda", "cpu", a torch.device)
+    layout : "dense" (7 fields, full metadata) | "packed" (3 fields,
+        12 B/entry, reference mode only; see ops/packed.py); the rank
+        layouts are not ported yet
+    device : where the tables live ("cuda", the default; "cpu"; a
+        torch.device)
     """
 
     def __init__(
@@ -165,12 +212,18 @@ class PeerNetworkSim:
         lean_gossip: bool = False,
         layout: str = "dense",
         *,
-        device,
+        device="cuda",
     ) -> None:
-        if layout != "dense":
+        if layout in ("rank", "rank1"):
             raise NotImplementedError(
-                f"layout={layout!r} is not ported yet "
-                "(ROADMAP.md Queue 1: packed layout, rank layouts)"
+                f"layout={layout!r} is not ported yet (ROADMAP.md Queue 1: rank layouts)"
+            )
+        if layout not in ("dense", "packed"):
+            raise ValueError(f"unknown layout: {layout}")
+        if layout == "packed" and mode != "reference":
+            raise ValueError(
+                "packed layout supports reference mode only "
+                "(no writer/ctr metadata for lww priority)"
             )
         if mesh_devices or use_shard_map:
             raise NotImplementedError(
@@ -199,7 +252,7 @@ class PeerNetworkSim:
         if self.topology.num_peers != num_peers:
             raise ValueError("topology size != num_peers")
         self.host = GraphHost(capacity)
-        self.table = init_table(num_peers, capacity, self.device)
+        self.table = self._init_table(num_peers, capacity)
         self.capacity = capacity
         self.tick = 0
         self._clock = np.zeros(num_peers, dtype=np.int64)
@@ -264,7 +317,7 @@ class PeerNetworkSim:
             # call + vectorized value encode instead of a Python loop per
             # leaf (outcome identical — enqueue order never affects the
             # converged state)
-            from bullet_tpu.utils.encode import bulk_encode_values
+            from ..utils.encode import bulk_encode_values
 
             slots = self.host.intern_batch([p for p, _ in leaves])
             cls, khi, klo, vid = bulk_encode_values(
@@ -360,11 +413,11 @@ class PeerNetworkSim:
         # np.asarray on a mixed list would silently coerce bools (and
         # mixed strings) to numbers, diverging from scalar-put encoding
         if isinstance(values, np.ndarray) and values.dtype.kind in "ifu":
-            from bullet_tpu.utils.encode import bulk_encode_numbers
+            from ..utils.encode import bulk_encode_numbers
 
             cls, khi, klo, vid = bulk_encode_numbers(self.host.values, values)
         else:
-            from bullet_tpu.utils.encode import bulk_encode_values
+            from ..utils.encode import bulk_encode_values
 
             raw_vals = (
                 values.tolist() if isinstance(values, np.ndarray) else list(values)
@@ -445,6 +498,31 @@ class PeerNetworkSim:
         self._drained_slots_np = fields[0]
         return OpBatch(*(torch.from_numpy(f).to(self.device) for f in fields))
 
+    def _drain_flat(self):
+        """Queued ops as flat numpy arrays (peer, slot, cls, khi, klo, vid) —
+        the packed-layout ingestion shape (no dense [P, B] padding)."""
+        chunks = []
+        for p, ops in enumerate(self._pending):
+            if ops:
+                a = np.asarray(ops, dtype=np.int32)  # rows: slot..ctr
+                chunks.append(
+                    (np.full(len(ops), p, dtype=np.int32),
+                     a[:, 0], a[:, 1], a[:, 2], a[:, 3], a[:, 4])
+                )
+                ops.clear()
+        for bulk in self._pending_bulk:
+            peers, slots, cls, khi, klo, vid, _ctr = bulk
+            chunks.append((peers, slots, cls, khi, klo, vid))
+        self._pending_bulk.clear()
+        if not chunks:
+            return None
+        return tuple(np.concatenate([c[i] for c in chunks]) for i in range(6))
+
+    def _init_table(self, num_peers: int, capacity: int):
+        if self.layout == "packed":
+            return pk.init_packed(num_peers, capacity, self.device)
+        return init_table(num_peers, capacity, self.device)
+
     def _ensure_capacity(self) -> None:
         needed = len(self.host.paths)
         if needed <= self.capacity:
@@ -453,7 +531,7 @@ class PeerNetworkSim:
         while new_cap < needed:
             new_cap *= 2
         self._frontier_dirty = None  # stripe count changes with capacity
-        grown = init_table(self.num_peers, new_cap, self.device)
+        grown = self._init_table(self.num_peers, new_cap)
         for g, f in zip(grown, self.table):
             g[:, : self.capacity] = f
         self.table = grown
@@ -466,34 +544,61 @@ class PeerNetworkSim:
             torch.from_numpy(np.asarray(m, dtype=np.int32)).to(self.device)
             for m in self.host.key_tables()
         )
-        self.table = _rekey(self.table, *maps)
+        rekey = _rekey_packed if self.layout == "packed" else _rekey
+        self.table = rekey(self.table, *maps)
         self.host.needs_rekey = False
 
+    def _mark_dirty(self, slots: np.ndarray) -> None:
+        """Frontier bookkeeping: the stripes holding ``slots`` need work."""
+        if self._frontier_dirty is None:
+            return
+        tile_n = self._frontier_tile()
+        if tile_n and len(self._frontier_dirty) == self.table[0].shape[1] // tile_n:
+            self._frontier_dirty[np.unique(slots // tile_n)] = True
+        else:
+            self._frontier_dirty = None
+
     def _apply_pending(self) -> int:
-        """Drain + apply; returns the applied count."""
+        """Drain + apply, layout-dispatched; returns the applied count."""
+        if self.layout == "packed":
+            return self._apply_pending_packed()
         drained = self._drain_ops()
         if drained is None:
             return 0
-        if self._frontier_dirty is not None:
-            tile_n = self._frontier_tile()
-            if tile_n and len(self._frontier_dirty) == self.table.cls.shape[1] // tile_n:
-                self._frontier_dirty[
-                    np.unique(self._drained_slots_np // tile_n)
-                ] = True
-            else:
-                self._frontier_dirty = None
+        self._mark_dirty(self._drained_slots_np)
         self.table, applied = apply_ops(self.table, drained, self.tick, mode=self.mode)
+        return int(applied)
+
+    def _apply_pending_packed(self) -> int:
+        """Packed apply: host lattice pre-reduction per (peer, slot), then
+        ONE upload of the [5, K] winners and one flat apply (the kernel on
+        the card) — no dense batch. Unlike the reference, ops are never
+        staged on the device at put time (that hid a TPU link's latency)."""
+        flat = self._drain_flat()
+        if flat is None:
+            return 0
+        if len(self.host.values) > pk.MAX_VID:
+            raise RuntimeError(
+                f"packed layout caps distinct values at 2^28; interner "
+                f"holds {len(self.host.values)} — use layout='dense'"
+            )
+        reduced = pk.reduce_flat_ops(*flat)
+        if reduced is None:
+            return 0
+        self._mark_dirty(reduced[1])
+        ops = torch.from_numpy(np.stack(reduced)).to(self.device)
+        self.table, applied = pk.apply_flat_packed(self.table, ops)
         return int(applied)
 
     def _frontier_tile(self) -> int:
         """Stripe width the frontier convergence path would use at the
         current shape; 0 = no stripe width fits and dirty-stripe
         bookkeeping is pointless."""
-        from ..ops.ring_kernel import frontier_tile_n_dense
-
-        return frontier_tile_n_dense(self.table.cls.shape[1])
+        return pk.frontier_tile_n(self.table[0].shape[1])
 
     def _one_round(self):
+        if self.layout == "packed":
+            return pk.gossip_round_packed(self.table, self.topology)
         return gossip_round(self.table, self.topology, self.mode)
 
     def step(self, rounds: int = 1) -> int:
@@ -534,6 +639,7 @@ class PeerNetworkSim:
 
     def _convergence_cell(self) -> ConvergenceCell:
         return ConvergenceCell(
+            layout=self.layout,
             ring_chain=self.topology.kind in ("ring", "chain"),
             frontier=self._frontier_tile() > 0,
             kernels=self.use_kernels,
@@ -546,7 +652,7 @@ class PeerNetworkSim:
         for name, pred, method in CONVERGENCE_STRATEGIES:
             if pred(cell):
                 return name, getattr(self, method)
-        raise AssertionError("unreachable: dense-loop matches every cell")
+        raise AssertionError("unreachable: the last row matches every cell")
 
     def _frontier_seed(self, t_total: int) -> torch.Tensor:
         """Dirty-stripe seed for a frontier loop: the incrementally tracked
@@ -574,6 +680,28 @@ class PeerNetworkSim:
         self._fire_subscriptions()
         return rounds
 
+    def _converge_frontier_local(self, max_rounds: int) -> int:
+        """Packed compacting frontier loop; on the card STRIPE_FUSE rounds
+        fuse per kernel step, with the exact classic round count rebuilt on
+        the host. On the CPU the plain version runs unfused."""
+        tile_n = self._frontier_tile()
+        t_total = self.table[0].shape[1] // tile_n
+        fuse = pk.STRIPE_FUSE if self.device.type == "cuda" else 1
+        self.table, rounds, final_changed = pk.gossip_frontier_packed(
+            self.table, self._frontier_seed(t_total),
+            self.topology.kind == "ring", max_rounds, fuse=fuse, tile_n=tile_n,
+        )
+        self._finish_frontier(t_total, rounds, final_changed, max_rounds)
+        return self._finish_converge(rounds, final_changed)
+
+    def _converge_packed_loop(self, max_rounds: int) -> int:
+        """Packed whole-table round loop for any topology, one count read
+        per round."""
+        self.table, rounds, final_changed = pk.gossip_until_converged_packed(
+            self.table, self.topology, max_rounds
+        )
+        return self._finish_converge(rounds, final_changed)
+
     def _converge_dense_frontier(self, max_rounds: int) -> int:
         """Compacting frontier loop; on the card STRIPE_FUSE rounds fuse
         per kernel step, with the exact classic round count rebuilt on the
@@ -583,7 +711,7 @@ class PeerNetworkSim:
         from ..ops.ring_kernel import gossip_frontier_dense
 
         tile_n = self._frontier_tile()
-        t_total = self.table.cls.shape[1] // tile_n
+        t_total = self.table[0].shape[1] // tile_n
         fuse = STRIPE_FUSE if self.device.type == "cuda" else 1
         self.table, rounds, final_changed = gossip_frontier_dense(
             self.table, self._frontier_seed(t_total),
@@ -605,19 +733,23 @@ class PeerNetworkSim:
         """Directly reconcile every replica to the gossip fixed point —
         WITHOUT simulating protocol rounds — on ANY topology.
 
-        On a strongly connected topology every peer reaches every peer, and
-        ceil(log2 P) doubling merges (the merge kernel on the card) join
-        every row. Otherwise a dynamic program over the SCC condensation
-        joins each component's members plus one representative row per
-        successor component. Either way the result is bit-identical to
-        run_until_converged's fixed point. Pending ops apply first;
-        subscriptions fire as usual."""
+        On a strongly connected topology every peer reaches every peer, so
+        every row becomes the join of its whole column: ceil(log2 P)
+        doubling merges (the merge kernel on the card) on the dense layout,
+        one pass of the reconcile kernel on the packed layout. Otherwise a
+        dynamic program over the SCC condensation joins each component's
+        members plus one representative row per successor component.
+        Either way the result is bit-identical to run_until_converged's
+        fixed point. Pending ops apply first; subscriptions fire as
+        usual."""
         self._ensure_capacity()
         self._maybe_rekey()
         self.tick += 1
         self.stats["ops_applied"] += self._apply_pending()
         if not self.topology.is_connected():
             self._reconcile_weak()
+        elif self.layout == "packed":
+            self.table = pk.reconcile_packed(self.table)
         else:
             self.table, _ = gossip_round_mesh(self.table, self.mode)
         self.stats["steps"] += 1
@@ -625,7 +757,7 @@ class PeerNetworkSim:
         tile_n = self._frontier_tile()
         if tile_n:
             self._frontier_dirty = np.zeros(
-                self.table.cls.shape[1] // tile_n, dtype=bool
+                self.table[0].shape[1] // tile_n, dtype=bool
             )
         self._sync_clocks()
         self._fire_subscriptions()
@@ -653,12 +785,12 @@ class PeerNetworkSim:
             ]
             if len(idx) == 1:
                 continue  # singleton with no pulls: already its closure
-            self.table = _closure_join_dense(
-                self.table,
-                torch.tensor(idx, dtype=torch.int64, device=self.device),
-                torch.from_numpy(members[c]).to(self.device),
-                self.mode,
-            )
+            idx_t = torch.tensor(idx, dtype=torch.int64, device=self.device)
+            mem_t = torch.from_numpy(members[c]).to(self.device)
+            if self.layout == "packed":
+                self.table = _closure_join_packed(self.table, idx_t, mem_t)
+            else:
+                self.table = _closure_join_dense(self.table, idx_t, mem_t, self.mode)
 
     def _sync_clocks(self) -> None:
         """Lamport clock advance: after gossip every peer's clock must exceed
@@ -672,11 +804,22 @@ class PeerNetworkSim:
         self._clock_list = self._clock.tolist()
 
     def converged(self) -> bool:
-        """True iff one more gossip round would change nothing. The round
-        runs on a scratch copy: the port's rounds update in place."""
+        """True iff one more gossip round would change nothing. A packed
+        ring/chain sim asks the count-only probe (the kernel writes
+        nothing, so no table-sized scratch at the north-star shape); other
+        sims run the round on a scratch copy, since the port's rounds
+        update in place."""
         self._sync_device_state()
-        scratch = TableState(*(f.clone() for f in self.table))
-        _, changed = gossip_round(scratch, self.topology, self.mode)
+        if self.layout == "packed" and self.topology.kind in ("ring", "chain"):
+            changed = pk.count_changes_round_packed(
+                self.table, self.topology.kind == "ring"
+            )
+            return int(changed) == 0
+        scratch = type(self.table)(*(f.clone() for f in self.table))
+        if self.layout == "packed":
+            _, changed = pk.gossip_round_packed(scratch, self.topology)
+        else:
+            _, changed = gossip_round(scratch, self.topology, self.mode)
         return int(changed) == 0
 
     # ----------------------------------------------------------------- reads
@@ -687,21 +830,25 @@ class PeerNetworkSim:
         self._ensure_capacity()
         self._maybe_rekey()
 
-    def _gather(self, fields, peers, slots) -> List[np.ndarray]:
+    def _gather_cls_vid(self, peers, slots) -> Tuple[np.ndarray, np.ndarray]:
+        """(cls, vid) at the K (peer, slot) pairs, in one device gather per
+        stored field (one, cv, on the packed layout)."""
         idx = tuple(
             torch.from_numpy(np.ascontiguousarray(a, dtype=np.int64)).to(self.device)
             for a in (peers, slots)
         )
-        return [f[idx].cpu().numpy() for f in fields]
+        if self.layout == "packed":
+            cv = self.table.cv[idx].cpu().numpy()
+            return cv >> pk.CV_SHIFT, cv & pk.VID_MASK
+        return self.table.cls[idx].cpu().numpy(), self.table.vid[idx].cpu().numpy()
 
     def _decode_slots(self, peer: int, slots: List[int]) -> Dict[int, Any]:
         if not slots:
             return {}
         self._sync_device_state()
         slots_np = np.asarray(slots, dtype=np.int64)
-        cls, vid = self._gather(
-            (self.table.cls, self.table.vid),
-            np.full(len(slots_np), peer, dtype=np.int64), slots_np,
+        cls, vid = self._gather_cls_vid(
+            np.full(len(slots_np), peer, dtype=np.int64), slots_np
         )
         sel = cls != CLS_ABSENT
         dec = self.host.values.decode_batch(np.where(vid[sel] == VID_NULL, 0, vid[sel]))
@@ -747,7 +894,7 @@ class PeerNetworkSim:
         k = len(slots)
         peers_arr = np.broadcast_to(np.asarray(peers, dtype=np.int32), (k,))
         self._sync_device_state()
-        cls, vid = self._gather((self.table.cls, self.table.vid), peers_arr, slots)
+        cls, vid = self._gather_cls_vid(peers_arr, slots)
         present = valid & (cls != CLS_ABSENT) & (vid != VID_NULL)
         out_arr = np.full(k, None, dtype=object)
         if present.any():
@@ -815,9 +962,7 @@ class PeerNetworkSim:
     def _gather_watch_values(self) -> np.ndarray:
         if len(self._watch_peers) == 0:
             return np.empty((0,), dtype=np.int64)
-        cls, vid = self._gather(
-            (self.table.cls, self.table.vid), self._watch_peers, self._watch_slots
-        )
+        cls, vid = self._gather_cls_vid(self._watch_peers, self._watch_slots)
         return (cls.astype(np.int64) << 32) | vid.astype(np.int64)
 
     def _fire_subscriptions(self) -> None:
@@ -864,7 +1009,8 @@ class PeerNetworkSim:
 
     def restore(self, snap: dict) -> None:
         """Rewind to EXACTLY the snapshot state; accepts this class's
-        snapshots and the reference package's dense ``snapshot()`` dicts.
+        snapshots and the reference package's ``snapshot()`` dicts of the
+        same layout.
         Pending (un-applied) puts are DISCARDED: they belong to the
         abandoned post-snapshot timeline. The host interners are not part
         of a snapshot."""
@@ -872,7 +1018,8 @@ class PeerNetworkSim:
             ops.clear()
         self._pending_bulk.clear()
         self._frontier_dirty = None
-        self.table = table_from_numpy(snap["table"], self.device)
+        from_numpy = packed_from_numpy if self.layout == "packed" else table_from_numpy
+        self.table = from_numpy(snap["table"], self.device)
         self.tick = snap["tick"]
         self._clock = np.asarray(snap["clock"], dtype=np.int64).copy()
         self._clock_list = self._clock.tolist()
@@ -880,7 +1027,10 @@ class PeerNetworkSim:
 
     def tables_equal(self) -> bool:
         """All peers bit-identical in (cls, vid) — the convergence
-        acceptance check. Computed on the device; one scalar crosses to the
-        host."""
+        acceptance check (cv alone on the packed layout: cv equal <=>
+        (cls, vid) equal). Computed on the device; one scalar crosses to
+        the host."""
         t = self.table
+        if self.layout == "packed":
+            return bool((t.cv == t.cv[0:1]).all())
         return bool((t.vid == t.vid[0:1]).all() & (t.cls == t.cls[0:1]).all())

@@ -7,9 +7,9 @@ puts become per-leaf ops, mirroring the bullet-js sync wire format), tree
 reconstruction for reads, capacity growth, and re-keying after a
 string-rank rebalance.
 
-The interners are the reference package's numpy/native ones, imported
-directly (they import no JAX). ``struct()``, the device view of the path
-structure, waits for the port of the query scans.
+The interners are the port's own copies of the reference package's
+numpy/native ones (``utils/``, ``native/``). ``struct()``, the device view
+of the path structure, waits for the port of the query scans.
 """
 
 from __future__ import annotations
@@ -18,8 +18,8 @@ from typing import Any, Dict, Iterator, List, Tuple
 
 import numpy as np
 
-from bullet_tpu.utils.encode import ValueInterner
-from bullet_tpu.utils.paths import PathInterner
+from ..utils.encode import ValueInterner
+from ..utils.paths import PathInterner
 
 
 def flatten_value(path: str, value: Any) -> Iterator[Tuple[str, Any]]:
@@ -43,7 +43,7 @@ class GraphHost:
     """
 
     def __init__(self, capacity: int = 1024) -> None:
-        from bullet_tpu.native import make_path_interner
+        from ..native import make_path_interner
 
         self.paths = make_path_interner()
         self._native_paths = not isinstance(self.paths, PathInterner)

@@ -25,7 +25,7 @@ FIELDS = ("cls", "khi", "klo", "vid", "writer", "ctr", "tick")
 class TableState(NamedTuple):
     """One replica table per simulated peer: all tensors int32 [P, N].
 
-    ``cls/khi/klo/vid`` encode the leaf value (bullet_tpu.utils.encode);
+    ``cls/khi/klo/vid`` encode the leaf value (utils/encode.py);
     ``writer`` is the peer id of the winning write, ``ctr`` its Lamport
     counter, ``tick`` the sim step of last modification.
     """

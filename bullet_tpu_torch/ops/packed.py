@@ -1,9 +1,38 @@
-"""Frontier-loop helpers shared by the layouts (the packed layout itself is
-not ported yet).
+"""Packed 12 B/entry layout: the port of ``bullet_tpu.ops.packed``.
+
+Reference-mode merge priority only reads the four value keys (cls, khi,
+klo, vid); packing cls (3 bits) and vid (< 2^28) into one word
+``cv = cls << 28 | vid`` gives a 3-array table
+
+    khi, klo, cv : int32 [P, N]   -> 12 B/entry
+
+so 1,024 peers x 2^20 slots take 12.9 GB. The merge order is
+lexicographic over ``(cv >> 28, khi, klo, cv)`` == (cls, khi, klo, vid).
+The helpers are generic over the field count, as the reference's are:
+3 = packed ``(khi, klo, cv)``, 2 = rank ``(rank, cv)``, 1 = rank1.
+
+Each kernel sits beside its plain PyTorch version:
+
+* ``apply_flat_packed`` (``csrc/apply_packed.cu``) /
+  ``apply_flat_packed_torch``: K pre-reduced ops, in place, win count;
+* ``ring_round_packed`` / ``ring_multiround_packed`` /
+  ``count_changes_round_packed`` (``csrc/packed_round.cu``) /
+  ``packed_round_torch``: m in-place ring/chain rounds, or the count one
+  round would make;
+* ``reconcile_packed`` (``csrc/reconcile_packed.cu``) /
+  ``reconcile_packed_torch``: every row becomes its column's join;
+* ``frontier_round_packed`` (``csrc/frontier_packed.cu``) /
+  ``frontier_round_packed_torch``: m rounds over the active stripes only,
+  returning the next compact ids array.
+
+A wrapper given CPU tensors runs the plain version; given CUDA tensors it
+launches its kernel or raises (only the packed layout, nf = 3, has
+kernels so far). The kernels update the table in place; the port keeps
+one table allocation where the reference donated and re-bound buffers.
 
 The compacting frontier loops carry a compact ids array instead of
-per-stripe dirty flags; the frontier step produces the next one. Layout of
-the ids array ([t_total + 2] int32, [t_total + 3] for fused steps):
+per-stripe dirty flags; each frontier step produces the next one. Layout
+([t_total + 2] int32, [t_total + 3] for fused steps):
 
 * ``[0, count)``   dirty stripe ids, ascending
 * ``[t_total]``    count
@@ -14,12 +43,373 @@ the ids array ([t_total + 2] int32, [t_total + 3] for fused steps):
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
+
+from .. import _build
+from .merge import TableState, lex_gt
+from .ring_kernel import (
+    _PLAIN_BLOCK_ELEMS,
+    check_frontier_step,
+    frontier_round_torch,
+    frontier_tile_n,
+    launch_frontier_step,
+    rounds_torch,
+)
+
+CV_SHIFT = 28
+VID_MASK = (1 << CV_SHIFT) - 1
+MAX_VID = VID_MASK  # interner capacity in packed mode: 2^28 distinct values
 
 # rounds fused per frontier step on the card
 STRIPE_FUSE = 8
+
+
+class PackedTable(NamedTuple):
+    """Reference-mode replica tables at 12 B/entry: int32 [P, N] each."""
+
+    khi: torch.Tensor
+    klo: torch.Tensor
+    cv: torch.Tensor  # cls << 28 | vid
+
+
+def init_packed(num_peers: int, capacity: int, device) -> PackedTable:
+    """All-absent packed table; three distinct allocations (the kernels
+    update fields in place)."""
+    return PackedTable(*(
+        torch.zeros((num_peers, capacity), dtype=torch.int32, device=device)
+        for _ in range(3)
+    ))
+
+
+def pack_cv(cls, vid):
+    return (cls << CV_SHIFT) | vid
+
+
+def pack_table(t: TableState) -> PackedTable:
+    """Dense -> packed (drops writer/ctr/tick)."""
+    return PackedTable(t.khi.clone(), t.klo.clone(), pack_cv(t.cls, t.vid))
+
+
+def unpack_table(pt: PackedTable) -> TableState:
+    """Packed -> dense with zeroed metadata."""
+    z = torch.zeros_like(pt.cv)
+    return TableState(
+        cls=pt.cv >> CV_SHIFT, khi=pt.khi.clone(), klo=pt.klo.clone(),
+        vid=pt.cv & VID_MASK, writer=z, ctr=z.clone(), tick=z.clone(),
+    )
+
+
+def packed_keys(khi, klo, cv):
+    """(cls, khi, klo, vid) as a 4-key lex chain on packed fields."""
+    return (cv >> CV_SHIFT, khi, klo, cv)
+
+
+def table_keys(fields: Sequence[torch.Tensor]):
+    """Lex key chain for a packed-family field tuple, by its length: 3 =
+    packed (khi, klo, cv) -> (cls, khi, klo, vid); 2 = rank (rank, cv) and
+    1 = rank1 (rank) -> the rank alone (distinct vids have distinct ranks,
+    so the cv tiebreak can never fire)."""
+    if len(fields) <= 2:
+        return (fields[0],)
+    return packed_keys(*fields)
+
+
+def op_present(vals: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Live-op guard for a packed-family field tuple: rank1's single field
+    is the rank (0 = absent); otherwise the last field is cv, whose top
+    bits carry cls (0 = absent)."""
+    if len(vals) == 1:
+        return vals[0] > 0
+    return (vals[-1] >> CV_SHIFT) > 0
+
+
+def packed_beats(b: Sequence[torch.Tensor], a: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Mask of entries where field tuple ``b`` strictly beats ``a``."""
+    return lex_gt(table_keys(b), table_keys(a))
+
+
+def merge_packed_torch(a, b) -> Tuple[object, torch.Tensor]:
+    """Plain twin of the reference's ``merge_packed_xla``: winner-select
+    over packed-family tables + the count of entries ``b`` won (int32)."""
+    take_b = packed_beats(b, a)
+    merged = type(a)(*(torch.where(take_b, fb, fa) for fa, fb in zip(a, b)))
+    return merged, take_b.sum(dtype=torch.int64).to(torch.int32)
+
+
+def _fields_checked(table, what: str) -> Tuple[int, int]:
+    """Raise unless ``table`` is a contiguous int32 CUDA table of the
+    packed layout (the kernels are instantiated for nf = 3 only so far);
+    returns (P, N)."""
+    if len(table) != 3:
+        raise ValueError(f"{what}: kernels take 3-field tables, got {len(table)}")
+    device = table[0].device
+    _build.require_cuda(device, what)
+    p, n = table[0].shape
+    _build.check_fields(table, (p, n), device, what)
+    return p, n
+
+
+# ---------------------------------------------------------------- op apply
+
+
+def reduce_flat_ops(peer, slot, cls, khi, klo, vid):
+    """Host-side lattice pre-reduction: the (cls, khi, klo, vid)-max op per
+    (peer, slot), sorted by (peer, slot), as (peer, slot, khi, klo, cv)
+    int32 arrays; None when no op is live (cls > 0).
+
+    The native radix pass (``native.reduce_flat_ops``) runs when the
+    library is available; this numpy body is its bit-identical fallback.
+    One argsort groups the ops by a fused (peer, slot) int64; the group
+    max falls out of two segmented ``maximum.reduceat`` passes over fused
+    keys k1 = cls * 2^32 + khi_u (priority (cls, khi)) and
+    k2 = klo_u * 2^28 + vid (priority (klo, vid)), with the bias-mapped
+    unsigned halves recombining order-exactly."""
+    from .. import native
+
+    fast = native.reduce_flat_ops(peer, slot, cls, khi, klo, vid, 0, 0, CV_SHIFT, VID_MASK)
+    if fast is not NotImplemented:
+        return fast
+
+    keep = cls > 0
+    peer, slot, cls, khi, klo, vid = (a[keep] for a in (peer, slot, cls, khi, klo, vid))
+    if peer.size == 0:
+        return None
+    bias = np.int64(1) << 31
+    pslot = (peer.astype(np.int64) << 32) | slot.astype(np.int64)
+    k1 = (cls.astype(np.int64) << 32) | (khi.astype(np.int64) + bias)
+    k2 = ((klo.astype(np.int64) + bias) << CV_SHIFT) | vid.astype(np.int64)
+    order = np.argsort(pslot)  # the winner needs no row identity: any sort kind
+    ps = pslot[order]
+    first = np.empty(ps.size, dtype=bool)
+    first[0] = True
+    np.not_equal(ps[1:], ps[:-1], out=first[1:])
+    starts = np.flatnonzero(first)
+    k1s = k1[order]
+    m1 = np.maximum.reduceat(k1s, starts)
+    sizes = np.diff(np.concatenate((starts, [ps.size])))
+    k2s = np.where(k1s == np.repeat(m1, sizes), k2[order], np.int64(-1))
+    m2 = np.maximum.reduceat(k2s, starts)
+    cls_w = m1 >> 32
+    khi_w = ((m1 & np.int64(0xFFFFFFFF)) - bias).astype(np.int32)
+    klo_w = ((m2 >> CV_SHIFT) - bias).astype(np.int32)
+    cv = ((cls_w << CV_SHIFT) | (m2 & np.int64(VID_MASK))).astype(np.int32)
+    keys = ps[starts]
+    peer_w = (keys >> 32).astype(np.int32)
+    slot_w = (keys & np.int64(0xFFFFFFFF)).astype(np.int32)
+    return peer_w, slot_w, khi_w, klo_w, cv
+
+
+def apply_flat_packed_torch(table, ops: torch.Tensor) -> Tuple[object, torch.Tensor]:
+    """Plain version of the flat apply, in place: ``ops`` is [2 + nf, K]
+    int32 (rows peer, slot, then the table's fields) with unique
+    (peer, slot) pairs. An op lands iff it is live (``op_present``) and
+    strictly beats the entry; ops outside the table are dropped. Returns
+    (table, the count of ops that landed, int32)."""
+    p, n = table[0].shape
+    peer, slot = ops[0].to(torch.int64), ops[1].to(torch.int64)
+    inside = (peer >= 0) & (peer < p) & (slot >= 0) & (slot < n)
+    peer, slot, vals = peer[inside], slot[inside], ops[2:, inside]
+    cur = [f[peer, slot] for f in table]
+    win = packed_beats(list(vals), cur) & op_present(list(vals))
+    for f, v, c in zip(table, vals, cur):
+        f[peer, slot] = torch.where(win, v, c)
+    return table, win.sum(dtype=torch.int64).to(torch.int32)
+
+
+def apply_flat_packed(table, ops: torch.Tensor) -> Tuple[object, torch.Tensor]:
+    """Apply K pre-reduced ops (``reduce_flat_ops`` output stacked as
+    [5, K] int32 rows peer, slot, khi, klo, cv), in place: the CUDA kernel
+    for CUDA tensors, the plain version for CPU tensors. Returns (table,
+    applied count)."""
+    device = table[0].device
+    if device.type == "cpu":
+        return apply_flat_packed_torch(table, ops)
+    p, n = _fields_checked(table, "apply_flat_packed")
+    k = ops.shape[1] if ops.dim() == 2 else 0
+    _build.check_fields((ops,), (2 + len(table), k), device, "apply ops")
+    count = torch.zeros(1, dtype=torch.int32, device=device)
+    if k == 0:
+        return table, count[0]
+    lib = _build.library()
+    with torch.cuda.device(device):
+        err = lib.bt_apply_packed(
+            _build.pointers(table), ops.data_ptr(), k, p, n, count.data_ptr(),
+            _build.stream_of(device),
+        )
+    _build.check(err, "apply_flat_packed")
+    _build.LAUNCHES["apply_packed"] += 1
+    return table, count[0]
+
+
+# ------------------------------------------------------------------ rounds
+
+
+def packed_round_torch(
+    table, wrap: bool, m: int = 1, count_only: bool = False
+) -> Tuple[object, torch.Tensor]:
+    """Plain version of ``m`` ring (wrap) or chain rounds on a packed-family
+    table, in place, or with ``count_only`` the count one round would make
+    with nothing written. Returns (table, changed count summed over the
+    rounds, int32)."""
+    return table, rounds_torch(table, wrap, packed_beats, m, store=not count_only)
+
+
+def _packed_round(table, wrap: bool, m: int, count_only: bool):
+    if m < 1 or (count_only and m != 1):
+        raise ValueError(f"bad round request m={m} count_only={count_only}")
+    device = table[0].device
+    if device.type == "cpu":
+        return packed_round_torch(table, wrap, m, count_only)
+    p, n = _fields_checked(table, "packed_round")
+    lib = _build.library()
+    count = torch.zeros(1, dtype=torch.int32, device=device)
+    with torch.cuda.device(device):
+        err = lib.bt_packed_round(
+            _build.pointers(table), count.data_ptr(), p, n, m, int(wrap),
+            int(count_only), _build.stream_of(device),
+        )
+    _build.check(err, "packed_round")
+    _build.LAUNCHES["packed_round"] += 1
+    return table, count[0]
+
+
+def ring_round_packed(table, wrap: bool = True) -> Tuple[object, torch.Tensor]:
+    """One ring (wrap) or chain round, in place, + changed count. Any P, N."""
+    return _packed_round(table, wrap, 1, False)
+
+
+def ring_multiround_packed(table, wrap: bool, m: int) -> Tuple[object, torch.Tensor]:
+    """``m`` rounds in one launch, in place, + the count summed over them."""
+    return _packed_round(table, wrap, m, False)
+
+
+def count_changes_round_packed(table, wrap: bool) -> torch.Tensor:
+    """Entries one more ring/chain round would change; writes nothing."""
+    return _packed_round(table, wrap, 1, True)[1]
+
+
+def gossip_round_ring_packed(table):
+    """Plain twin of the reference's ring round (in place, + count)."""
+    return packed_round_torch(table, True)
+
+
+def gossip_round_chain_packed(table):
+    """Plain twin of the reference's chain round (in place, + count)."""
+    return packed_round_torch(table, False)
+
+
+def gossip_round_mesh_packed(table) -> Tuple[object, torch.Tensor]:
+    """Full mesh: ceil(log2 P) roll-doubling merges (one round reaches the
+    fixed point); returns a new table and the summed win count."""
+    p = table[0].shape[0]
+    total = torch.zeros((), dtype=torch.int32, device=table[0].device)
+    for k in range(max(1, (p - 1).bit_length())):
+        rolled = type(table)(*(torch.roll(f, 1 << k, 0) for f in table))
+        table, c = merge_packed_torch(table, rolled)
+        total = total + c
+    return table, total
+
+
+def gossip_round_generic_packed(table, neighbors) -> Tuple[object, torch.Tensor]:
+    """Any topology: merge each neighbour column of ``neighbors`` [P, D]
+    (-1 = none) in turn, every merge reading the partly merged table, as
+    the reference's loop does; returns a new table and the summed count."""
+    nb = torch.as_tensor(np.asarray(neighbors), dtype=torch.int64, device=table[0].device)
+    total = torch.zeros((), dtype=torch.int32, device=table[0].device)
+    for k in range(nb.shape[1]):
+        idx = nb[:, k]
+        valid = (idx >= 0)[:, None]
+        safe = idx.clamp(min=0)
+        gathered = type(table)(*(torch.where(valid, f[safe], 0) for f in table))
+        table, c = merge_packed_torch(table, gathered)
+        total = total + c
+    return table, total
+
+
+def gossip_round_packed(table, topology) -> Tuple[object, torch.Tensor]:
+    """One packed round for any topology: ring/chain on ``ring_round_packed``
+    (the kernel on the card, in place), mesh and generic topologies as
+    plain PyTorch merges."""
+    if topology.kind in ("ring", "chain"):
+        return ring_round_packed(table, topology.kind == "ring")
+    if topology.kind == "mesh":
+        return gossip_round_mesh_packed(table)
+    return gossip_round_generic_packed(table, topology.neighbors)
+
+
+def gossip_until_converged_packed(table, topology, max_rounds: int):
+    """Whole-table round loop: rounds until one changes nothing or
+    ``max_rounds``; the host reads one count per round. Returns (table,
+    rounds executed, last round's changed count; 1 if no round ran)."""
+    rounds, last_changed = 0, 1
+    while rounds < max_rounds and last_changed > 0:
+        table, changed = gossip_round_packed(table, topology)
+        last_changed = int(changed)
+        rounds += 1
+    return table, rounds, last_changed
+
+
+# --------------------------------------------------------- direct reconcile
+
+
+def reconcile_packed_torch(table):
+    """Plain twin of the reference's ``reconcile_packed_xla``: ceil(log2 P)
+    roll-doubling joins (at least one), after which every row holds the
+    join of its whole column; in place, on column blocks (columns are
+    independent), which bounds the temporaries at large tables."""
+    p, n = table[0].shape
+    width = max(1, _PLAIN_BLOCK_ELEMS // max(p, 1))
+    for c0 in range(0, n, width):
+        rows = type(table)(*(f[:, c0:c0 + width] for f in table))
+        for k in range(max(1, (p - 1).bit_length())):
+            rolled = type(table)(*(torch.roll(f, 1 << k, 0) for f in rows))
+            rows, _ = merge_packed_torch(rows, rolled)
+        for f, r in zip(table, rows):
+            f[:, c0:c0 + width] = r
+    return table
+
+
+def reconcile_packed(table):
+    """Direct reconcile: every row becomes its column's join. The CUDA
+    kernel (each column's lexmax, written to every row, in place) for CUDA
+    tensors; the doubling plain version for CPU tensors."""
+    device = table[0].device
+    if device.type == "cpu":
+        return reconcile_packed_torch(table)
+    p, n = _fields_checked(table, "reconcile_packed")
+    lib = _build.library()
+    with torch.cuda.device(device):
+        err = lib.bt_reconcile_packed(_build.pointers(table), p, n, _build.stream_of(device))
+    _build.check(err, "reconcile_packed")
+    _build.LAUNCHES["reconcile_packed"] += 1
+    return table
+
+
+# ------------------------------------------------- frontier convergence
+
+
+def frontier_round_packed_torch(table, ids, tile_n: int, wrap: bool, m: int = 1):
+    """Plain version of one compacting packed frontier step, in place.
+    Returns (table, next ids)."""
+    return table, frontier_round_torch(table, ids, tile_n, wrap, packed_beats, m)
+
+
+def frontier_round_packed(table, ids, tile_n: int, wrap: bool, m: int = 1):
+    """One compacting frontier step (``m`` fused rounds) on a packed table,
+    in place: the CUDA kernel for CUDA tensors, the plain version for CPU
+    tensors. ``ids`` is [t_total + 2] for m = 1, [t_total + 3] for m > 1.
+    Cells of the returned ids array past its count are left unwritten by
+    the kernel."""
+    check_frontier_step(table, tile_n, m)
+    if table[0].device.type == "cpu":
+        return frontier_round_packed_torch(table, ids, tile_n, wrap, m)
+    _fields_checked(table, "frontier_round_packed")
+    return table, launch_frontier_step(
+        "frontier_round_packed", table, ids, tile_n, m, int(wrap)
+    )
 
 
 def frontier_ids_compact(dirty: torch.Tensor, t_total: int) -> torch.Tensor:
@@ -84,3 +474,45 @@ def frontier_fused_loop(
         rounds = max(last_change + 1, 1)
     last_changed = 0 if count == 0 else max(changed, 1)
     return table, rounds, last_changed
+
+
+def frontier_loop(
+    table, dirty: torch.Tensor, t_total: int, max_rounds: int, fuse: int,
+    step: Callable[[int], Callable],
+) -> Tuple[object, int, int]:
+    """Frontier convergence shared by the layouts: ``step(m)`` gives the
+    layout's frontier step of m rounds. ``fuse`` > 1 runs the fused loop;
+    otherwise one round per step until the frontier empties or
+    ``max_rounds``. Returns (table, classic rounds, last_changed), the
+    latter 0 iff the frontier is empty at exit."""
+    if fuse > 1:
+        return frontier_fused_loop(table, dirty, t_total, max_rounds, fuse, step(1), step(fuse))
+    round1 = step(1)
+    ids = frontier_ids_compact(dirty, t_total)
+    rounds = 0
+    count = int(ids[t_total])
+    while count > 0 and rounds < max_rounds:
+        table, ids = round1(table, ids)
+        count = int(ids[t_total])
+        rounds += 1
+    last_changed = 0 if count == 0 else int(ids[t_total + 1])
+    return table, rounds, last_changed
+
+
+def gossip_frontier_packed(
+    table, dirty: torch.Tensor, wrap: bool, max_rounds: int, fuse: int = 1,
+    tile_n: Optional[int] = None,
+) -> Tuple[object, int, int]:
+    """Packed frontier convergence loop (ring/chain), in place: per round
+    only stripes still changing are touched. ``dirty`` is a bool [t_total]
+    seed. Bit-identical final state and classic round count to the
+    whole-table loop, also with ``fuse`` > 1 (FUSE rounds per step, exact
+    round count rebuilt on the host). Returns (table, rounds,
+    last_changed)."""
+    p, n = table[0].shape
+    if tile_n is None:
+        tile_n = frontier_tile_n(n)
+    return frontier_loop(
+        table, dirty, n // tile_n, max_rounds, fuse,
+        lambda m: lambda tbl, ids: frontier_round_packed(tbl, ids, tile_n, wrap, m),
+    )

@@ -202,7 +202,7 @@ def test_converged_does_not_advance_and_peer_cursor():
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"layout": "packed"}, {"layout": "rank1"}, {"mesh_devices": 2},
+    {"layout": "rank"}, {"layout": "rank1"}, {"mesh_devices": 2},
     {"use_shard_map": True}, {"lean_gossip": True},
 ])
 def test_unported_options_raise(kwargs):

@@ -25,7 +25,7 @@ from bullet_tpu_torch.ops.packed import frontier_ids_compact
 from bullet_tpu_torch.ops.ring_kernel import (
     frontier_round_dense,
     frontier_round_dense_torch,
-    frontier_tile_n_dense,
+    frontier_tile_n,
     gossip_frontier_dense,
     ring_round,
     ring_round_torch,
@@ -172,7 +172,7 @@ def _frontier_xla_twin(t, ids, tile, wrap, mode, m):
 ])
 def test_frontier_round_fused_matches_xla_twin(wrap, mode, dirty, seed):
     p, n, m = 24, 1024, 8
-    tile = frontier_tile_n_dense(n)
+    tile = frontier_tile_n(n)
     t_total = n // tile
     flags = np.ones(t_total, bool) if dirty == "all" else np.arange(t_total) % 2 == 0
     ids = _ids_array(flags, m)
@@ -182,12 +182,12 @@ def test_frontier_round_fused_matches_xla_twin(wrap, mode, dirty, seed):
 
 
 def test_frontier_tile_n_dense():
-    assert frontier_tile_n_dense(1 << 18) == 256
-    assert frontier_tile_n_dense(96) == 96
-    assert frontier_tile_n_dense(1000) == 0  # no multiple of 32 divides it
-    assert frontier_tile_n_dense(4160) == 160
+    assert frontier_tile_n(1 << 18) == 256
+    assert frontier_tile_n(96) == 96
+    assert frontier_tile_n(1000) == 0  # no multiple of 32 divides it
+    assert frontier_tile_n(4160) == 160
     for n in (32, 64, 4160, 1 << 12):
-        t = frontier_tile_n_dense(n)
+        t = frontier_tile_n(n)
         assert t % 32 == 0 and n % t == 0 and t <= 256
 
 
@@ -216,7 +216,7 @@ def test_gossip_frontier_dense_matches_classic_loop(fuse, max_rounds, wrap, mode
     want, r_want, c_want = gossip_until_converged_device(
         JaxTable(*(jnp.asarray(f) for f in t)), nb, kind, mode, max_rounds,
     )
-    tile_n = tile or frontier_tile_n_dense(n)
+    tile_n = tile or frontier_tile_n(n)
     got, r_got, c_got = gossip_frontier_dense(
         table_from_numpy(t, "cpu"), torch.ones(n // tile_n, dtype=torch.bool),
         wrap, mode, max_rounds, fuse=fuse, tile_n=tile_n,
@@ -230,7 +230,7 @@ def test_gossip_frontier_dense_sparse_seed():
     """From a converged table, dirtying one stripe converges with only that
     stripe seeded — same state and rounds as the classic loop."""
     p, n = 16, 1024
-    tile = frontier_tile_n_dense(n)
+    tile = frontier_tile_n(n)
     t = sparse_fields(10, p, n)
     nb = jnp.asarray(jax_topo.ring(p).neighbors)
     base, _, _ = gossip_until_converged_device(

@@ -1,0 +1,171 @@
+"""The port is self-contained: no file of bullet_tpu_torch/, nor
+chip_smoke.py or tools/profile_main.py, imports the JAX package or JAX, or
+finds the JAX package's files through ``bullet_tpu.__file__``; and the
+port's own copies of the framework-free modules (utils/encode, utils/paths,
+parallel/topology, the native host runtime) give the reference's results
+on the same seeded inputs. The reference modules are imported here, by
+the test, never by the port."""
+
+import ast
+import os
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from bullet_tpu import native as ref_native
+from bullet_tpu.parallel import topology as ref_topo
+from bullet_tpu.utils import encode as ref_encode
+from bullet_tpu.utils import paths as ref_paths
+from bullet_tpu_torch import native as port_native
+from bullet_tpu_torch.parallel import topology as port_topo
+from bullet_tpu_torch.utils import encode as port_encode
+from bullet_tpu_torch.utils import paths as port_paths
+
+REPO = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("bullet_tpu", "jax", "jaxlib")
+
+
+def port_files():
+    files = sorted((REPO / "bullet_tpu_torch").rglob("*.py"))
+    return files + [REPO / "chip_smoke.py", REPO / "tools" / "profile_main.py"]
+
+
+def _forbidden(module: str) -> bool:
+    return module.split(".")[0] in FORBIDDEN
+
+
+def violations(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    found = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            found += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            if node.module and _forbidden(node.module):
+                found.append(node.module)
+        elif isinstance(node, ast.Attribute) and node.attr == "__file__":
+            if isinstance(node.value, ast.Name) and _forbidden(node.value.id):
+                found.append(f"{node.value.id}.__file__")
+        elif isinstance(node, ast.Call) and node.args:
+            fn = node.func
+            name = fn.attr if isinstance(fn, ast.Attribute) else getattr(fn, "id", "")
+            arg = node.args[0]
+            if (name in ("import_module", "__import__") and isinstance(arg, ast.Constant)
+                    and isinstance(arg.value, str) and _forbidden(arg.value)):
+                found.append(f"{name}({arg.value!r})")
+    return found
+
+
+def test_port_imports_nothing_of_jax_or_the_jax_package():
+    files = port_files()
+    assert len(files) > 20
+    bad = {str(f.relative_to(REPO)): v for f in files if (v := violations(f))}
+    assert not bad, bad
+
+
+def test_the_scan_catches_each_form(tmp_path):
+    src = tmp_path / "probe.py"
+    src.write_text(
+        "import jax\nimport jax.numpy as jnp\nfrom bullet_tpu.utils import encode\n"
+        "import bullet_tpu_torch\nfrom .x import y\nimport importlib\n"
+        "p = bullet_tpu.__file__\nm = importlib.import_module('bullet_tpu.native')\n"
+    )
+    assert violations(src) == [
+        "jax", "jax.numpy", "bullet_tpu.utils", "bullet_tpu.__file__",
+        "import_module('bullet_tpu.native')",
+    ]
+
+
+def test_native_library_builds_outside_the_sources():
+    lib = port_native.load()
+    if lib is None:
+        pytest.skip("no C++ toolchain: the numpy fallbacks run")
+    target = port_native._lib_path()
+    assert target.exists()
+    assert (REPO / "build" / "bullet_tpu_torch" / "native") in target.parents
+    assert not list((REPO / "bullet_tpu_torch" / "native").glob("*.so"))
+    assert os.path.samefile(lib._name, target)
+
+
+def _values(rng):
+    nums = rng.normal(0, 1e6, 300).tolist() + [0.0, -0.0, 1e308, -1e-308, 3, 7, 7.5]
+    strs = [f"s{int(i)}" for i in rng.integers(0, 80, 120)] + ["", "Z", "é", "a" * 40]
+    return nums + strs + [True, False, None, [1, 2], [{"a": 1}], "s3", 3.0]
+
+
+def test_encode_matches_reference():
+    rng = np.random.default_rng(0)
+    vals = _values(rng)
+    ref, port = ref_encode.ValueInterner(), port_encode.ValueInterner()
+    assert [port.encode(v) for v in vals] == [ref.encode(v) for v in vals]
+    for a, b in zip(port.key_table(), ref.key_table()):
+        np.testing.assert_array_equal(a, b)
+    more = rng.normal(0, 100, 2000)
+    for a, b in zip(port_encode.bulk_encode_numbers(port, more),
+                    ref_encode.bulk_encode_numbers(ref, more)):
+        np.testing.assert_array_equal(a, b)
+    mixed = vals[::-1] + [f"new{i}" for i in range(50)]
+    for a, b in zip(port_encode.bulk_encode_values(port, mixed),
+                    ref_encode.bulk_encode_values(ref, mixed)):
+        np.testing.assert_array_equal(a, b)
+    vids = np.arange(len(ref))
+    assert port.decode_batch(vids).tolist() == ref.decode_batch(vids).tolist()
+    assert port.epoch == ref.epoch
+
+
+def test_paths_match_reference():
+    rng = np.random.default_rng(1)
+    paths = [f"r{int(a)}/m{int(b)}/leaf{int(c)}" for a, b, c in rng.integers(0, 6, (400, 3))]
+    for make_ref, make_port in (
+        (ref_paths.PathInterner, port_paths.PathInterner),
+        (ref_native.make_path_interner, port_native.make_path_interner),
+    ):
+        ref, port = make_ref(), make_port()
+        assert type(ref).__name__ == type(port).__name__
+        ids_ref = [ref.intern(p) for p in paths]
+        assert [port.intern(p) for p in paths] == ids_ref
+        assert len(port) == len(ref)
+        for pid in range(len(ref)):
+            assert port.path(pid) == ref.path(pid)
+            assert port.parent(pid) == ref.parent(pid)
+        assert [port.lookup(p) for p in paths[:50] + ["nope/x"]] == [
+            ref.lookup(p) for p in paths[:50] + ["nope/x"]]
+
+
+@pytest.mark.parametrize("build", [
+    lambda t: t.ring(9), lambda t: t.chain(7), lambda t: t.full_mesh(5),
+    lambda t: t.star(6, hub=2), lambda t: t.bridge((4, 3), 1),
+    lambda t: t.random_graph(12, 3, seed=4),
+    lambda t: t.from_adjacency(np.random.default_rng(2).random((10, 10)) < 0.2),
+])
+def test_topology_matches_reference(build):
+    ref, port = build(ref_topo), build(port_topo)
+    np.testing.assert_array_equal(port.neighbors, ref.neighbors)
+    assert (port.name, port.kind, port.num_peers, port.diameter) == (
+        ref.name, ref.kind, ref.num_peers, ref.diameter)
+    np.testing.assert_array_equal(port.strong_components(), ref.strong_components())
+    assert port.is_connected() == ref.is_connected()
+    dropped_ref, dropped_port = ref.drop_peer(1), port.drop_peer(1)
+    np.testing.assert_array_equal(dropped_port.neighbors, dropped_ref.neighbors)
+
+
+def test_native_matches_reference():
+    if port_native.load() is None or ref_native.load() is None:
+        pytest.skip("no C++ toolchain: the numpy fallbacks run")
+    rng = np.random.default_rng(3)
+    k = 5000
+    raw = (rng.integers(0, 32, k), rng.integers(0, 300, k), rng.integers(0, 5, k),
+           rng.integers(-99, 99, k), rng.integers(-99, 99, k), rng.integers(0, 1000, k))
+    raw = tuple(a.astype(np.int32) for a in raw)
+    for bn, nb in ((0, 0), (128, 4)):
+        got = port_native.reduce_flat_ops(*raw, bn, nb, 28, (1 << 28) - 1)
+        want = ref_native.reduce_flat_ops(*raw, bn, nb, 28, (1 << 28) - 1)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+    for a, b in zip(port_native.group_positions(raw[0], 32),
+                    ref_native.group_positions(raw[0], 32)):
+        np.testing.assert_array_equal(a, b)
+    vals = rng.normal(0, 1e9, 1000)
+    for a, b in zip(port_native.number_keys(vals), ref_native.number_keys(vals)):
+        np.testing.assert_array_equal(a, b)
