@@ -29,6 +29,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (
     "merge.cu", "ring_round.cu", "frontier_dense.cu",
     "apply_packed.cu", "packed_round.cu", "reconcile_packed.cu", "frontier_packed.cu",
+    "window_packed.cu",
 )
 HEADERS = ("lexmax.cuh", "frontier.cuh")
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "bullet_tpu_torch"
@@ -42,7 +43,7 @@ NVCC_FLAGS = (
 LAUNCHES = {
     "merge": 0, "ring_round": 0, "frontier_round_dense": 0,
     "apply_packed": 0, "packed_round": 0, "reconcile_packed": 0,
-    "frontier_round_packed": 0,
+    "frontier_round_packed": 0, "window_packed": 0,
 }
 
 _P = ctypes.c_void_p
@@ -55,17 +56,24 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P,
     ),
+    # the packed-family kernels take the table's field count nf (1, 2, 3)
+    # as their last argument before the stream
     "bt_apply_packed": (
-        _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, _P, _P,
+        _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, _P,
+        ctypes.c_int, _P,
     ),
     "bt_packed_round": (
         _P, _P, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, _P,
+        ctypes.c_int, ctypes.c_int, _P,
     ),
-    "bt_reconcile_packed": (_P, ctypes.c_int, ctypes.c_longlong, _P),
+    "bt_reconcile_packed": (_P, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, _P),
     "bt_frontier_round_packed": (
         _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, _P,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P,
+    ),
+    "bt_window_packed": (
+        _P, _P, _P, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_int, ctypes.c_int, _P,
     ),
 }
 

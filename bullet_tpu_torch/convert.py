@@ -1,8 +1,11 @@
 """Carry tables between the reference package and the port.
 
-A reference ``TableState`` is a tuple of seven int32 [P, N] arrays and a
-reference ``PackedTable`` a tuple of three, (khi, klo, cv): JAX arrays, or
-the numpy arrays of a ``PeerNetworkSim.snapshot()``. Anything
+A reference ``TableState`` is a tuple of seven int32 [P, N] arrays, a
+reference ``PackedTable`` a tuple of three, (khi, klo, cv), a ``RankTable``
+two, (rank, cv), and a ``Rank1Table`` one, (rank): JAX arrays, or the numpy
+arrays of a ``PeerNetworkSim.snapshot()``. A rank or rank1 snapshot's
+``rank_epoch`` and ``rank_inverse`` travel beside its table; the sim's
+``restore`` re-keys through them. Anything
 ``numpy.asarray`` accepts works, so this module needs no JAX import.
 """
 
@@ -15,6 +18,7 @@ import torch
 
 from .ops.merge import FIELDS, TableState
 from .ops.packed import PackedTable
+from .ops.rank import Rank1Table, RankTable
 
 
 def _fields_from_numpy(fields: Sequence, count: int, device) -> Tuple[torch.Tensor, ...]:
@@ -46,6 +50,23 @@ def packed_from_numpy(fields: Sequence, device) -> PackedTable:
     """Three int32 [P, N] arrays (khi, klo, cv) -> a port PackedTable on
     ``device`` (copies)."""
     return PackedTable(*_fields_from_numpy(fields, len(PackedTable._fields), device))
+
+
+def rank_from_numpy(fields: Sequence, device) -> RankTable:
+    """Two int32 [P, N] arrays (rank, cv) -> a port RankTable (copies)."""
+    return RankTable(*_fields_from_numpy(fields, len(RankTable._fields), device))
+
+
+def rank1_from_numpy(fields: Sequence, device) -> Rank1Table:
+    """One int32 [P, N] array (rank) -> a port Rank1Table (copies)."""
+    return Rank1Table(*_fields_from_numpy(fields, len(Rank1Table._fields), device))
+
+
+# a layout's table from numpy arrays
+FROM_NUMPY = {
+    "dense": table_from_numpy, "packed": packed_from_numpy,
+    "rank": rank_from_numpy, "rank1": rank1_from_numpy,
+}
 
 
 def table_to_numpy(table) -> Tuple[np.ndarray, ...]:

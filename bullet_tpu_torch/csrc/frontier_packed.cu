@@ -1,6 +1,7 @@
-// Compacting frontier step over a packed-layout table (khi, klo, cv): m
-// ring/chain rounds, in place, on the active slot stripes only, then the
-// next round's ids array (frontier.cuh, shared with the dense layout).
+// Compacting frontier step over a packed-family table (packed (khi, klo,
+// cv), rank (rank, cv) or rank1 (rank)): m ring/chain rounds, in place, on
+// the active slot stripes only, then the next round's ids array
+// (frontier.cuh, shared with the dense layout).
 //
 // Replaces: bullet_tpu/ops/packed.py::_frontier_round_kernel_packed
 // (m = 1, ids [t_total + 2]) and ::_frontier_multiround_kernel_packed
@@ -9,18 +10,33 @@
 // and ::_frontier_halo_multiround_kernel_packed compute, for any P.
 //
 // Bound on the H100: device memory. A fused step reads and writes each
-// entry of an active stripe once per round (24 bytes per entry per round);
-// a settled stripe costs nothing. A block's stripe is P x tile_n x 12 bytes
-// (3 MB at P = 1024, tile_n = 256), re-read from L2 in later fused rounds
-// while it stays resident.
+// entry of an active stripe once per round (2 x NF x 4 bytes per entry per
+// round); a settled stripe costs nothing. A block's stripe is
+// P x tile_n x NF x 4 bytes (3 MB at P = 1024, tile_n = 256, NF = 3),
+// re-read from L2 in later fused rounds while it stays resident.
 #include "frontier.cuh"
 
-// fields: host array of 3 device pointers (see bt::launch_frontier_round).
+namespace {
+
+template <typename E>
+struct Launch {
+  static cudaError_t run(void* const* fields, const void* ids, void* ids_out,
+                         void* stripe_changed, void* stripe_last, int p, long long n,
+                         int tile_n, int t_total, int m, int wrap, cudaStream_t s) {
+    return bt::launch_frontier_round<E>(fields, ids, ids_out, stripe_changed, stripe_last,
+                                        p, n, tile_n, t_total, m, wrap, s);
+  }
+};
+
+}  // namespace
+
+// fields: host array of nf device pointers (see bt::launch_frontier_round).
+// nf: 3 = packed, 2 = rank, 1 = rank1.
 extern "C" cudaError_t bt_frontier_round_packed(
     void* const* fields, const void* ids, void* ids_out, void* stripe_changed,
     void* stripe_last, int p, long long n, int tile_n, int t_total, int m,
-    int wrap, void* stream) {
-  return bt::launch_frontier_round<bt::PackedEntry>(
-      fields, ids, ids_out, stripe_changed, stripe_last, p, n, tile_n, t_total,
-      m, wrap, static_cast<cudaStream_t>(stream));
+    int wrap, int nf, void* stream) {
+  return bt::dispatch_nf<Launch>(nf, fields, ids, ids_out, stripe_changed, stripe_last,
+                                 p, n, tile_n, t_total, m, wrap,
+                                 static_cast<cudaStream_t>(stream));
 }

@@ -9,7 +9,12 @@
 //   DenseEntry<true>:  the same fields keyed (ctr, cls, khi, klo, vid,
 //     writer) (lww); tick is carried, never compared;
 //   PackedEntry:       fields (khi, klo, cv) with cv = cls << 28 | vid, keyed
-//     (cv >> 28, khi, klo, cv) == (cls, khi, klo, vid).
+//     (cv >> 28, khi, klo, cv) == (cls, khi, klo, vid);
+//   RankEntry:         fields (rank, cv), keyed by rank alone (distinct vids
+//     have distinct ranks, so the cv tiebreak never fires);
+//   Rank1Entry:        the field (rank), keyed by rank; 0 is absent.
+// In all three packed-family layouts equal keys mean equal entries, so the
+// lexmax of a set of entries does not depend on the order of the compares.
 #pragma once
 
 #include <cstdint>
@@ -60,6 +65,44 @@ struct PackedEntry {
   }
 };
 
+struct RankEntry {
+  static constexpr int NF = 2;
+  __device__ __forceinline__ static bool gt(const int32_t (&b)[NF],
+                                            const int32_t (&a)[NF]) {
+    return b[0] > a[0];
+  }
+  __device__ __forceinline__ static bool present(const int32_t (&v)[NF]) {
+    return (v[1] >> kCvShift) > 0;
+  }
+};
+
+struct Rank1Entry {
+  static constexpr int NF = 1;
+  __device__ __forceinline__ static bool gt(const int32_t (&b)[NF],
+                                            const int32_t (&a)[NF]) {
+    return b[0] > a[0];
+  }
+  __device__ __forceinline__ static bool present(const int32_t (&v)[NF]) {
+    return v[0] > 0;
+  }
+};
+
+// Runs Launch<E>::run(args...) for the entry type of a packed-family table
+// of nf fields: 1 = rank1, 2 = rank, 3 = packed.
+template <template <typename> class Launch, typename... Args>
+cudaError_t dispatch_nf(int nf, Args... args) {
+  switch (nf) {
+    case 1:
+      return Launch<Rank1Entry>::run(args...);
+    case 2:
+      return Launch<RankEntry>::run(args...);
+    case 3:
+      return Launch<PackedEntry>::run(args...);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 template <int N>
 __device__ __forceinline__ void copy_entry(int32_t (&dst)[N], const int32_t (&src)[N]) {
 #pragma unroll
@@ -88,21 +131,22 @@ __device__ __forceinline__ void store_entry(const Fields<N>& t, int64_t idx,
 
 // One ring (wrap) or chain round on column `col` of a [p, n] table: row
 // r <- lexmax(lexmax(row r, row r-1), row r+1), every neighbour taken from
-// the PRE-round table. With STORE the round runs in place: the thread
-// keeps the pre-round rows r-1 and r, and the original row 0 (the ring's
-// wrap-around for row p-1), in registers, so overwriting row r never
-// corrupts a later read. Without STORE nothing is written (the count-only
-// probe). A chain's missing neighbour is an all-zero entry that is still
-// compared. Returns the changed count sum(gt1) + sum(gt2) (an entry can
-// count twice).
+// the PRE-round table `src`, the result written to `dst`. src and dst may
+// be one table: the thread keeps the pre-round rows r-1 and r, and the
+// original row 0 (the ring's wrap-around for row p-1), in registers, so
+// overwriting row r never corrupts a later read. Without STORE nothing is
+// written (the count-only probe). A chain's missing neighbour is an
+// all-zero entry that is still compared. Returns the changed count
+// sum(gt1) + sum(gt2) (an entry can count twice).
 template <typename E, bool STORE = true>
-__device__ __forceinline__ unsigned sweep_column(const Fields<E::NF>& t, int64_t col,
+__device__ __forceinline__ unsigned sweep_column(const Fields<E::NF>& src,
+                                                 const Fields<E::NF>& dst, int64_t col,
                                                  int p, int64_t n, bool wrap) {
   constexpr int NF = E::NF;
   int32_t row0[NF], up[NF], cur[NF], down[NF];
-  load_entry(row0, t, col);
+  load_entry(row0, src, col);
   if (wrap) {
-    load_entry(up, t, (int64_t)(p - 1) * n + col);
+    load_entry(up, src, (int64_t)(p - 1) * n + col);
   } else {
     zero_entry(up);
   }
@@ -110,7 +154,7 @@ __device__ __forceinline__ unsigned sweep_column(const Fields<E::NF>& t, int64_t
   unsigned changed = 0;
   for (int r = 0; r < p; ++r) {
     if (r + 1 < p) {
-      load_entry(down, t, (int64_t)(r + 1) * n + col);
+      load_entry(down, src, (int64_t)(r + 1) * n + col);
     } else if (wrap) {
       copy_entry(down, row0);
     } else {
@@ -126,11 +170,18 @@ __device__ __forceinline__ unsigned sweep_column(const Fields<E::NF>& t, int64_t
       copy_entry(m, down);
       ++changed;
     }
-    if (STORE) store_entry(t, (int64_t)r * n + col, m);
+    if (STORE) store_entry(dst, (int64_t)r * n + col, m);
     copy_entry(up, cur);
     copy_entry(cur, down);
   }
   return changed;
+}
+
+// The round in place on one table.
+template <typename E, bool STORE = true>
+__device__ __forceinline__ unsigned sweep_column(const Fields<E::NF>& t, int64_t col,
+                                                 int p, int64_t n, bool wrap) {
+  return sweep_column<E, STORE>(t, t, col, p, n, wrap);
 }
 
 // Block-wide sum; the result is valid in thread 0. Every thread of the

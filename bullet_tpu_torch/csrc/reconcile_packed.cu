@@ -1,15 +1,15 @@
-// Direct reconcile of a packed-layout table (khi, klo, cv), in place: every
-// row of a column becomes the lexmax of that whole column.
+// Direct reconcile of a packed-family table (packed, rank or rank1), in
+// place: every row of a column becomes the lexmax of that whole column.
 //
 // Replaces: bullet_tpu/ops/packed.py::_reconcile_kernel_packed, which runs
 // ceil(log2 P) doubling joins (roll by 1, 2, 4, ... with wrap-around) per
 // stripe. After them every row holds the join of all P rows of its column,
-// for any P >= 1, and the packed key chain is a total order on entries
-// (equal keys mean an equal entry), so that join is the column's lexmax:
-// this kernel computes it directly.
+// for any P >= 1, and each packed-family key chain is a total order on
+// entries (equal keys mean an equal entry), so that join is the column's
+// lexmax: this kernel computes it directly.
 //
 // Bound on the H100: device memory. One read and one write of the table
-// (12 + 12 bytes per entry), against log2 P reads and writes of the
+// (2 x NF x 4 bytes per entry), against log2 P reads and writes of the
 // doubling form.
 // Design: thread j owns column j: it scans rows 0..P-1 keeping the running
 // lexmax in registers, then writes it to every row. A warp's 32 threads
@@ -19,29 +19,36 @@
 
 namespace {
 
-using Entry = bt::PackedEntry;
-
-__global__ void reconcile_packed_kernel(bt::Fields<Entry::NF> t, int p, int64_t n) {
-  constexpr int NF = Entry::NF;
+template <typename E>
+__global__ void reconcile_packed_kernel(bt::Fields<E::NF> t, int p, int64_t n) {
+  constexpr int NF = E::NF;
   const int64_t col = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (col >= n) return;
   int32_t best[NF], cur[NF];
   bt::load_entry(best, t, col);
   for (int r = 1; r < p; ++r) {
     bt::load_entry(cur, t, (int64_t)r * n + col);
-    if (Entry::gt(cur, best)) bt::copy_entry(best, cur);
+    if (E::gt(cur, best)) bt::copy_entry(best, cur);
   }
   for (int r = 0; r < p; ++r) bt::store_entry(t, (int64_t)r * n + col, best);
 }
 
+template <typename E>
+struct Launch {
+  static cudaError_t run(void* const* fields, int p, long long n, cudaStream_t s) {
+    const int threads = 128;
+    const long long blocks = (n + threads - 1) / threads;
+    reconcile_packed_kernel<E><<<(unsigned)blocks, threads, 0, s>>>(
+        bt::fields_of<E::NF>(fields), p, n);
+    return cudaGetLastError();
+  }
+};
+
 }  // namespace
 
-// fields: host array of 3 device pointers to [p, n] int32 (updated in place).
+// fields: host array of nf device pointers to [p, n] int32 (updated in
+// place). nf: 3 = packed, 2 = rank, 1 = rank1.
 extern "C" cudaError_t bt_reconcile_packed(void* const* fields, int p, long long n,
-                                           void* stream) {
-  const int threads = 128;
-  const long long blocks = (n + threads - 1) / threads;
-  reconcile_packed_kernel<<<(unsigned)blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      bt::fields_of<Entry::NF>(fields), p, n);
-  return cudaGetLastError();
+                                           int nf, void* stream) {
+  return bt::dispatch_nf<Launch>(nf, fields, p, n, static_cast<cudaStream_t>(stream));
 }

@@ -1,15 +1,17 @@
 """PeerNetworkSim on PyTorch: P replicated peers, one graph table each.
 
 The port of ``bullet_tpu.models.netsim`` for the dense (7 fields,
-28 B/entry) and packed (3 fields, 12 B/entry, reference mode only)
-layouts:
+28 B/entry) layout and the packed family, reference mode only: packed
+(3 fields, 12 B/entry), rank (2 fields, 8 B/entry) and rank1 (1 field,
+4 B/entry; see ops/rank.py):
 
     step = apply op batch  ->  gossip round(s) over the topology
 
 with the tables resident on ``device``. On a CUDA device the op apply
-(packed), the ring/chain rounds, the compacting frontier convergence and
-the reconcile run the hand-written kernels of ``bullet_tpu_torch/csrc``;
-on the CPU the same routes run their plain PyTorch versions.
+(packed family), the ring/chain rounds, the compacting frontier
+convergence, the window joins of ``fast_forward`` and the reconcile run the
+hand-written kernels of ``bullet_tpu_torch/csrc``; on the CPU the same
+routes run their plain PyTorch versions.
 ``use_kernels`` (default: the device is CUDA) picks the kernel routes, as
 ``use_pallas`` does in the reference package; only a CPU sim may turn it
 off.
@@ -26,8 +28,9 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from ..convert import packed_from_numpy, table_from_numpy, table_to_numpy
+from ..convert import FROM_NUMPY, table_to_numpy
 from ..ops import packed as pk
+from ..ops import rank as rk
 from ..ops.apply import OpBatch, apply_ops
 from ..ops.merge import TableState, init_table, lex_gt, priority_keys
 from ..parallel import topology as topo
@@ -37,12 +40,18 @@ from .table import MISSING, GraphHost, flatten_value
 
 TopologyLike = Union[str, topo.Topology]
 
+# the layouts that share the packed-family kernels (keyed by field count:
+# 3 = packed, 2 = rank, 1 = rank1)
+PACKED_FAMILY = ("packed", "rank", "rank1")
+# the layouts whose merge order rides a host-maintained RankIndex
+RANK_FAMILY = ("rank", "rank1")
+
 
 class ConvergenceCell(NamedTuple):
     """The dispatch-relevant shape of a convergence request. Built by
     ``PeerNetworkSim._convergence_cell``; consumed by the strategy table."""
 
-    layout: str  # "dense" | "packed"
+    layout: str  # "dense" | "packed" | "rank" | "rank1"
     ring_chain: bool  # topology kind is ring or chain
     frontier: bool  # the frontier kernel tiles this shape (tile > 0)
     kernels: bool  # use_kernels
@@ -53,13 +62,13 @@ class ConvergenceCell(NamedTuple):
 # multi-device); these are the rows of a single-device dense or packed sim.
 CONVERGENCE_STRATEGIES: Tuple[Tuple[str, Callable, str], ...] = (
     (
-        "packed-frontier-local",  # packed compacting frontier, fused on the card
-        lambda c: c.layout == "packed" and c.frontier and c.ring_chain and c.kernels,
+        "packed-frontier-local",  # packed-family compacting frontier, fused on the card
+        lambda c: c.layout in PACKED_FAMILY and c.frontier and c.ring_chain and c.kernels,
         "_converge_frontier_local",
     ),
     (
-        "packed-loop",  # packed whole-table round loop (any topology)
-        lambda c: c.layout == "packed",
+        "packed-loop",  # packed-family whole-table round loop (any topology)
+        lambda c: c.layout in PACKED_FAMILY,
         "_converge_packed_loop",
     ),
     (
@@ -150,13 +159,14 @@ def _rekey_packed(table: pk.PackedTable, cls_map, khi_map, klo_map) -> pk.Packed
     return table
 
 
-def _closure_join_packed(table: pk.PackedTable, idx, members) -> pk.PackedTable:
-    """Packed twin of ``_closure_join_dense`` (reference mode): join rows
-    ``table[idx]`` by roll-doubling, write the join to rows ``members``."""
-    rows = pk.PackedTable(*(f[idx] for f in table))
+def _closure_join_packed(table, idx, members):
+    """Packed-family twin of ``_closure_join_dense`` (reference mode): join
+    rows ``table[idx]`` by roll-doubling, write the join to rows
+    ``members``."""
+    rows = type(table)(*(f[idx] for f in table))
     for s in range((len(idx) - 1).bit_length()):
         rows, _ = pk.merge_packed_torch(
-            rows, pk.PackedTable(*(torch.roll(f, 1 << s, 0) for f in rows))
+            rows, type(table)(*(torch.roll(f, 1 << s, 0) for f in rows))
         )
     for f, r in zip(table, rows):
         f[members] = r[0]
@@ -194,8 +204,9 @@ class PeerNetworkSim:
         A CUDA sim always takes them; on the CPU they run the kernels'
         plain versions, and False picks the whole-table round loop
     layout : "dense" (7 fields, full metadata) | "packed" (3 fields,
-        12 B/entry, reference mode only; see ops/packed.py); the rank
-        layouts are not ported yet
+        12 B/entry; see ops/packed.py) | "rank" (2 fields, 8 B/entry) |
+        "rank1" (1 field, 4 B/entry; see ops/rank.py); the packed family
+        runs in reference mode only
     device : where the tables live ("cuda", the default; "cpu"; a
         torch.device)
     """
@@ -214,15 +225,11 @@ class PeerNetworkSim:
         *,
         device="cuda",
     ) -> None:
-        if layout in ("rank", "rank1"):
-            raise NotImplementedError(
-                f"layout={layout!r} is not ported yet (ROADMAP.md Queue 1: rank layouts)"
-            )
-        if layout not in ("dense", "packed"):
+        if layout not in ("dense",) + PACKED_FAMILY:
             raise ValueError(f"unknown layout: {layout}")
-        if layout == "packed" and mode != "reference":
+        if layout in PACKED_FAMILY and mode != "reference":
             raise ValueError(
-                "packed layout supports reference mode only "
+                f"{layout} layout supports reference mode only "
                 "(no writer/ctr metadata for lww priority)"
             )
         if mesh_devices or use_shard_map:
@@ -252,6 +259,11 @@ class PeerNetworkSim:
         if self.topology.num_peers != num_peers:
             raise ValueError("topology size != num_peers")
         self.host = GraphHost(capacity)
+        if layout in RANK_FAMILY:
+            # host order authority for the rank layouts: vid -> 31-bit gap
+            # rank, strictly monotone in (cls, khi, klo, vid)
+            self.rank_index = rk.RankIndex()
+            self._rank_str_epoch = -1
         self.table = self._init_table(num_peers, capacity)
         self.capacity = capacity
         self.tick = 0
@@ -278,6 +290,7 @@ class PeerNetworkSim:
             "ops_enqueued": 0,
             "ops_applied": 0,
             "gossip_rounds": 0,
+            "windowed_rounds": 0,
             "merged_entries": 0,
             "steps": 0,
         }
@@ -424,6 +437,10 @@ class PeerNetworkSim:
             )
             cls, khi, klo, vid = bulk_encode_values(self.host.values, raw_vals)
         self._enqueue_bulk(peers, slots, cls, khi, klo, vid)
+        if self.layout in RANK_FAMILY:
+            # rank the new values now, while the batch is hot; a respread's
+            # device re-key waits for the next _sync_rank_index
+            self._stage_rank_inserts()
 
     def _enqueue_bulk(self, peers, slots, cls, khi, klo, vid) -> None:
         """Stamp per-op Lamport counters (clock[peer] + within-batch
@@ -519,9 +536,8 @@ class PeerNetworkSim:
         return tuple(np.concatenate([c[i] for c in chunks]) for i in range(6))
 
     def _init_table(self, num_peers: int, capacity: int):
-        if self.layout == "packed":
-            return pk.init_packed(num_peers, capacity, self.device)
-        return init_table(num_peers, capacity, self.device)
+        init = {"packed": pk.init_packed, "rank": rk.init_rank, "rank1": rk.init_rank1}
+        return init.get(self.layout, init_table)(num_peers, capacity, self.device)
 
     def _ensure_capacity(self) -> None:
         needed = len(self.host.paths)
@@ -540,6 +556,13 @@ class PeerNetworkSim:
     def _maybe_rekey(self) -> None:
         if not self.host.needs_rekey:
             return
+        if self.layout in RANK_FAMILY:
+            # a string-rank rebalance moves khi/klo bits but keeps the value
+            # order, and a rank table stores no key bits: the device state is
+            # already right. The RankIndex's stored keys refresh through the
+            # interner epoch in _stage_rank_inserts.
+            self.host.needs_rekey = False
+            return
         maps = (
             torch.from_numpy(np.asarray(m, dtype=np.int32)).to(self.device)
             for m in self.host.key_tables()
@@ -547,6 +570,42 @@ class PeerNetworkSim:
         rekey = _rekey_packed if self.layout == "packed" else _rekey
         self.table = rekey(self.table, *maps)
         self.host.needs_rekey = False
+
+    def _stage_rank_inserts(self) -> None:
+        """Rank-index maintenance without the device re-key: refresh the
+        stored key columns after a string rebalance and rank the newly
+        interned vids. A respread's re-key waits for _sync_rank_index."""
+        vals = self.host.values
+        if self._rank_str_epoch != vals.epoch:
+            self.rank_index.refresh_keys(*self.host.key_tables())
+            self._rank_str_epoch = vals.epoch
+        n_ranked = len(self.rank_index)
+        if len(vals) > n_ranked:
+            cls_map, khi_map, klo_map = self.host.key_tables()
+            new = np.arange(n_ranked, len(vals))
+            self.rank_index.insert_batch(new, cls_map[new], khi_map[new], klo_map[new])
+
+    def _device_lut(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(self.device)
+
+    def _sync_rank_index(self) -> None:
+        """Bring the RankIndex up to date with the interner and, if a gap
+        exhausted and the rank space respread, re-gather the device table's
+        ranks so ops and table compare under one map version: through cv's
+        vid (rank), or by decoding the stale ranks through the pre-respread
+        inverse (rank1, ``RankIndex.prev_inverse``)."""
+        self._stage_rank_inserts()
+        if not self.rank_index.needs_rekey:
+            return
+        rank_map = self._device_lut(self.rank_index.rank_map())
+        if self.layout == "rank1":
+            osr, osv = self.rank_index.prev_inverse
+            self.table = rk.rekey_rank1(
+                self.table, self._device_lut(osr), self._device_lut(osv), rank_map
+            )
+        else:
+            self.table = rk.rekey_rank(self.table, rank_map)
+        self.rank_index.needs_rekey = False
 
     def _mark_dirty(self, slots: np.ndarray) -> None:
         """Frontier bookkeeping: the stripes holding ``slots`` need work."""
@@ -560,7 +619,7 @@ class PeerNetworkSim:
 
     def _apply_pending(self) -> int:
         """Drain + apply, layout-dispatched; returns the applied count."""
-        if self.layout == "packed":
+        if self.layout in PACKED_FAMILY:
             return self._apply_pending_packed()
         drained = self._drain_ops()
         if drained is None:
@@ -570,23 +629,37 @@ class PeerNetworkSim:
         return int(applied)
 
     def _apply_pending_packed(self) -> int:
-        """Packed apply: host lattice pre-reduction per (peer, slot), then
-        ONE upload of the [5, K] winners and one flat apply (the kernel on
-        the card) — no dense batch. Unlike the reference, ops are never
+        """Packed-family apply: host lattice pre-reduction per (peer, slot),
+        then ONE upload of the [2 + nf, K] winners and one flat apply (the
+        kernel on the card) — no dense batch. The rank layouts stamp each
+        op with its value's rank first. Unlike the reference, ops are never
         staged on the device at put time (that hid a TPU link's latency)."""
         flat = self._drain_flat()
         if flat is None:
             return 0
         if len(self.host.values) > pk.MAX_VID:
             raise RuntimeError(
-                f"packed layout caps distinct values at 2^28; interner "
+                f"{self.layout} layout caps distinct values at 2^28; interner "
                 f"holds {len(self.host.values)} — use layout='dense'"
             )
-        reduced = pk.reduce_flat_ops(*flat)
+        if self.layout in RANK_FAMILY:
+            peer, slot, cls, _khi, _klo, vid = flat
+            # rank stamping sees every new vid, and a device table coherent
+            # with the same map version
+            self._sync_rank_index()
+            rank = self.rank_index.rank_map()[vid]
+            cv = ((cls.astype(np.int64) << pk.CV_SHIFT) | vid).astype(np.int32)
+            reduced = rk.reduce_flat_ops_rank(peer, slot, rank, cv)
+            if reduced is not None and self.layout == "rank1":
+                # the rank decides the winner alone; rank1 stores no cv
+                reduced = reduced[:3]
+        else:
+            reduced = pk.reduce_flat_ops(*flat)
         if reduced is None:
             return 0
         self._mark_dirty(reduced[1])
         ops = torch.from_numpy(np.stack(reduced)).to(self.device)
+        # one flat apply for the whole family: the wrapper dispatches on nf
         self.table, applied = pk.apply_flat_packed(self.table, ops)
         return int(applied)
 
@@ -597,7 +670,7 @@ class PeerNetworkSim:
         return pk.frontier_tile_n(self.table[0].shape[1])
 
     def _one_round(self):
-        if self.layout == "packed":
+        if self.layout in PACKED_FAMILY:
             return pk.gossip_round_packed(self.table, self.topology)
         return gossip_round(self.table, self.topology, self.mode)
 
@@ -618,6 +691,87 @@ class PeerNetworkSim:
             self.stats["merged_entries"] += residual
         self.stats["steps"] += 1
         self.last_residual = residual if rounds else None
+        self._sync_clocks()
+        self._fire_subscriptions()
+        return residual
+
+    def _fast_forward_route(self) -> str:
+        """Which implementation fast_forward uses for this sim state:
+        "frontier" (the compacting frontier loop with max_rounds = k: a
+        packed sim on the card whose dirty-stripe tracking is valid, so the
+        jump is not blind), "window" (every other packed-family ring or
+        chain sim: the window-join kernel on the card, its plain version on
+        the CPU) or "step" (dense layouts and other topologies). The
+        reference's "pallas", "halo_window" and "xla" routes all become
+        "window": a column-owning kernel has no VMEM budget to route
+        around."""
+        if self.layout not in PACKED_FAMILY or self.topology.kind not in ("ring", "chain"):
+            return "step"
+        if (self.device.type == "cuda" and self.layout == "packed"
+                and self._frontier_tracking_valid()):
+            return "frontier"
+        return "window"
+
+    def fast_forward(self, rounds: int) -> int:
+        """Advance exactly ``rounds`` gossip rounds, bit-identical to
+        ``step(rounds)`` (same table, same returned last-round residual),
+        computed as radius-m window joins in O(log m) 3-way joins per pass
+        instead of m sequential rounds: the merge is an idempotent lattice
+        join, so m rounds equal one radius-m window.
+
+        A window pass covers min(left, P + 1) rounds: P + 1 rounds reach
+        the fixed point of any ring or chain of P peers (a chain's all-zero
+        ends are P rows from its far edge), so a longer pass could change
+        nothing more. A pass whose round-m residual is 0 has reached the
+        fixed point; the remaining rounds are no-ops and are skipped, and
+        every stripe is marked clean. The "frontier" route (see
+        ``_fast_forward_route``) runs the fused frontier loop with
+        ``max_rounds = rounds`` instead.
+
+        Accounting: ``stats["gossip_rounds"]`` and
+        ``stats["windowed_rounds"]`` grow by ``rounds``; intermediate
+        rounds are never materialized, so ``merged_entries`` grows by the
+        final round's residual only. Dense layouts and other topologies
+        delegate to ``step(rounds)``."""
+        route = self._fast_forward_route()
+        if rounds <= 0 or route == "step":
+            return self.step(rounds)
+        self._ensure_capacity()
+        self._maybe_rekey()
+        self.tick += 1
+        self.stats["ops_applied"] += self._apply_pending()
+        # re-resolve: the apply refreshed the dirty-stripe tracking
+        route = self._fast_forward_route()
+        wrap = self.topology.kind == "ring"
+        p, n = self.table[0].shape
+        if route == "frontier":
+            tile_n = self._frontier_tile()
+            t_total = n // tile_n
+            self.table, rounds_exec, last_changed = pk.gossip_frontier_packed(
+                self.table, self._frontier_seed(t_total), wrap, rounds,
+                fuse=pk.STRIPE_FUSE, tile_n=tile_n,
+            )
+            self._finish_frontier(t_total, rounds_exec, last_changed, rounds)
+            residual = int(last_changed)
+        else:
+            self._frontier_dirty = None  # untracked gossip advances stripes
+            left, residual = rounds, 0
+            while left:
+                m = min(left, p + 1)
+                self.table, changed = pk.ring_window_packed(self.table, wrap, m)
+                left -= m
+                residual = int(changed)
+                if residual == 0:
+                    # fixed point: the table is settled until new ops land
+                    tile_n = self._frontier_tile()
+                    if tile_n:
+                        self._frontier_dirty = np.zeros(n // tile_n, dtype=bool)
+                    break
+        self.stats["gossip_rounds"] += rounds
+        self.stats["windowed_rounds"] += rounds
+        self.stats["merged_entries"] += residual
+        self.stats["steps"] += 1
+        self.last_residual = residual
         self._sync_clocks()
         self._fire_subscriptions()
         return residual
@@ -654,6 +808,13 @@ class PeerNetworkSim:
                 return name, getattr(self, method)
         raise AssertionError("unreachable: the last row matches every cell")
 
+    def _frontier_tracking_valid(self) -> bool:
+        """True when the dirty-stripe tracking is live for the current
+        shape: a fast_forward jump is then not blind."""
+        tile_n = self._frontier_tile()
+        d = self._frontier_dirty
+        return d is not None and tile_n > 0 and len(d) == self.table[0].shape[1] // tile_n
+
     def _frontier_seed(self, t_total: int) -> torch.Tensor:
         """Dirty-stripe seed for a frontier loop: the incrementally tracked
         set when valid (only stripes touched since the last completed
@@ -681,7 +842,7 @@ class PeerNetworkSim:
         return rounds
 
     def _converge_frontier_local(self, max_rounds: int) -> int:
-        """Packed compacting frontier loop; on the card STRIPE_FUSE rounds
+        """Packed-family compacting frontier loop; on the card STRIPE_FUSE rounds
         fuse per kernel step, with the exact classic round count rebuilt on
         the host. On the CPU the plain version runs unfused."""
         tile_n = self._frontier_tile()
@@ -695,7 +856,7 @@ class PeerNetworkSim:
         return self._finish_converge(rounds, final_changed)
 
     def _converge_packed_loop(self, max_rounds: int) -> int:
-        """Packed whole-table round loop for any topology, one count read
+        """Packed-family whole-table round loop for any topology, one count read
         per round."""
         self.table, rounds, final_changed = pk.gossip_until_converged_packed(
             self.table, self.topology, max_rounds
@@ -736,7 +897,7 @@ class PeerNetworkSim:
         On a strongly connected topology every peer reaches every peer, so
         every row becomes the join of its whole column: ceil(log2 P)
         doubling merges (the merge kernel on the card) on the dense layout,
-        one pass of the reconcile kernel on the packed layout. Otherwise a
+        one pass of the reconcile kernel on the packed family. Otherwise a
         dynamic program over the SCC condensation joins each component's
         members plus one representative row per successor component.
         Either way the result is bit-identical to run_until_converged's
@@ -748,7 +909,7 @@ class PeerNetworkSim:
         self.stats["ops_applied"] += self._apply_pending()
         if not self.topology.is_connected():
             self._reconcile_weak()
-        elif self.layout == "packed":
+        elif self.layout in PACKED_FAMILY:
             self.table = pk.reconcile_packed(self.table)
         else:
             self.table, _ = gossip_round_mesh(self.table, self.mode)
@@ -787,7 +948,7 @@ class PeerNetworkSim:
                 continue  # singleton with no pulls: already its closure
             idx_t = torch.tensor(idx, dtype=torch.int64, device=self.device)
             mem_t = torch.from_numpy(members[c]).to(self.device)
-            if self.layout == "packed":
+            if self.layout in PACKED_FAMILY:
                 self.table = _closure_join_packed(self.table, idx_t, mem_t)
             else:
                 self.table = _closure_join_dense(self.table, idx_t, mem_t, self.mode)
@@ -804,19 +965,19 @@ class PeerNetworkSim:
         self._clock_list = self._clock.tolist()
 
     def converged(self) -> bool:
-        """True iff one more gossip round would change nothing. A packed
-        ring/chain sim asks the count-only probe (the kernel writes
+        """True iff one more gossip round would change nothing. A
+        packed-family ring/chain sim asks the count-only probe (the kernel writes
         nothing, so no table-sized scratch at the north-star shape); other
         sims run the round on a scratch copy, since the port's rounds
         update in place."""
         self._sync_device_state()
-        if self.layout == "packed" and self.topology.kind in ("ring", "chain"):
+        if self.layout in PACKED_FAMILY and self.topology.kind in ("ring", "chain"):
             changed = pk.count_changes_round_packed(
                 self.table, self.topology.kind == "ring"
             )
             return int(changed) == 0
         scratch = type(self.table)(*(f.clone() for f in self.table))
-        if self.layout == "packed":
+        if self.layout in PACKED_FAMILY:
             _, changed = pk.gossip_round_packed(scratch, self.topology)
         else:
             _, changed = gossip_round(scratch, self.topology, self.mode)
@@ -830,27 +991,32 @@ class PeerNetworkSim:
         self._ensure_capacity()
         self._maybe_rekey()
 
-    def _gather_cls_vid(self, peers, slots) -> Tuple[np.ndarray, np.ndarray]:
-        """(cls, vid) at the K (peer, slot) pairs, in one device gather per
-        stored field (one, cv, on the packed layout)."""
+    def _gather_present_vid(self, peers, slots) -> Tuple[np.ndarray, np.ndarray]:
+        """(present, vid) at the K (peer, slot) pairs, in one device gather
+        per stored field (one, cv, on the packed and rank layouts). Rank1
+        gathers the ranks and decodes them on the host through the
+        RankIndex; a rank with no exact hit reads as absent."""
         idx = tuple(
             torch.from_numpy(np.ascontiguousarray(a, dtype=np.int64)).to(self.device)
             for a in (peers, slots)
         )
-        if self.layout == "packed":
+        if self.layout == "rank1":
+            vid = self.rank_index.decode_ranks(self.table.rank[idx].cpu().numpy())
+            return vid >= 0, vid
+        if self.layout in PACKED_FAMILY:
             cv = self.table.cv[idx].cpu().numpy()
-            return cv >> pk.CV_SHIFT, cv & pk.VID_MASK
-        return self.table.cls[idx].cpu().numpy(), self.table.vid[idx].cpu().numpy()
+            return (cv >> pk.CV_SHIFT) != CLS_ABSENT, cv & pk.VID_MASK
+        cls = self.table.cls[idx].cpu().numpy()
+        return cls != CLS_ABSENT, self.table.vid[idx].cpu().numpy()
 
     def _decode_slots(self, peer: int, slots: List[int]) -> Dict[int, Any]:
         if not slots:
             return {}
         self._sync_device_state()
         slots_np = np.asarray(slots, dtype=np.int64)
-        cls, vid = self._gather_cls_vid(
+        sel, vid = self._gather_present_vid(
             np.full(len(slots_np), peer, dtype=np.int64), slots_np
         )
-        sel = cls != CLS_ABSENT
         dec = self.host.values.decode_batch(np.where(vid[sel] == VID_NULL, 0, vid[sel]))
         out: Dict[int, Any] = {}
         for slot, v, d in zip(slots_np[sel].tolist(), vid[sel].tolist(), dec):
@@ -894,8 +1060,8 @@ class PeerNetworkSim:
         k = len(slots)
         peers_arr = np.broadcast_to(np.asarray(peers, dtype=np.int32), (k,))
         self._sync_device_state()
-        cls, vid = self._gather_cls_vid(peers_arr, slots)
-        present = valid & (cls != CLS_ABSENT) & (vid != VID_NULL)
+        present, vid = self._gather_present_vid(peers_arr, slots)
+        present &= valid & (vid != VID_NULL)
         out_arr = np.full(k, None, dtype=object)
         if present.any():
             uniq, inverse = np.unique(vid[present], return_inverse=True)
@@ -962,8 +1128,8 @@ class PeerNetworkSim:
     def _gather_watch_values(self) -> np.ndarray:
         if len(self._watch_peers) == 0:
             return np.empty((0,), dtype=np.int64)
-        cls, vid = self._gather_cls_vid(self._watch_peers, self._watch_slots)
-        return (cls.astype(np.int64) << 32) | vid.astype(np.int64)
+        present, vid = self._gather_present_vid(self._watch_peers, self._watch_slots)
+        return np.where(present, vid.astype(np.int64), -1)
 
     def _fire_subscriptions(self) -> None:
         if not self._subs:
@@ -1000,12 +1166,22 @@ class PeerNetworkSim:
         if any(self._pending) or self._pending_bulk:
             self.step(rounds=0)
         self._sync_device_state()
-        return {
+        snap = {
             "table": list(table_to_numpy(self.table)),
             "tick": self.tick,
             "clock": self._clock_snapshot(),
             "capacity": self.capacity,
         }
+        if self.layout in RANK_FAMILY:
+            # ranks mean something only against one RankIndex epoch: restore
+            # re-keys when the epoch moved
+            snap["rank_epoch"] = self.rank_index.epoch
+            if self.layout == "rank1":
+                # no vid column to decode stale ranks through: the snapshot
+                # carries its own epoch's inverse
+                sr, sv = self.rank_index.inverse_arrays()
+                snap["rank_inverse"] = (sr.copy(), sv.copy())
+        return snap
 
     def restore(self, snap: dict) -> None:
         """Rewind to EXACTLY the snapshot state; accepts this class's
@@ -1013,13 +1189,36 @@ class PeerNetworkSim:
         same layout.
         Pending (un-applied) puts are DISCARDED: they belong to the
         abandoned post-snapshot timeline. The host interners are not part
-        of a snapshot."""
+        of a snapshot. A rank or rank1 snapshot from another RankIndex
+        epoch is re-keyed to the current one (through cv, or through the
+        snapshot's own ``rank_inverse``)."""
         for ops in self._pending:
             ops.clear()
         self._pending_bulk.clear()
         self._frontier_dirty = None
-        from_numpy = packed_from_numpy if self.layout == "packed" else table_from_numpy
-        self.table = from_numpy(snap["table"], self.device)
+        if self.layout in RANK_FAMILY:
+            # bring the index current BEFORE swapping tables: a pending insert
+            # could respread, and a rank1 re-key through prev_inverse only
+            # matches the current table's epoch
+            self._sync_rank_index()
+        self.table = FROM_NUMPY[self.layout](snap["table"], self.device)
+        if self.layout in RANK_FAMILY:
+            # a snapshot's ranks hold under the index that took it, which may
+            # be another sim's (the reference's, carried across), so epochs
+            # are not compared: rank re-gathers from cv, one pass; rank1
+            # decodes through the snapshot's own inverse unless it is the
+            # current one
+            rank_map = self._device_lut(self.rank_index.rank_map())
+            if self.layout == "rank":
+                self.table = rk.rekey_rank(self.table, rank_map)
+            else:
+                osr, osv = (np.asarray(a) for a in snap["rank_inverse"])
+                sr, sv = self.rank_index.inverse_arrays()
+                # an empty inverse means an all-absent table
+                if len(osr) and not (np.array_equal(osr, sr) and np.array_equal(osv, sv)):
+                    self.table = rk.rekey_rank1(
+                        self.table, self._device_lut(osr), self._device_lut(osv), rank_map
+                    )
         self.tick = snap["tick"]
         self._clock = np.asarray(snap["clock"], dtype=np.int64).copy()
         self._clock_list = self._clock.tolist()
@@ -1027,10 +1226,12 @@ class PeerNetworkSim:
 
     def tables_equal(self) -> bool:
         """All peers bit-identical in (cls, vid) — the convergence
-        acceptance check (cv alone on the packed layout: cv equal <=>
-        (cls, vid) equal). Computed on the device; one scalar crosses to
-        the host."""
+        acceptance check (cv alone on the packed and rank layouts: cv equal
+        <=> (cls, vid) equal; the rank alone on rank1, a bijection over
+        entries). Computed on the device; one scalar crosses to the
+        host."""
         t = self.table
-        if self.layout == "packed":
-            return bool((t.cv == t.cv[0:1]).all())
+        if self.layout in PACKED_FAMILY:
+            field = t.rank if self.layout == "rank1" else t.cv
+            return bool((field == field[0:1]).all())
         return bool((t.vid == t.vid[0:1]).all() & (t.cls == t.cls[0:1]).all())

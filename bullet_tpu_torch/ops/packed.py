@@ -23,11 +23,15 @@ Each kernel sits beside its plain PyTorch version:
   ``reconcile_packed_torch``: every row becomes its column's join;
 * ``frontier_round_packed`` (``csrc/frontier_packed.cu``) /
   ``frontier_round_packed_torch``: m rounds over the active stripes only,
-  returning the next compact ids array.
+  returning the next compact ids array;
+* ``ring_window_packed`` (``csrc/window_packed.cu``) /
+  ``ring_window_packed_torch``: m rounds as one radius-(m-1) window join
+  plus a classic last round, returning the round-m residual.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
-launches its kernel or raises (only the packed layout, nf = 3, has
-kernels so far). The kernels update the table in place; the port keeps
+launches its kernel or raises. Every kernel is instantiated for the three
+field counts (csrc/lexmax.cuh: ``PackedEntry``, ``RankEntry``,
+``Rank1Entry``). The kernels update the table in place; the port keeps
 one table allocation where the reference donated and re-bound buffers.
 
 The compacting frontier loops carry a compact ids array instead of
@@ -43,7 +47,7 @@ per-stripe dirty flags; each frontier step produces the next one. Layout
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -52,6 +56,8 @@ from .. import _build
 from .merge import TableState, lex_gt
 from .ring_kernel import (
     _PLAIN_BLOCK_ELEMS,
+    _lexmax,
+    _round_masks,
     check_frontier_step,
     frontier_round_torch,
     frontier_tile_n,
@@ -140,11 +146,10 @@ def merge_packed_torch(a, b) -> Tuple[object, torch.Tensor]:
 
 
 def _fields_checked(table, what: str) -> Tuple[int, int]:
-    """Raise unless ``table`` is a contiguous int32 CUDA table of the
-    packed layout (the kernels are instantiated for nf = 3 only so far);
-    returns (P, N)."""
-    if len(table) != 3:
-        raise ValueError(f"{what}: kernels take 3-field tables, got {len(table)}")
+    """Raise unless ``table`` is a contiguous int32 CUDA table of a
+    packed-family layout (1, 2 or 3 fields); returns (P, N)."""
+    if len(table) not in (1, 2, 3):
+        raise ValueError(f"{what}: kernels take 1-, 2- or 3-field tables, got {len(table)}")
     device = table[0].device
     _build.require_cuda(device, what)
     p, n = table[0].shape
@@ -220,10 +225,11 @@ def apply_flat_packed_torch(table, ops: torch.Tensor) -> Tuple[object, torch.Ten
 
 
 def apply_flat_packed(table, ops: torch.Tensor) -> Tuple[object, torch.Tensor]:
-    """Apply K pre-reduced ops (``reduce_flat_ops`` output stacked as
-    [5, K] int32 rows peer, slot, khi, klo, cv), in place: the CUDA kernel
-    for CUDA tensors, the plain version for CPU tensors. Returns (table,
-    applied count)."""
+    """Apply K pre-reduced ops, stacked as [2 + nf, K] int32 rows peer,
+    slot, then the table's fields (``reduce_flat_ops`` or
+    ``reduce_flat_ops_rank`` output), in place: the CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors. Returns (table, applied
+    count)."""
     device = table[0].device
     if device.type == "cpu":
         return apply_flat_packed_torch(table, ops)
@@ -237,7 +243,7 @@ def apply_flat_packed(table, ops: torch.Tensor) -> Tuple[object, torch.Tensor]:
     with torch.cuda.device(device):
         err = lib.bt_apply_packed(
             _build.pointers(table), ops.data_ptr(), k, p, n, count.data_ptr(),
-            _build.stream_of(device),
+            len(table), _build.stream_of(device),
         )
     _build.check(err, "apply_flat_packed")
     _build.LAUNCHES["apply_packed"] += 1
@@ -269,7 +275,7 @@ def _packed_round(table, wrap: bool, m: int, count_only: bool):
     with torch.cuda.device(device):
         err = lib.bt_packed_round(
             _build.pointers(table), count.data_ptr(), p, n, m, int(wrap),
-            int(count_only), _build.stream_of(device),
+            int(count_only), len(table), _build.stream_of(device),
         )
     _build.check(err, "packed_round")
     _build.LAUNCHES["packed_round"] += 1
@@ -352,6 +358,91 @@ def gossip_until_converged_packed(table, topology, max_rounds: int):
     return table, rounds, last_changed
 
 
+# ------------------------------------------------------------ window join
+
+
+def _window_chain(m: int):
+    """Shift schedule whose 3-way joins grow the window radius to exactly
+    ``m`` in O(log m) steps: from radius r, joining the window with copies
+    of itself shifted by +-s covers radius r + s for any s <= 2r + 1, so
+    the greedy s = min(m - r, 2r + 1) lands on m exactly."""
+    steps = []
+    r = 0
+    while r < m:
+        s = min(m - r, 2 * r + 1)
+        steps.append(s)
+        r += s
+    return steps
+
+
+def _window_shifted(vals: List[torch.Tensor], s: int, wrap: bool):
+    """Row p of the result is row p - s (wrapped on a ring). A chain clamps
+    the rows that fall off an end to the edge row, whose accumulated window
+    is the edge-clipped one (zero-filling would lose that coverage)."""
+    p = vals[0].shape[0]
+    out = []
+    for f in vals:
+        rolled = torch.roll(f, s, 0)
+        if not wrap:
+            if s > 0:
+                rolled[: min(s, p)] = f[0:1]
+            else:
+                rolled[max(p + s, 0):] = f[p - 1:]
+        out.append(rolled)
+    return out
+
+
+def ring_window_packed_torch(table, wrap: bool, m: int) -> Tuple[object, torch.Tensor]:
+    """Plain twin of the reference's ``ring_window_packed_xla``: ``m`` ring
+    (wrap) or chain rounds as a radius-(m-1) window join (O(log m)
+    roll+join steps) finished by one classic round, in place, on column
+    blocks (columns are independent), which bounds the temporaries at large
+    tables. Bit-identical to m sequential rounds; the returned count
+    (int32) is the classic round-m residual."""
+    if m < 1:
+        raise ValueError(f"m must be >= 1, got {m}")
+    p, n = table[0].shape
+    width = max(1, _PLAIN_BLOCK_ELEMS // max(p, 1))
+    steps = _window_chain(m - 1)
+    total = torch.zeros((), dtype=torch.int64, device=table[0].device)
+    for c0 in range(0, n, width):
+        vals = [f[:, c0:c0 + width] for f in table]
+        for s in steps:
+            vals, _ = _lexmax(vals, _window_shifted(vals, s, wrap), packed_beats)
+            vals, _ = _lexmax(vals, _window_shifted(vals, -s, wrap), packed_beats)
+        vals, gt1, gt2 = _round_masks(vals, wrap, packed_beats)
+        total += gt1.sum() + gt2.sum()
+        for f, v in zip(table, vals):
+            f[:, c0:c0 + width] = v
+    return table, total.to(torch.int32)
+
+
+def ring_window_packed(table, wrap: bool, m: int) -> Tuple[object, torch.Tensor]:
+    """``m`` ring or chain rounds as one window join, in place: the CUDA
+    kernel for CUDA tensors (it allocates one table-sized scratch when
+    m > 1), the plain version for CPU tensors. Returns (table, the classic
+    round-m residual). Any P, N >= 1 and m >= 1."""
+    if m < 1:
+        raise ValueError(f"m must be >= 1, got {m}")
+    device = table[0].device
+    if device.type == "cpu":
+        return ring_window_packed_torch(table, wrap, m)
+    p, n = _fields_checked(table, "ring_window_packed")
+    lib = _build.library()
+    count = torch.zeros(1, dtype=torch.int32, device=device)
+    # the scratch is freed on return; the caching allocator hands its
+    # memory to later work on this stream only, after the kernel
+    scratch = [torch.empty_like(f) for f in table] if m > 1 else None
+    with torch.cuda.device(device):
+        err = lib.bt_window_packed(
+            _build.pointers(table), _build.pointers(scratch) if scratch else None,
+            count.data_ptr(), p, n, m, int(wrap), len(table), _build.stream_of(device),
+        )
+    _build.check(err, "ring_window_packed")
+    _build.LAUNCHES["window_packed"] += 1
+    return table, count[0]
+
+
 # --------------------------------------------------------- direct reconcile
 
 
@@ -382,7 +473,9 @@ def reconcile_packed(table):
     p, n = _fields_checked(table, "reconcile_packed")
     lib = _build.library()
     with torch.cuda.device(device):
-        err = lib.bt_reconcile_packed(_build.pointers(table), p, n, _build.stream_of(device))
+        err = lib.bt_reconcile_packed(
+            _build.pointers(table), p, n, len(table), _build.stream_of(device)
+        )
     _build.check(err, "reconcile_packed")
     _build.LAUNCHES["reconcile_packed"] += 1
     return table
@@ -408,7 +501,7 @@ def frontier_round_packed(table, ids, tile_n: int, wrap: bool, m: int = 1):
         return frontier_round_packed_torch(table, ids, tile_n, wrap, m)
     _fields_checked(table, "frontier_round_packed")
     return table, launch_frontier_step(
-        "frontier_round_packed", table, ids, tile_n, m, int(wrap)
+        "frontier_round_packed", table, ids, tile_n, m, int(wrap), len(table)
     )
 
 

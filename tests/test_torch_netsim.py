@@ -202,7 +202,8 @@ def test_converged_does_not_advance_and_peer_cursor():
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"layout": "rank"}, {"layout": "rank1"}, {"mesh_devices": 2},
+    {"layout": "rank", "mesh_devices": 2}, {"layout": "rank1", "use_shard_map": True},
+    {"mesh_devices": 2},
     {"use_shard_map": True}, {"lean_gossip": True},
 ])
 def test_unported_options_raise(kwargs):

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Trace the device over the main paths of chip_smoke.py (its phases 4
-and 5: the dense and the packed ring).
+"""Trace the device over the main paths of chip_smoke.py (its phases 4,
+5 and 6: the dense, the packed and the rank1 ring).
 
     python3 tools/profile_main.py [--seed S] [--peers P] [--capacity N] [--ops K]
                                   [--packed-capacity N] [--packed-ops K]
+                                  [--rank1-capacity N] [--rank1-ops K]
 
 Runs the same main paths as ``chip_smoke.py`` (same data, windows and
 checks) with each timed window under ``torch.profiler`` (CUDA activity
@@ -85,14 +86,17 @@ def main() -> int:
     args = chip_smoke.build_parser().parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_main: torch.cuda.is_available() is false")
-    print(subprocess.run(
+    card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
-    ).stdout.strip(), flush=True)
+    ).stdout.strip()
+    print(card, flush=True)
     dev = torch.device("cuda", 0)
     chip_smoke.main_path(args, dev, window=traced_window)
     torch.cuda.empty_cache()
     chip_smoke.packed_main_path(args, dev, window=traced_window)
+    torch.cuda.empty_cache()
+    chip_smoke.rank1_main_path(args, dev, window=traced_window, card=card)
     if not any(EVENTS.values()):
         raise RuntimeError(f"the profiler recorded no device activity: {EVENTS}")
     return 0
