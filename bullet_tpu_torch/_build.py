@@ -27,7 +27,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (
-    "merge.cu", "ring_round.cu", "frontier_dense.cu",
+    "merge.cu", "ring_round.cu", "frontier_dense.cu", "frontier_shard.cu",
+    "compact_counts.cu",
     "apply_packed.cu", "packed_round.cu", "reconcile_packed.cu", "frontier_packed.cu",
     "window_packed.cu",
 )
@@ -39,23 +40,34 @@ NVCC_FLAGS = (
 )
 
 # kernel name -> launches since the last reset; each wrapper adds one where
-# it launches its kernel, and nowhere else
+# it launches its kernel, and nowhere else ("fused": the kernel's m > 1
+# launches, counted apart from its single rounds)
 LAUNCHES = {
-    "merge": 0, "ring_round": 0, "frontier_round_dense": 0,
+    "merge": 0, "ring_round": 0, "ring_round_lean": 0, "frontier_round_dense": 0,
+    "frontier_shard": 0, "frontier_shard fused": 0, "compact_counts": 0,
+    "compact_counts fused": 0,
     "apply_packed": 0, "packed_round": 0, "reconcile_packed": 0,
     "frontier_round_packed": 0, "window_packed": 0,
 }
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
-    "bt_merge": (_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P),
+    # the dense-family kernels take the field count nf (7 full, 4 lean)
+    # beside the lww flag
+    "bt_merge": (_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P),
     "bt_ring_round": (
         _P, _P, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P,
     ),
+    "bt_ring_round_lean": (_P, _P, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, _P),
     "bt_frontier_round_dense": (
         _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P,
+    ),
+    "bt_frontier_shard": (
+        _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P,
     ),
+    "bt_compact_counts": (_P, _P, ctypes.c_int, ctypes.c_int, _P),
     # the packed-family kernels take the table's field count nf (1, 2, 3)
     # as their last argument before the stream
     "bt_apply_packed": (

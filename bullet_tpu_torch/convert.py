@@ -6,7 +6,9 @@ two, (rank, cv), and a ``Rank1Table`` one, (rank): JAX arrays, or the numpy
 arrays of a ``PeerNetworkSim.snapshot()``. A rank or rank1 snapshot's
 ``rank_epoch`` and ``rank_inverse`` travel beside its table; the sim's
 ``restore`` re-keys through them. Anything
-``numpy.asarray`` accepts works, so this module needs no JAX import.
+``numpy.asarray`` accepts works, so this module needs no JAX import. A
+reference table sharded over a mesh reads as its whole arrays; a port
+``ShardedTable`` goes to whole arrays and back over a port mesh.
 """
 
 from __future__ import annotations
@@ -19,9 +21,10 @@ import torch
 from .ops.merge import FIELDS, TableState
 from .ops.packed import PackedTable
 from .ops.rank import Rank1Table, RankTable
+from .parallel.mesh import Mesh, ShardedTable, shard_fields
 
 
-def _fields_from_numpy(fields: Sequence, count: int, device) -> Tuple[torch.Tensor, ...]:
+def _checked(fields: Sequence, count: int):
     if len(fields) != count:
         raise ValueError(f"expected {count} fields, got {len(fields)}")
     arrays = [np.asarray(f) for f in fields]
@@ -29,7 +32,11 @@ def _fields_from_numpy(fields: Sequence, count: int, device) -> Tuple[torch.Tens
     for a in arrays:
         if a.dtype != np.int32 or a.ndim != 2 or a.shape != shape:
             raise ValueError(f"expected int32 {shape} fields, got {a.dtype} {a.shape}")
-    return tuple(_to_tensor(a, device) for a in arrays)
+    return arrays
+
+
+def _fields_from_numpy(fields: Sequence, count: int, device) -> Tuple[torch.Tensor, ...]:
+    return tuple(_to_tensor(a, device) for a in _checked(fields, count))
 
 
 def _to_tensor(a: np.ndarray, device) -> torch.Tensor:
@@ -69,8 +76,23 @@ FROM_NUMPY = {
 }
 
 
+# a layout's table type
+TABLE_TYPES = {"dense": TableState, "packed": PackedTable, "rank": RankTable,
+               "rank1": Rank1Table}
+
+
+def sharded_from_numpy(fields: Sequence, mesh: Mesh, layout: str = "dense") -> ShardedTable:
+    """A layout's int32 [P, N] arrays -> a port ShardedTable over ``mesh``
+    (copies; P must split evenly over the mesh)."""
+    ctor = TABLE_TYPES[layout]
+    return shard_fields(_checked(fields, len(ctor._fields)), mesh, ctor)
+
+
 def table_to_numpy(table) -> Tuple[np.ndarray, ...]:
-    """A port table of any layout -> its int32 numpy arrays (copies)."""
+    """A port table of any layout, sharded or not -> its int32 numpy arrays
+    (copies)."""
+    if isinstance(table, ShardedTable):
+        return table.to_numpy()
     return tuple(f.detach().to("cpu", copy=True).numpy() for f in table)
 
 

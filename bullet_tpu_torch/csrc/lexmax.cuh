@@ -8,6 +8,9 @@
 //     TableState order, keyed (cls, khi, klo, vid, writer, ctr) (reference);
 //   DenseEntry<true>:  the same fields keyed (ctr, cls, khi, klo, vid,
 //     writer) (lww); tick is carried, never compared;
+//   LeanEntry:         the value keys (cls, khi, klo, vid) of a dense table,
+//     keyed in that order: lean gossip merges these four and leaves writer,
+//     ctr and tick alone (reference mode only);
 //   PackedEntry:       fields (khi, klo, cv) with cv = cls << 28 | vid, keyed
 //     (cv >> 28, khi, klo, cv) == (cls, khi, klo, vid);
 //   RankEntry:         fields (rank, cv), keyed by rank alone (distinct vids
@@ -45,6 +48,18 @@ struct DenseEntry {
       if (b[i] != a[i]) return b[i] > a[i];
     }
     if (!LWW && b[5] != a[5]) return b[5] > a[5];
+    return false;
+  }
+};
+
+struct LeanEntry {
+  static constexpr int NF = 4;
+  __device__ __forceinline__ static bool gt(const int32_t (&b)[NF],
+                                            const int32_t (&a)[NF]) {
+#pragma unroll
+    for (int i = 0; i < NF; ++i) {
+      if (b[i] != a[i]) return b[i] > a[i];
+    }
     return false;
   }
 };
@@ -101,6 +116,17 @@ cudaError_t dispatch_nf(int nf, Args... args) {
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// Runs Launch<E>::run(args...) for the entry type of a dense-family table
+// of nf fields: 4 = lean (the value keys only), 7 = full metadata under the
+// reference (lww = 0) or lww (lww = 1) priority order.
+template <template <typename> class Launch, typename... Args>
+cudaError_t dispatch_dense(int nf, int lww, Args... args) {
+  if (nf == 4) return Launch<LeanEntry>::run(args...);
+  if (nf != 7) return cudaErrorInvalidValue;
+  return lww ? Launch<DenseEntry<true>>::run(args...)
+             : Launch<DenseEntry<false>>::run(args...);
 }
 
 template <int N>

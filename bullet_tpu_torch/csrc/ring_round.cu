@@ -3,13 +3,17 @@
 // table, plus the changed count sum(gt1) + sum(gt2).
 //
 // Replaces: bullet_tpu/ops/ring_kernel.py::_fullp_round_kernel (full-P
-// stripes) and ::_ring_round_kernel (peer tiles with 8-row halos). One
-// kernel covers both: a CUDA thread owns a whole column, so no shape needs
-// a halo variant.
+// stripes) and ::_ring_round_kernel (peer tiles with 8-row halos), through
+// bt_ring_round; ::_fullp_round_kernel_lean and ::_halo_round_kernel_lean,
+// the lean round on the four value keys (cls, khi, klo, vid), through
+// bt_ring_round_lean, which never reads or writes writer, ctr or tick. One
+// kernel covers both tilings: a CUDA thread owns a whole column, so no
+// shape needs a halo variant.
 //
 // Bound on the H100: device memory. Each entry is read once and written
-// once per round (7 + 7 int32 = 56 bytes per entry), against three reads
-// and a write for a round composed of two generic merges.
+// once per round (7 + 7 int32 = 56 bytes per entry; 32 for the lean
+// round), against three reads and a write for a round composed of two
+// generic merges.
 // Design: thread j sweeps column j from row 0 to row P-1 (bt::sweep_column),
 // holding the pre-round rows p-1 and p and the original row 0 in
 // registers, so the round runs in place with no second table and no halo
@@ -21,15 +25,27 @@
 
 namespace {
 
-template <bool LWW>
-__global__ void ring_round_kernel(bt::Fields<7> t, int p, int64_t n, int wrap,
+template <typename E>
+__global__ void ring_round_kernel(bt::Fields<E::NF> t, int p, int64_t n, int wrap,
                                   unsigned* count) {
   const int64_t col = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   unsigned changed = 0;
-  if (col < n) changed = bt::sweep_column<bt::DenseEntry<LWW>>(t, col, p, n, wrap != 0);
+  if (col < n) changed = bt::sweep_column<E>(t, col, p, n, wrap != 0);
   changed = bt::block_sum(changed);
   if (threadIdx.x == 0 && changed) atomicAdd(count, changed);
 }
+
+template <typename E>
+struct RingRound {
+  static cudaError_t run(void* const* fields, void* count, int p, long long n, int wrap,
+                         cudaStream_t s) {
+    const int threads = 128;
+    const long long blocks = (n + threads - 1) / threads;
+    ring_round_kernel<E><<<(unsigned)blocks, threads, 0, s>>>(
+        bt::fields_of<E::NF>(fields), p, n, wrap, static_cast<unsigned*>(count));
+    return cudaGetLastError();
+  }
+};
 
 }  // namespace
 
@@ -38,15 +54,15 @@ __global__ void ring_round_kernel(bt::Fields<7> t, int p, int64_t n, int wrap,
 extern "C" cudaError_t bt_ring_round(void* const* fields, void* count, int p,
                                      long long n, int wrap, int lww,
                                      void* stream) {
-  const bt::Fields<7> t = bt::fields_of<7>(fields);
-  const int threads = 128;
-  const long long blocks = (n + threads - 1) / threads;
-  auto s = static_cast<cudaStream_t>(stream);
-  auto* c = static_cast<unsigned*>(count);
-  if (lww) {
-    ring_round_kernel<true><<<(unsigned)blocks, threads, 0, s>>>(t, p, n, wrap, c);
-  } else {
-    ring_round_kernel<false><<<(unsigned)blocks, threads, 0, s>>>(t, p, n, wrap, c);
-  }
-  return cudaGetLastError();
+  return bt::dispatch_dense<RingRound>(7, lww, fields, count, p, n, wrap,
+                                       static_cast<cudaStream_t>(stream));
+}
+
+// fields: host array of the 4 device pointers (cls, khi, klo, vid) of a
+// dense table, each [p, n] int32 (updated in place). count: one zeroed
+// device int32.
+extern "C" cudaError_t bt_ring_round_lean(void* const* fields, void* count, int p,
+                                          long long n, int wrap, void* stream) {
+  return bt::dispatch_dense<RingRound>(4, 0, fields, count, p, n, wrap,
+                                       static_cast<cudaStream_t>(stream));
 }

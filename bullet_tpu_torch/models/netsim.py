@@ -1,9 +1,10 @@
 """PeerNetworkSim on PyTorch: P replicated peers, one graph table each.
 
 The port of ``bullet_tpu.models.netsim`` for the dense (7 fields,
-28 B/entry) layout and the packed family, reference mode only: packed
-(3 fields, 12 B/entry), rank (2 fields, 8 B/entry) and rank1 (1 field,
-4 B/entry; see ops/rank.py):
+28 B/entry) layout, with lean gossip and on a device mesh, and the packed
+family, reference mode only, on one device: packed (3 fields, 12 B/entry),
+rank (2 fields, 8 B/entry) and rank1 (1 field, 4 B/entry; see
+ops/rank.py):
 
     step = apply op batch  ->  gossip round(s) over the topology
 
@@ -13,8 +14,21 @@ convergence, the window joins of ``fast_forward`` and the reconcile run the
 hand-written kernels of ``bullet_tpu_torch/csrc``; on the CPU the same
 routes run their plain PyTorch versions.
 ``use_kernels`` (default: the device is CUDA) picks the kernel routes, as
-``use_pallas`` does in the reference package; only a CPU sim may turn it
-off.
+``use_pallas=True`` does in the reference package; only a CPU sim may turn
+it off.
+
+Lean gossip (``lean_gossip=True``, reference mode) exchanges only the four
+value keys; writer, ctr and tick keep their locally written values. As in
+the reference, the route decides the bits: the lean frontier and the lean
+round (on the kernel route, where the reference's lean kernel takes the
+shape) merge four fields, every other round all seven.
+
+On a device mesh (``mesh_devices``: a count, or devices that may repeat)
+the table is a ``ShardedTable`` split by peer rows. With ``use_shard_map``
+its ring and chain sims converge on the per-shard frontier
+(``dense-frontier-spmd``); every sharded sim's rounds are the explicit
+exchanges of ``parallel/shardmap_gossip.py``. A data mesh (no
+``use_shard_map``) never runs the frontier.
 
 Convergence is deterministic: the merge is a join-semilattice, so
 ``run_until_converged`` reaches the unique fixed point in at most
@@ -23,18 +37,31 @@ diameter + 1 rounds, with the same round count as the reference.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from ..convert import FROM_NUMPY, table_to_numpy
+from ..convert import FROM_NUMPY, sharded_from_numpy, table_to_numpy
 from ..ops import packed as pk
 from ..ops import rank as rk
 from ..ops.apply import OpBatch, apply_ops
-from ..ops.merge import TableState, init_table, lex_gt, priority_keys
+from ..ops.merge import TableState, init_table, lean_fields
+from ..ops.ring_kernel import (
+    beats_of,
+    dense_frontier_available,
+    dense_frontier_available_sharded,
+)
 from ..parallel import topology as topo
-from ..parallel.gossip import gossip_round, gossip_round_mesh, gossip_until_converged
+from ..parallel.gossip import gossip_round, gossip_round_mesh, until_converged
+from ..parallel.mesh import ShardedTable, pad_peers_to_mesh, resolve_mesh
+from ..parallel.shardmap_gossip import (
+    HALO_FUSE,
+    data_mesh_round,
+    gossip_frontier_shardmap_dense,
+    mesh_round_shardmap,
+    shardmap_round,
+)
 from ..utils.encode import CLS_ABSENT, VID_NULL
 from .table import MISSING, GraphHost, flatten_value
 
@@ -54,12 +81,14 @@ class ConvergenceCell(NamedTuple):
     layout: str  # "dense" | "packed" | "rank" | "rank1"
     ring_chain: bool  # topology kind is ring or chain
     frontier: bool  # the frontier kernel tiles this shape (tile > 0)
+    spmd: bool  # a mesh with use_shard_map
+    data_mesh: bool  # any mesh
     kernels: bool  # use_kernels
 
 
 # Convergence strategy table: (name, predicate, runner method name) — FIRST
-# match wins. The reference package's table has more rows (rank layouts,
-# multi-device); these are the rows of a single-device dense or packed sim.
+# match wins. The reference package's table has one more row, the packed
+# family on a mesh (not ported yet).
 CONVERGENCE_STRATEGIES: Tuple[Tuple[str, Callable, str], ...] = (
     (
         "packed-frontier-local",  # packed-family compacting frontier, fused on the card
@@ -72,8 +101,15 @@ CONVERGENCE_STRATEGIES: Tuple[Tuple[str, Callable, str], ...] = (
         "_converge_packed_loop",
     ),
     (
-        "dense-frontier",  # compacting frontier, fused rounds on the card
-        lambda c: c.frontier and c.ring_chain and c.kernels,
+        "dense-frontier-spmd",  # per-shard frontier on a mesh, fused on the card
+        lambda c: c.layout == "dense" and c.spmd and c.frontier and c.ring_chain
+        and c.kernels,
+        "_converge_dense_frontier_spmd",
+    ),
+    (
+        "dense-frontier",  # compacting frontier (full or lean), fused on the card
+        lambda c: not c.spmd and not c.data_mesh and c.frontier and c.ring_chain
+        and c.kernels,
         "_converge_dense_frontier",
     ),
     (
@@ -173,21 +209,43 @@ def _closure_join_packed(table, idx, members):
     return table
 
 
-def _closure_join_dense(table: TableState, idx, members, mode: str) -> TableState:
-    """Join rows ``table[idx]`` under ``mode``'s priority order by
-    roll-doubling and write the join to rows ``members``, in place — one
-    step of the per-SCC reconcile (see PeerNetworkSim._reconcile_weak)."""
-    rows = [f[idx] for f in table]
-    for s in range((len(idx) - 1).bit_length()):
+def _join_rows(rows: List[torch.Tensor], beats) -> List[torch.Tensor]:
+    """Join [K, N] rows by roll-doubling: after ceil(log2 K) steps row 0
+    holds the join of all K. Returns its fields, each [N]."""
+    for s in range((rows[0].shape[0] - 1).bit_length()):
         rolled = [torch.roll(f, 1 << s, 0) for f in rows]
-        gt = lex_gt(
-            priority_keys(TableState(*rolled), mode),
-            priority_keys(TableState(*rows), mode),
-        )
+        gt = beats(rolled, rows)
         rows = [torch.where(gt, b, a) for a, b in zip(rows, rolled)]
-    for f, r in zip(table, rows):
-        f[members] = r[0]
+    return [r[0] for r in rows]
+
+
+def _closure_join_dense(table: TableState, idx, members, mode: str, lean: bool) -> TableState:
+    """Join rows ``table[idx]`` under ``mode``'s priority order (the four
+    value keys only when ``lean``) and write the join to rows ``members``,
+    in place — one step of the per-SCC reconcile (see
+    PeerNetworkSim._reconcile_weak)."""
+    fields = lean_fields(table) if lean else table
+    joined = _join_rows([f[idx] for f in fields], beats_of(len(fields), mode))
+    for f, r in zip(fields, joined):
+        f[members] = r
     return table
+
+
+def _clone(table):
+    """A copy of a table, sharded or not."""
+    copy = lambda t: type(t)(*(f.clone() for f in t))  # noqa: E731
+    return table.map(copy) if isinstance(table, ShardedTable) else copy(table)
+
+
+def _grown(table, capacity: int):
+    """A copy of a table (one shard, or a single-device table) widened to
+    ``capacity`` slots with absent (all-zero) entries."""
+    grown = type(table)(*(
+        torch.zeros((f.shape[0], capacity), dtype=f.dtype, device=f.device) for f in table
+    ))
+    for g, f in zip(grown, table):
+        g[:, : f.shape[1]] = f
+    return grown
 
 
 class PeerNetworkSim:
@@ -199,16 +257,26 @@ class PeerNetworkSim:
     capacity : int — leaf-slot capacity (grows by doubling)
     topology : "ring" | "chain" | "mesh" | "star" | "bridge" | Topology
     mode : "reference" (converged-state parity) | "lww" (Lamport LWW)
+    mesh_devices : int | sequence of devices | None — shard the peer axis
+        over a mesh (dense layout): the first k devices of ``device``'s
+        type (k virtual shards on the CPU), or the devices given, which may
+        repeat. P is padded up to a multiple of the mesh size
     use_kernels : bool | None — take the kernel routes (the compacting
-        frontier in ``run_until_converged``); default: the device is CUDA.
-        A CUDA sim always takes them; on the CPU they run the kernels'
-        plain versions, and False picks the whole-table round loop
+        frontier in ``run_until_converged``, the lean round); default: the
+        device is CUDA. A CUDA sim always takes them; on the CPU they run
+        the kernels' plain versions, and False picks the whole-table round
+        loop of full merges
+    use_shard_map : bool — on a mesh, the explicit SPMD path: the
+        per-shard frontier and the full-metadata exchange rounds (without a
+        mesh it changes nothing)
+    lean_gossip : bool — gossip the four value keys only (reference mode;
+        ignored in lww mode, as in the reference)
     layout : "dense" (7 fields, full metadata) | "packed" (3 fields,
         12 B/entry; see ops/packed.py) | "rank" (2 fields, 8 B/entry) |
         "rank1" (1 field, 4 B/entry; see ops/rank.py); the packed family
         runs in reference mode only
     device : where the tables live ("cuda", the default; "cpu"; a
-        torch.device)
+        torch.device); with an explicit mesh, its first device
     """
 
     def __init__(
@@ -217,7 +285,7 @@ class PeerNetworkSim:
         capacity: int = 1024,
         topology: TopologyLike = "ring",
         mode: str = "reference",
-        mesh_devices: Optional[int] = None,
+        mesh_devices: Optional[Union[int, Sequence]] = None,
         use_kernels: Optional[bool] = None,
         use_shard_map: bool = False,
         lean_gossip: bool = False,
@@ -232,20 +300,23 @@ class PeerNetworkSim:
                 f"{layout} layout supports reference mode only "
                 "(no writer/ctr metadata for lww priority)"
             )
-        if mesh_devices or use_shard_map:
-            raise NotImplementedError(
-                "mesh_devices / use_shard_map: the multi-device path is not "
-                "ported yet (ROADMAP.md Queue 1: multi-GPU)"
-            )
-        if lean_gossip:
-            raise NotImplementedError(
-                "lean_gossip is not ported yet (ROADMAP.md Queue 1: dense "
-                "variants)"
-            )
         if mode not in ("reference", "lww"):
             raise ValueError(f"unknown merge mode: {mode}")
+        if layout in PACKED_FAMILY and mesh_devices:
+            raise NotImplementedError(
+                f"the {layout} layout on a device mesh is not ported yet "
+                "(ROADMAP.md Queue 1: the packed family on a mesh)"
+            )
         self.layout = layout
         self.mode = mode
+        self.use_shard_map = bool(use_shard_map)
+        # lean gossip exchanges only the 4 value keys (reference mode):
+        # writer/ctr/tick keep their last locally written values
+        self.lean_gossip = bool(lean_gossip) and mode == "reference"
+        self.mesh = resolve_mesh(mesh_devices, device) if mesh_devices else None
+        if self.mesh is not None:
+            num_peers = pad_peers_to_mesh(num_peers, self.mesh)
+            device = self.mesh[0]
         self.device = torch.device(device)
         if use_kernels is None:
             use_kernels = self.device.type == "cuda"
@@ -476,9 +547,10 @@ class PeerNetworkSim:
 
     # ----------------------------------------------------------------- step
 
-    def _drain_ops(self) -> Optional[OpBatch]:
-        """Pack queued ops (scalar puts + bulk batches) into dense [P, B]
-        arrays via numpy scatter, then move them to the device."""
+    def _drain_ops(self) -> Optional[List[np.ndarray]]:
+        """Pack queued ops (scalar puts + bulk batches) into the six dense
+        [P, B] int32 numpy arrays of an OpBatch (slot first) via numpy
+        scatter."""
         peer_list, field_cols = [], [[] for _ in range(6)]
         for p, ops in enumerate(self._pending):
             for op in ops:
@@ -510,10 +582,9 @@ class PeerNetworkSim:
         fields = [np.zeros((self.num_peers, batch), dtype=np.int32) for _ in range(6)]
         for f in range(6):
             fields[f][peers, bpos] = flat[f]
-        # keep the host copy of the slot batch for frontier seeding (padded
-        # entries are slot 0 / cls 0 — they dirty stripe 0 conservatively)
-        self._drained_slots_np = fields[0]
-        return OpBatch(*(torch.from_numpy(f).to(self.device) for f in fields))
+        # padded entries are slot 0 / cls 0: they never win, and dirty
+        # stripe 0 conservatively in frontier seeding
+        return fields
 
     def _drain_flat(self):
         """Queued ops as flat numpy arrays (peer, slot, cls, khi, klo, vid) —
@@ -536,8 +607,17 @@ class PeerNetworkSim:
         return tuple(np.concatenate([c[i] for c in chunks]) for i in range(6))
 
     def _init_table(self, num_peers: int, capacity: int):
+        if self.mesh is not None:
+            rows = num_peers // len(self.mesh)
+            return ShardedTable([init_table(rows, capacity, d) for d in self.mesh], self.mesh)
         init = {"packed": pk.init_packed, "rank": rk.init_rank, "rank1": rk.init_rank1}
         return init.get(self.layout, init_table)(num_peers, capacity, self.device)
+
+    def _shape(self) -> Tuple[int, int]:
+        """(P, N) of the table, sharded or not."""
+        if isinstance(self.table, ShardedTable):
+            return self.table.shape
+        return tuple(self.table[0].shape)
 
     def _ensure_capacity(self) -> None:
         needed = len(self.host.paths)
@@ -547,10 +627,10 @@ class PeerNetworkSim:
         while new_cap < needed:
             new_cap *= 2
         self._frontier_dirty = None  # stripe count changes with capacity
-        grown = self._init_table(self.num_peers, new_cap)
-        for g, f in zip(grown, self.table):
-            g[:, : self.capacity] = f
-        self.table = grown
+        if isinstance(self.table, ShardedTable):
+            self.table = self.table.map(lambda t: _grown(t, new_cap))  # each shard
+        else:
+            self.table = _grown(self.table, new_cap)
         self.capacity = new_cap
 
     def _maybe_rekey(self) -> None:
@@ -563,12 +643,17 @@ class PeerNetworkSim:
             # interner epoch in _stage_rank_inserts.
             self.host.needs_rekey = False
             return
-        maps = (
+        maps = [
             torch.from_numpy(np.asarray(m, dtype=np.int32)).to(self.device)
             for m in self.host.key_tables()
-        )
-        rekey = _rekey_packed if self.layout == "packed" else _rekey
-        self.table = rekey(self.table, *maps)
+        ]
+        if isinstance(self.table, ShardedTable):
+            self.table = self.table.map(
+                lambda t: _rekey(t, *(m.to(t.cls.device) for m in maps))
+            )
+        else:
+            rekey = _rekey_packed if self.layout == "packed" else _rekey
+            self.table = rekey(self.table, *maps)
         self.host.needs_rekey = False
 
     def _stage_rank_inserts(self) -> None:
@@ -612,7 +697,7 @@ class PeerNetworkSim:
         if self._frontier_dirty is None:
             return
         tile_n = self._frontier_tile()
-        if tile_n and len(self._frontier_dirty) == self.table[0].shape[1] // tile_n:
+        if tile_n and len(self._frontier_dirty) == self._shape()[1] // tile_n:
             self._frontier_dirty[np.unique(slots // tile_n)] = True
         else:
             self._frontier_dirty = None
@@ -624,8 +709,26 @@ class PeerNetworkSim:
         drained = self._drain_ops()
         if drained is None:
             return 0
-        self._mark_dirty(self._drained_slots_np)
-        self.table, applied = apply_ops(self.table, drained, self.tick, mode=self.mode)
+        self._mark_dirty(drained[0])
+
+        def upload(rows: slice, device) -> OpBatch:
+            return OpBatch(*(torch.from_numpy(f[rows]).to(device) for f in drained))
+
+        if isinstance(self.table, ShardedTable):
+            # each shard applies its own peers' ops, as the reference
+            # shards the op batch by peer
+            b, applied = self.table.rows, 0
+            shards = []
+            for i, (shard, dev) in enumerate(zip(self.table.shards, self.table.mesh)):
+                shard, a = apply_ops(shard, upload(slice(i * b, (i + 1) * b), dev), self.tick,
+                                     mode=self.mode, first_peer=i * b)
+                shards.append(shard)
+                applied += int(a)
+            self.table = ShardedTable(shards, self.table.mesh)
+            return applied
+        self.table, applied = apply_ops(
+            self.table, upload(slice(None), self.device), self.tick, mode=self.mode
+        )
         return int(applied)
 
     def _apply_pending_packed(self) -> int:
@@ -665,14 +768,39 @@ class PeerNetworkSim:
 
     def _frontier_tile(self) -> int:
         """Stripe width the frontier convergence path would use at the
-        current shape; 0 = no stripe width fits and dirty-stripe
-        bookkeeping is pointless."""
-        return pk.frontier_tile_n(self.table[0].shape[1])
-
-    def _one_round(self):
+        current shape (the port's own width); 0 = no frontier runs and
+        dirty-stripe bookkeeping is pointless. A lean or sharded dense sim
+        runs it exactly where the reference does (its route decides the
+        bits); a data mesh never does."""
+        p, n = self._shape()
+        tile_n = pk.frontier_tile_n(n)
         if self.layout in PACKED_FAMILY:
-            return pk.gossip_round_packed(self.table, self.topology)
-        return gossip_round(self.table, self.topology, self.mode)
+            return tile_n
+        if self.mesh is not None:
+            spmd = self.use_shard_map and dense_frontier_available_sharded(
+                p, n, len(self.mesh), self.lean_gossip)
+            return tile_n if spmd else 0
+        if self.lean_gossip and not dense_frontier_available(p, n, True):
+            return 0
+        return tile_n
+
+    def _lean_rounds(self) -> bool:
+        """Lean gossip on the kernel route: the rounds take the lean round
+        where the reference's lean kernel would (see gossip.lean_round_applies)."""
+        return self.lean_gossip and self.use_kernels
+
+    def _round(self, table):
+        """One gossip round of ``table`` over the topology: the packed
+        family's, the explicit exchange on a mesh (full metadata with
+        use_shard_map, as the reference's shard_map rounds), else the
+        single-device round. Returns (table, changed)."""
+        if self.layout in PACKED_FAMILY:
+            return pk.gossip_round_packed(table, self.topology)
+        if self.mesh is not None:
+            if self.use_shard_map:
+                return shardmap_round(table, self.topology, self.mode)
+            return data_mesh_round(table, self.topology, self.mode, self._lean_rounds())
+        return gossip_round(table, self.topology, self.mode, self._lean_rounds())
 
     def step(self, rounds: int = 1) -> int:
         """Apply queued ops, run ``rounds`` gossip rounds; returns residual
@@ -685,7 +813,7 @@ class PeerNetworkSim:
         if rounds:
             self._frontier_dirty = None  # untracked gossip advances stripes
         for _ in range(rounds):
-            self.table, changed = self._one_round()
+            self.table, changed = self._round(self.table)
             residual = int(changed)
             self.stats["gossip_rounds"] += 1
             self.stats["merged_entries"] += residual
@@ -796,6 +924,8 @@ class PeerNetworkSim:
             layout=self.layout,
             ring_chain=self.topology.kind in ("ring", "chain"),
             frontier=self._frontier_tile() > 0,
+            spmd=self.mesh is not None and self.use_shard_map,
+            data_mesh=self.mesh is not None,
             kernels=self.use_kernels,
         )
 
@@ -813,7 +943,7 @@ class PeerNetworkSim:
         shape: a fast_forward jump is then not blind."""
         tile_n = self._frontier_tile()
         d = self._frontier_dirty
-        return d is not None and tile_n > 0 and len(d) == self.table[0].shape[1] // tile_n
+        return d is not None and tile_n > 0 and len(d) == self._shape()[1] // tile_n
 
     def _frontier_seed(self, t_total: int) -> torch.Tensor:
         """Dirty-stripe seed for a frontier loop: the incrementally tracked
@@ -872,22 +1002,36 @@ class PeerNetworkSim:
         from ..ops.ring_kernel import gossip_frontier_dense
 
         tile_n = self._frontier_tile()
-        t_total = self.table[0].shape[1] // tile_n
+        t_total = self._shape()[1] // tile_n
         fuse = STRIPE_FUSE if self.device.type == "cuda" else 1
         self.table, rounds, final_changed = gossip_frontier_dense(
             self.table, self._frontier_seed(t_total),
             self.topology.kind == "ring", self.mode, max_rounds,
-            fuse=fuse, tile_n=tile_n,
+            fuse=fuse, tile_n=tile_n, lean=self.lean_gossip,
+        )
+        self._finish_frontier(t_total, rounds, final_changed, max_rounds)
+        return self._finish_converge(rounds, final_changed)
+
+    def _converge_dense_frontier_spmd(self, max_rounds: int) -> int:
+        """The frontier on a mesh: per-shard frontier steps between boundary
+        exchanges, the shards' counts summed and compacted. On the card
+        HALO_FUSE rounds fuse per exchange (8 boundary rows each way), with
+        the exact classic round count rebuilt on the host; on the CPU it
+        runs unfused, as the reference's interpret mode does."""
+        tile_n = self._frontier_tile()
+        t_total = self._shape()[1] // tile_n
+        fuse = HALO_FUSE if self.device.type == "cuda" else 1
+        self.table, rounds, final_changed = gossip_frontier_shardmap_dense(
+            self.table, self._frontier_seed(t_total), self.topology.kind == "ring",
+            self.mode, self.lean_gossip, max_rounds, fuse=fuse, tile_n=tile_n,
         )
         self._finish_frontier(t_total, rounds, final_changed, max_rounds)
         return self._finish_converge(rounds, final_changed)
 
     def _converge_dense_loop(self, max_rounds: int) -> int:
-        """Whole-table round loop for any topology, one residual read per
-        round."""
-        self.table, rounds, final_changed = gossip_until_converged(
-            self.table, self.topology, self.mode, max_rounds
-        )
+        """Whole-table round loop for any topology (sharded or not), one
+        residual read per round."""
+        self.table, rounds, final_changed = until_converged(self._round, self.table, max_rounds)
         return self._finish_converge(rounds, final_changed)
 
     def reconcile(self) -> None:
@@ -911,15 +1055,15 @@ class PeerNetworkSim:
             self._reconcile_weak()
         elif self.layout in PACKED_FAMILY:
             self.table = pk.reconcile_packed(self.table)
+        elif self.mesh is not None:
+            self.table, _ = mesh_round_shardmap(self.table, self.mode, self.lean_gossip)
         else:
-            self.table, _ = gossip_round_mesh(self.table, self.mode)
+            self.table, _ = gossip_round_mesh(self.table, self.mode, self.lean_gossip)
         self.stats["steps"] += 1
         self.last_residual = 0
         tile_n = self._frontier_tile()
         if tile_n:
-            self._frontier_dirty = np.zeros(
-                self.table[0].shape[1] // tile_n, dtype=bool
-            )
+            self._frontier_dirty = np.zeros(self._shape()[1] // tile_n, dtype=bool)
         self._sync_clocks()
         self._fire_subscriptions()
 
@@ -946,12 +1090,23 @@ class PeerNetworkSim:
             ]
             if len(idx) == 1:
                 continue  # singleton with no pulls: already its closure
+            if isinstance(self.table, ShardedTable):
+                # gather the few rows, join them, write back to each
+                # member's shard
+                fields = range(4) if self.lean_gossip else None
+                rows = self.table.take_rows(np.asarray(idx), self.device, fields)
+                joined = _join_rows(rows, beats_of(len(rows), self.mode))
+                k = len(members[c])
+                self.table.put_rows(members[c], [r.expand(k, -1) for r in joined], fields)
+                continue
             idx_t = torch.tensor(idx, dtype=torch.int64, device=self.device)
             mem_t = torch.from_numpy(members[c]).to(self.device)
             if self.layout in PACKED_FAMILY:
                 self.table = _closure_join_packed(self.table, idx_t, mem_t)
             else:
-                self.table = _closure_join_dense(self.table, idx_t, mem_t, self.mode)
+                self.table = _closure_join_dense(
+                    self.table, idx_t, mem_t, self.mode, self.lean_gossip
+                )
 
     def _sync_clocks(self) -> None:
         """Lamport clock advance: after gossip every peer's clock must exceed
@@ -959,28 +1114,27 @@ class PeerNetworkSim:
         reference mode resolves by value and doesn't need it)."""
         if self.mode != "lww":
             return
-        row_max = self.table.ctr.max(dim=1).values.cpu().numpy().astype(np.int64)
+        shards = self.table.shards if isinstance(self.table, ShardedTable) else [self.table]
+        row_max = np.concatenate(
+            [s.ctr.max(dim=1).values.cpu().numpy() for s in shards]
+        ).astype(np.int64)
         self._clock_sync_np()
         np.maximum(self._clock, row_max, out=self._clock)
         self._clock_list = self._clock.tolist()
 
     def converged(self) -> bool:
-        """True iff one more gossip round would change nothing. A
-        packed-family ring/chain sim asks the count-only probe (the kernel writes
-        nothing, so no table-sized scratch at the north-star shape); other
-        sims run the round on a scratch copy, since the port's rounds
-        update in place."""
+        """True iff one more gossip round (the round ``step`` would run)
+        would change nothing. A packed-family ring/chain sim asks the
+        count-only probe (the kernel writes nothing, so no table-sized
+        scratch at the north-star shape); other sims run the round on a
+        scratch copy, since the port's rounds update in place."""
         self._sync_device_state()
         if self.layout in PACKED_FAMILY and self.topology.kind in ("ring", "chain"):
             changed = pk.count_changes_round_packed(
                 self.table, self.topology.kind == "ring"
             )
             return int(changed) == 0
-        scratch = type(self.table)(*(f.clone() for f in self.table))
-        if self.layout in PACKED_FAMILY:
-            _, changed = pk.gossip_round_packed(scratch, self.topology)
-        else:
-            _, changed = gossip_round(scratch, self.topology, self.mode)
+        _, changed = self._round(_clone(self.table))
         return int(changed) == 0
 
     # ----------------------------------------------------------------- reads
@@ -1000,6 +1154,9 @@ class PeerNetworkSim:
             torch.from_numpy(np.ascontiguousarray(a, dtype=np.int64)).to(self.device)
             for a in (peers, slots)
         )
+        if isinstance(self.table, ShardedTable):
+            cls, vid = self.table.gather(peers, slots, (0, 3))  # cls, vid
+            return cls != CLS_ABSENT, vid
         if self.layout == "rank1":
             vid = self.rank_index.decode_ranks(self.table.rank[idx].cpu().numpy())
             return vid >= 0, vid
@@ -1201,7 +1358,10 @@ class PeerNetworkSim:
             # could respread, and a rank1 re-key through prev_inverse only
             # matches the current table's epoch
             self._sync_rank_index()
-        self.table = FROM_NUMPY[self.layout](snap["table"], self.device)
+        if self.mesh is not None:
+            self.table = sharded_from_numpy(snap["table"], self.mesh, self.layout)
+        else:
+            self.table = FROM_NUMPY[self.layout](snap["table"], self.device)
         if self.layout in RANK_FAMILY:
             # a snapshot's ranks hold under the index that took it, which may
             # be another sim's (the reference's, carried across), so epochs
@@ -1231,6 +1391,12 @@ class PeerNetworkSim:
         entries). Computed on the device; one scalar crosses to the
         host."""
         t = self.table
+        if isinstance(t, ShardedTable):
+            first = t.shards[0]
+            return all(
+                bool((s.vid == first.vid[0:1].to(d)).all() & (s.cls == first.cls[0:1].to(d)).all())
+                for s, d in zip(t.shards, t.mesh)
+            )
         if self.layout in PACKED_FAMILY:
             field = t.rank if self.layout == "rank1" else t.cv
             return bool((field == field[0:1]).all())

@@ -43,17 +43,19 @@ def _op_keys(cls, khi, klo, vid, writer, ctr, mode: str):
 
 
 def apply_ops(
-    table: TableState, ops: OpBatch, tick: int, mode: str = "reference"
+    table: TableState, ops: OpBatch, tick: int, mode: str = "reference",
+    first_peer: int = 0,
 ) -> Tuple[TableState, torch.Tensor]:
     """Apply a [P, B] op batch in place; returns (table, applied_count).
 
     An op lands iff it strictly beats the current entry under the mode's
     priority order. The (row, slot) pairs of one column are unique, so
-    each column's scatter is deterministic."""
+    each column's scatter is deterministic. ``first_peer`` is the peer id
+    of row 0 (a shard of a sharded table), the writer of its ops."""
     num_peers = table.cls.shape[0]
     device = table.cls.device
     rows = torch.arange(num_peers, dtype=torch.int64, device=device)
-    writer = rows.to(torch.int32)
+    writer = (rows + first_peer).to(torch.int32)
     tick_t = torch.full((num_peers,), tick, dtype=torch.int32, device=device)
     applied = torch.zeros((), dtype=torch.int64, device=device)
     for b in range(ops.slot.shape[1]):

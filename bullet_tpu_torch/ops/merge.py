@@ -6,9 +6,12 @@ order (a join-semilattice, so gossip order cannot change the fixed point):
 * ``mode="reference"`` — priority ``(cls, khi, klo, vid, writer, ctr)``.
 * ``mode="lww"``       — priority ``(ctr, cls, khi, klo, vid, writer)``.
 
-``merge_tables_torch`` is the plain PyTorch version; ``merge_tables`` runs
-the CUDA kernel (``csrc/merge.cu``) on CUDA tensors and the plain version on
-CPU tensors.
+Lean gossip (reference mode) merges only the value keys ``(cls, khi, klo,
+vid)`` in that order and leaves writer, ctr and tick alone.
+
+``merge_tables_torch`` / ``merge_lean_torch`` are the plain PyTorch
+versions; ``merge_tables`` / ``merge_lean`` run the CUDA kernel
+(``csrc/merge.cu``) on CUDA tensors and the plain version on CPU tensors.
 """
 
 from __future__ import annotations
@@ -20,6 +23,8 @@ import torch
 from .. import _build
 
 FIELDS = ("cls", "khi", "klo", "vid", "writer", "ctr", "tick")
+# the fields lean gossip exchanges and compares, in priority order
+LEAN_FIELDS = FIELDS[:4]
 
 
 class TableState(NamedTuple):
@@ -37,6 +42,11 @@ class TableState(NamedTuple):
     writer: torch.Tensor
     ctr: torch.Tensor
     tick: torch.Tensor
+
+
+def lean_fields(table: TableState) -> Tuple[torch.Tensor, ...]:
+    """The four value-key tensors of a dense table (views, not copies)."""
+    return tuple(table[:4])
 
 
 def init_table(num_peers: int, capacity: int, device) -> TableState:
@@ -95,9 +105,43 @@ def merge_tables(
     with torch.cuda.device(device):
         err = lib.bt_merge(
             _build.pointers(a), _build.pointers(b), _build.pointers(out),
-            count.data_ptr(), a.cls.numel(), int(mode == "lww"),
+            count.data_ptr(), a.cls.numel(), int(mode == "lww"), len(FIELDS),
             _build.stream_of(device),
         )
     _build.check(err, "merge_tables")
     _build.LAUNCHES["merge"] += 1
     return out, count[0]
+
+
+def merge_lean_torch(a: Sequence[torch.Tensor], b: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Plain version of the lean merge: ``a`` (the four value-key tensors)
+    becomes lexmax(a, b) in place; returns the strict-win count of ``b`` as
+    an int32 scalar tensor."""
+    take_b = lex_gt(b, a)
+    for fa, fb in zip(a, b):
+        fa.copy_(torch.where(take_b, fb, fa))
+    return take_b.sum(dtype=torch.int64).to(torch.int32)
+
+
+def merge_lean(a: Sequence[torch.Tensor], b: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The lean merge in place into ``a`` (four value-key tensors of one
+    shape): the CUDA kernel for CUDA tensors, the plain version for CPU
+    tensors. An elementwise select has no hazard, so the kernel writes into
+    its first operand. Returns the strict-win count of ``b``."""
+    if len(a) != len(LEAN_FIELDS) or len(b) != len(LEAN_FIELDS):
+        raise ValueError("merge_lean takes the four value-key fields of each table")
+    device = a[0].device
+    if device.type == "cpu":
+        return merge_lean_torch(a, b)
+    _build.require_cuda(device, "merge_lean")
+    _build.check_fields((*a, *b), a[0].shape, device, "merge_lean")
+    lib = _build.library()
+    count = torch.zeros(1, dtype=torch.int32, device=device)
+    with torch.cuda.device(device):
+        err = lib.bt_merge(
+            _build.pointers(a), _build.pointers(b), _build.pointers(a),
+            count.data_ptr(), a[0].numel(), 0, len(LEAN_FIELDS), _build.stream_of(device),
+        )
+    _build.check(err, "merge_lean")
+    _build.LAUNCHES["merge"] += 1
+    return count[0]

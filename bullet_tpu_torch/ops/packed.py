@@ -517,6 +517,54 @@ def frontier_ids_compact(dirty: torch.Tensor, t_total: int) -> torch.Tensor:
     return ids
 
 
+def compact_counts_torch(counts: torch.Tensor) -> torch.Tensor:
+    """Plain version of the count compaction: int32 [m, t_total] per-round,
+    per-stripe change counts (summed over a mesh's shards) -> the next ids
+    array: the stripes whose round-m count is > 0, ascending; their count;
+    the total of every count (wrapping like int32); for m > 1 the max over
+    stripes of the last round that changed it. Cells past the count are
+    zero."""
+    m, t_total = counts.shape
+    c = counts.to(torch.int64)
+    rounds = torch.arange(1, m + 1, device=counts.device)[:, None]
+    last = torch.where(c > 0, rounds, 0).amax(0)
+    keep = torch.nonzero(last == m).flatten()
+    out = torch.zeros(t_total + (3 if m > 1 else 2), dtype=torch.int32, device=counts.device)
+    out[: keep.numel()] = keep.to(torch.int32)
+    out[t_total] = keep.numel()
+    total = int(c.sum()) & 0xFFFFFFFF
+    out[t_total + 1] = total - (1 << 32) if total >= 1 << 31 else total
+    if m > 1:
+        out[t_total + 2] = int(last.max()) if t_total else 0
+    return out
+
+
+def compact_counts(counts: torch.Tensor) -> torch.Tensor:
+    """The count compaction (see ``compact_counts_torch``): the CUDA kernel
+    (``csrc/compact_counts.cu``, one block) for a CUDA tensor, the plain
+    version for a CPU tensor. The port of the reference's
+    ``compact_counts_packed`` (m = 1) and
+    ``compact_counts_multiround_packed`` (m > 1). Cells of the result past
+    its count are left unwritten by the kernel."""
+    if counts.dim() != 2 or counts.dtype != torch.int32:
+        raise ValueError("compact_counts takes int32 [m, t_total] counts")
+    if counts.device.type == "cpu":
+        return compact_counts_torch(counts)
+    device = counts.device
+    _build.require_cuda(device, "compact_counts")
+    m, t_total = counts.shape
+    counts = counts.contiguous()
+    lib = _build.library()
+    ids = torch.empty(t_total + (3 if m > 1 else 2), dtype=torch.int32, device=device)
+    with torch.cuda.device(device):
+        err = lib.bt_compact_counts(
+            counts.data_ptr(), ids.data_ptr(), m, t_total, _build.stream_of(device)
+        )
+    _build.check(err, "compact_counts")
+    _build.LAUNCHES["compact_counts" if m == 1 else "compact_counts fused"] += 1
+    return ids
+
+
 def frontier_fused_loop(
     table,
     dirty: torch.Tensor,

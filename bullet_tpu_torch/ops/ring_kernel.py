@@ -3,14 +3,22 @@
 One gossip round on a ring is ``merge(merge(t, roll(t, +1)), roll(t, -1))``
 with both neighbours taken from the pre-round table; a chain replaces the
 missing neighbour at each end with an all-zero row that is still compared.
+A lean round (reference mode) merges only the value keys (cls, khi, klo,
+vid) and leaves writer, ctr and tick alone.
 
 Each kernel sits beside its plain PyTorch version:
 
 * ``ring_round`` (``csrc/ring_round.cu``) / ``ring_round_torch``: one round
-  over the whole table, in place.
+  over the whole table, in place; ``ring_round_lean`` /
+  ``ring_round_lean_torch`` the lean round.
 * ``frontier_round_dense`` (``csrc/frontier_dense.cu``) /
   ``frontier_round_dense_torch``: ``m`` rounds over the active slot stripes
-  only, in place, returning the next round's compact ids array.
+  only, in place, returning the next round's compact ids array; full or
+  lean.
+* ``frontier_shard_round`` (``csrc/frontier_shard.cu``) /
+  ``frontier_shard_round_torch``: the same on one shard of a device mesh,
+  given its neighbours' boundary rows, returning uncompacted per-round,
+  per-stripe counts.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises. Columns are independent under ring gossip,
@@ -25,13 +33,18 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import torch
 
 from .. import _build
-from .merge import TableState, lex_gt, priority_keys
+from .merge import TableState, lean_fields, lex_gt, priority_keys
 
 # plain versions work on column blocks of at most this many entries per
 # field, which bounds their temporaries at large tables
 _PLAIN_BLOCK_ELEMS = 1 << 24
 
 FRONTIER_TILE_MAX = 256
+
+# the reference's TPU tiling constants: they decide WHICH route a lean or
+# sharded sim takes (and so its bits), never the port's own tiling
+_HALO = 8
+_FULLP_MAX_ELEMS = 1 << 16
 
 # beats(b_fields, a_fields) -> bool mask of entries where b strictly wins;
 # the plain versions below take one, so every layout shares them
@@ -43,6 +56,16 @@ def dense_beats(mode: str) -> Beats:
     return lambda b, a: lex_gt(
         priority_keys(TableState(*b), mode), priority_keys(TableState(*a), mode)
     )
+
+
+def lean_beats(b: Sequence[torch.Tensor], a: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The lean order: the four value keys (cls, khi, klo, vid)."""
+    return lex_gt(b, a)
+
+
+def beats_of(nf: int, mode: str) -> Beats:
+    """The order of a dense-family field tuple: 4 fields lean, 7 full."""
+    return lean_beats if nf == 4 else dense_beats(mode)
 
 
 def _shifted(vals: List[torch.Tensor], direction: int, wrap: bool):
@@ -128,6 +151,57 @@ def ring_round(
     return table, count[0]
 
 
+# ------------------------------------------------------------ lean round
+
+
+def lean_supported(p: int, n: int) -> bool:
+    """Whether the reference takes its lean round at [p, n]
+    (``ring_kernel.py:238``): its full-P lean tiling fits, or its halo
+    variant (8-aligned P, at least two tiles). A semantic predicate here:
+    where it is False a lean sim's rounds merge all seven fields, as the
+    reference's do."""
+    tile_n = _lean_tile_n(p, n)
+    if p * tile_n <= _FULLP_MAX_ELEMS * 2 and n % tile_n == 0 and n % 128 == 0:
+        return True
+    return p % _HALO == 0 and p >= 2 * _HALO and n % 128 == 0
+
+
+def _lean_tile_n(p: int, n: int) -> int:
+    t = min(max(128, (_FULLP_MAX_ELEMS * 2) // p), n)
+    while t > 128 and n % t:
+        t -= 128
+    return t if n % t == 0 else n
+
+
+def ring_round_lean_torch(table: TableState, wrap: bool = True) -> Tuple[TableState, torch.Tensor]:
+    """Plain version of one lean ring or chain round, in place on the four
+    value keys. Returns (table, changed) as ``ring_round_torch``."""
+    return table, rounds_torch(lean_fields(table), wrap, lean_beats)
+
+
+def ring_round_lean(table: TableState, wrap: bool = True) -> Tuple[TableState, torch.Tensor]:
+    """One lean ring or chain round, in place on (cls, khi, klo, vid): the
+    CUDA kernel for CUDA tensors, the plain version for CPU tensors. Any
+    P, N >= 1; the sim takes it where ``lean_supported`` says the reference
+    does."""
+    device = table.cls.device
+    if device.type == "cpu":
+        return ring_round_lean_torch(table, wrap)
+    _build.require_cuda(device, "ring_round_lean")
+    keys = lean_fields(table)
+    p, n = table.cls.shape
+    _build.check_fields(keys, (p, n), device, "ring_round_lean")
+    lib = _build.library()
+    count = torch.zeros(1, dtype=torch.int32, device=device)
+    with torch.cuda.device(device):
+        err = lib.bt_ring_round_lean(
+            _build.pointers(keys), count.data_ptr(), p, n, int(wrap), _build.stream_of(device)
+        )
+    _build.check(err, "ring_round_lean")
+    _build.LAUNCHES["ring_round_lean"] += 1
+    return table, count[0]
+
+
 # ------------------------------------------- frontier convergence (dense)
 
 
@@ -140,6 +214,34 @@ def frontier_tile_n(n: int) -> int:
     while t >= 32 and n % t:
         t -= 32
     return t if t >= 32 else 0
+
+
+def dense_frontier_available(p: int, n: int, lean: bool) -> bool:
+    """Whether the reference runs its dense frontier at [p, n]
+    (``frontier_tile_n_dense(p, n, lean) > 0``, ``ring_kernel.py:811``).
+    A lean sim must take the frontier exactly where the reference does:
+    the frontier merges four fields, the round loop it falls back to may
+    merge seven."""
+    if p % _HALO or n % 128:
+        return False
+    budget = _FULLP_MAX_ELEMS * (2 if lean else 1)
+    start = (budget // max(p, 1)) // 128 * 128
+    t = min(max(128, start), n)
+    while t >= 128 and n % t:
+        t -= 128
+    return t >= 128 and n % t == 0 and p * t <= budget * 2
+
+
+def dense_frontier_available_sharded(p: int, n: int, shards: int, lean: bool) -> bool:
+    """The reference's test for its dense frontier on a mesh of ``shards``
+    (``frontier_tile_n_dense_sharded(...) > 0``, ``ring_kernel.py:798``):
+    P divides evenly, at least 8 rows per shard, 8-aligned, n % 128 == 0."""
+    if shards <= 0 or p % shards:
+        return False
+    b = p // shards
+    if b % _HALO or b < _HALO or n % 128:
+        return False
+    return dense_frontier_available(b, n, lean)
 
 
 def _ids_len(t_total: int, m: int) -> int:
@@ -189,11 +291,13 @@ def frontier_round_torch(
 
 def frontier_round_dense_torch(
     table: TableState, ids: torch.Tensor, tile_n: int, wrap: bool, mode: str,
-    m: int = 1,
+    m: int = 1, lean: bool = False,
 ) -> Tuple[TableState, torch.Tensor]:
     """Plain version of one compacting dense frontier step (see
-    ``frontier_round_torch``). Returns (table, next ids)."""
-    return table, frontier_round_torch(table, ids, tile_n, wrap, dense_beats(mode), m)
+    ``frontier_round_torch``), on the four value keys when ``lean``.
+    Returns (table, next ids)."""
+    fields = lean_fields(table) if lean else table
+    return table, frontier_round_torch(fields, ids, tile_n, wrap, beats_of(len(fields), mode), m)
 
 
 def check_frontier_step(table, tile_n: int, m: int) -> None:
@@ -239,19 +343,22 @@ def launch_frontier_step(
 
 def frontier_round_dense(
     table: TableState, ids: torch.Tensor, tile_n: int, wrap: bool, mode: str,
-    m: int = 1,
+    m: int = 1, lean: bool = False,
 ) -> Tuple[TableState, torch.Tensor]:
-    """One compacting frontier step (``m`` fused rounds), in place: the CUDA
-    kernel for CUDA tensors, the plain version for CPU tensors. ``ids`` is
+    """One compacting frontier step (``m`` fused rounds), in place, on all
+    seven fields or (``lean``) the four value keys: the CUDA kernel for
+    CUDA tensors, the plain version for CPU tensors. ``ids`` is
     [t_total + 2] for m = 1, [t_total + 3] for m > 1. Cells of the returned
     ids array past its count are left unwritten by the kernel."""
     if mode not in ("reference", "lww"):
         raise ValueError(f"unknown merge mode: {mode}")
     check_frontier_step(table, tile_n, m)
     if table.cls.device.type == "cpu":
-        return frontier_round_dense_torch(table, ids, tile_n, wrap, mode, m)
+        return frontier_round_dense_torch(table, ids, tile_n, wrap, mode, m, lean)
+    fields = lean_fields(table) if lean else table
     return table, launch_frontier_step(
-        "frontier_round_dense", table, ids, tile_n, m, int(wrap), int(mode == "lww")
+        "frontier_round_dense", fields, ids, tile_n, m, int(wrap), int(mode == "lww"),
+        len(fields),
     )
 
 
@@ -263,18 +370,112 @@ def gossip_frontier_dense(
     max_rounds: int,
     fuse: int = 1,
     tile_n: Optional[int] = None,
+    lean: bool = False,
 ) -> Tuple[TableState, int, int]:
     """Dense frontier convergence loop (ring/chain), in place: per round
     only stripes still changing are touched. ``dirty`` is a bool [t_total]
     seed. Returns (table, classic rounds, last_changed), bit-identical to
-    the classic all-stripes loop, also with ``fuse`` > 1, which runs FUSE
-    rounds per step and reconstructs the exact classic round count. The
-    host reads one small slice of the ids array per step."""
+    the classic all-stripes loop (of lean rounds when ``lean``), also with
+    ``fuse`` > 1, which runs FUSE rounds per step and reconstructs the
+    exact classic round count. The host reads one small slice of the ids
+    array per step."""
     from .packed import frontier_loop
 
     if tile_n is None:
         tile_n = frontier_tile_n(table.cls.shape[1])
     return frontier_loop(
         table, dirty, table.cls.shape[1] // tile_n, max_rounds, fuse,
-        lambda m: lambda tbl, ids: frontier_round_dense(tbl, ids, tile_n, wrap, mode, m),
+        lambda m: lambda tbl, ids: frontier_round_dense(tbl, ids, tile_n, wrap, mode, m, lean),
     )
+
+
+# ------------------------------------------ per-shard frontier (device mesh)
+
+
+def frontier_shard_round_torch(
+    fields: Sequence[torch.Tensor], tops: Sequence[torch.Tensor],
+    bottoms: Sequence[torch.Tensor], ids: torch.Tensor, tile_n: int, beats: Beats,
+    m: int = 1,
+) -> torch.Tensor:
+    """Plain version of one per-shard frontier step: ``m`` rounds on the
+    stripes ``ids[:ids[t_total]]`` of the shard's [b, N] ``fields``, in
+    place, each on the extended column (the [s, N] rows ``tops`` above,
+    the shard, the [s, N] rows ``bottoms`` below) wrapped as a ring, as
+    the reference's trapezoid does; m <= s keeps the shard's rows exact.
+    Returns the per-round, per-stripe change counts of the shard's rows,
+    int32 [m, t_total], zero for stripes not in ids."""
+    b, n = fields[0].shape
+    s = tops[0].shape[0]
+    t_total = n // tile_n
+    device = fields[0].device
+    counts = torch.zeros((m, t_total), dtype=torch.int32, device=device)
+    count = int(ids[t_total])
+    if count == 0:
+        return counts
+    stripes = ids[:count].to(device=device, dtype=torch.int64)
+    lanes = torch.arange(tile_n, device=device)
+    per_block = max(1, _PLAIN_BLOCK_ELEMS // max((b + 2 * s) * tile_n, 1))
+    for s0 in range(0, count, per_block):
+        s1 = min(count, s0 + per_block)
+        cols = (stripes[s0:s1, None] * tile_n + lanes).reshape(-1)
+        ext = [
+            torch.cat([t.index_select(1, cols), f.index_select(1, cols),
+                       bo.index_select(1, cols)])
+            for f, t, bo in zip(fields, tops, bottoms)
+        ]
+        for k in range(m):
+            ext, gt1, gt2 = _round_masks(ext, True, beats)
+            c = (gt1[s:s + b].sum(0) + gt2[s:s + b].sum(0)).reshape(s1 - s0, tile_n).sum(1)
+            counts[k, stripes[s0:s1]] = c.to(torch.int32)
+        for f, v in zip(fields, ext):
+            f.index_copy_(1, cols, v[s:s + b])
+    return counts
+
+
+def frontier_shard_round(
+    fields: Sequence[torch.Tensor], tops: Sequence[torch.Tensor],
+    bottoms: Sequence[torch.Tensor], ids: torch.Tensor, tile_n: int, mode: str,
+    m: int = 1,
+) -> torch.Tensor:
+    """One per-shard frontier step (see ``frontier_shard_round_torch``) on
+    a shard's seven fields or (lean) its four value keys: the CUDA kernel
+    for CUDA tensors, the plain version for CPU tensors. ``tops`` and
+    ``bottoms`` are per-call scratch holding the neighbour shards'
+    boundary rows, taken before any shard's step (zeros at a chain's
+    ends); the kernel overwrites them. Returns the int32 [m, t_total]
+    counts; the caller sums them over the shards and compacts them
+    (``ops.packed.compact_counts``)."""
+    if mode not in ("reference", "lww"):
+        raise ValueError(f"unknown merge mode: {mode}")
+    nf = len(fields)
+    if nf not in (4, 7) or len(tops) != nf or len(bottoms) != nf:
+        raise ValueError(f"frontier_shard_round takes 4 or 7 fields per part, got {nf}")
+    check_frontier_step(fields, tile_n, m)
+    b, n = fields[0].shape
+    s = tops[0].shape[0]
+    if m > s:
+        raise ValueError(f"{m} fused rounds need {m} boundary rows, got {s}")
+    device = fields[0].device
+    if device.type == "cpu":
+        return frontier_shard_round_torch(fields, tops, bottoms, ids, tile_n, beats_of(nf, mode), m)
+    _build.require_cuda(device, "frontier_shard_round")
+    if tile_n % 32 or tile_n > FRONTIER_TILE_MAX:
+        raise ValueError(
+            f"kernel tile_n must be a multiple of 32 <= {FRONTIER_TILE_MAX}, got {tile_n}"
+        )
+    t_total = n // tile_n
+    _build.check_fields(fields, (b, n), device, "frontier_shard_round")
+    _build.check_fields((*tops, *bottoms), (s, n), device, "frontier_shard_round boundary")
+    if ids.device != device or ids.dtype != torch.int32 or ids.numel() < t_total + 2:
+        raise ValueError("frontier_shard_round: ids must be int32 [t_total + 2 or 3] on the shard")
+    lib = _build.library()
+    counts = torch.zeros((m, t_total), dtype=torch.int32, device=device)
+    with torch.cuda.device(device):
+        err = lib.bt_frontier_shard(
+            _build.pointers(fields), _build.pointers(tops), _build.pointers(bottoms),
+            ids.data_ptr(), counts.data_ptr(), b, s, n, tile_n, t_total, m,
+            int(mode == "lww"), nf, _build.stream_of(device),
+        )
+    _build.check(err, "frontier_shard_round")
+    _build.LAUNCHES["frontier_shard" if m == 1 else "frontier_shard fused"] += 1
+    return counts

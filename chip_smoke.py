@@ -4,6 +4,7 @@
     python3 chip_smoke.py [--seed S] [--peers P] [--capacity N] [--ops K]
                           [--packed-capacity N] [--packed-ops K]
                           [--rank1-capacity N] [--rank1-ops K]
+                          [--lean-capacity N] [--lean-ops K] [--shards K]
 
 Phases, in order; any failure raises and exits nonzero:
 
@@ -16,7 +17,12 @@ Phases, in order; any failure raises and exits nonzero:
    packed-family kernels at each field count (packed, rank, rank1), the
    window join also at rank1 8192 x 2^18 (the TPU's halo-window shape);
    then small dense, packed, rank and rank1 sims on the card against the
-   same sims on the CPU;
+   same sims on the CPU; the lean round, the lean frontier (m = 1, 8) and
+   the lean merge at 1024 x 2^20 and ragged shapes; the per-shard frontier
+   at 256 x 2^18 per shard (reference, lww, lean; m = 1, 8; random and
+   zeroed boundary rows); the count compaction on random, all-zero and
+   all-dirty counts; small lean and sharded sims on the card against the
+   CPU;
 4. dense main path: a dense ring PeerNetworkSim at P x N (default
    1024 x 2^18): put_bulk + scalar puts, step, run_until_converged,
    tables_equal, the converged row against an independent numpy lexmax,
@@ -36,12 +42,25 @@ Phases, in order; any failure raises and exits nonzero:
    fast_forward(480) on one twin against step(480) on the other, the
    jumped twin fast-forwarded to the fixed point against the converged
    table, then more writes, reconcile, converged() and reads; it prints
-   the windowed logical merges/s of fast_forward(480), 2 P N 480 / s.
+   the windowed logical merges/s of fast_forward(480), 2 P N 480 / s;
+7. lean main path: a lean dense ring PeerNetworkSim at P x N (default
+   1024 x 2^20, 30.1 GB): put_bulk + string/object puts, step(1) (the lean
+   round), run_until_converged on the dense-frontier route (lean, m = 8),
+   the converged value keys against an independent numpy per-leaf max,
+   writer/ctr/tick of sampled rows against what that peer applied itself,
+   a second batch, reconcile (the lean doubling join) and reads;
+8. sharded dense path: 4 shards of P x N (default 1024 x 2^18) on the one
+   card, a full-metadata lww sim and a lean reference sim, each against
+   an unsharded twin given the same ops: run_until_converged on the
+   dense-frontier-spmd route (m = 8), all 7 fields, rounds and residuals
+   bit-identical; a cutoff converge (fused step + single-round tail),
+   reconcile and reads; the lww pair also step(1) and converged().
 
 Every kernel's launch count over the phase that drives its path (4 for
-the dense kernels, 5 and 6 for the packed-family ones) must be > 0. The
-last two lines are a JSON object describing the kernels and the contract
-line {"ok": true, "device": {...}}. Imports nothing of JAX."""
+the dense kernels, 5 and 6 for the packed-family ones, 7 for the lean
+ones, 8 for the sharded ones) must be > 0. The last two lines are a JSON
+object describing the kernels and the contract line
+{"ok": true, "device": {...}}. Imports nothing of JAX."""
 
 from __future__ import annotations
 
@@ -87,11 +106,33 @@ KERNELS = {
         "bullet_tpu_torch/csrc/window_packed.cu",
         "bullet_tpu/ops/packed.py:1138; bullet_tpu/ops/packed.py:1969",
     ),
+    "ring_round_lean": (
+        "bullet_tpu_torch/csrc/ring_round.cu",
+        "bullet_tpu/ops/ring_kernel.py:146; bullet_tpu/ops/ring_kernel.py:185",
+    ),
+    "frontier_shard": (
+        "bullet_tpu_torch/csrc/frontier_shard.cu", "bullet_tpu/ops/ring_kernel.py:552",
+    ),
+    "frontier_shard fused": (
+        "bullet_tpu_torch/csrc/frontier_shard.cu", "bullet_tpu/ops/ring_kernel.py:702",
+    ),
+    "compact_counts": (
+        "bullet_tpu_torch/csrc/compact_counts.cu", "bullet_tpu/ops/packed.py:2463",
+    ),
+    "compact_counts fused": (
+        "bullet_tpu_torch/csrc/compact_counts.cu", "bullet_tpu/ops/packed.py:2681",
+    ),
 }
 DENSE_KERNELS = ("merge", "ring_round", "frontier_round_dense")
 # the packed-family kernels: phase 5 drives them at nf = 3, phase 6 at nf = 1
 PACKED_KERNELS = ("apply_packed", "packed_round", "reconcile_packed", "frontier_round_packed",
                   "window_packed")
+# phase 7 drives the lean round, the dense frontier at nf = 4 and the lean
+# merge; phase 8 the per-shard frontier and the count compaction, each
+# single-round (the cutoff's tail) and fused
+LEAN_KERNELS = ("ring_round_lean", "frontier_round_dense", "merge")
+SHARD_KERNELS = ("frontier_shard", "frontier_shard fused", "compact_counts",
+                 "compact_counts fused")
 
 # the card's peaks, from the published H100 SXM figures: HBM3 bandwidth and
 # the float32 rate outside the tensor cores, which bounds these int32
@@ -615,20 +656,25 @@ def check_frontier_packed(dev, main_shape, errs, times, nf):
     full = _ids(np.ones(t_total, bool), 8, dev)
     steps = (("m=8 all", full, 8), ("m=1 all", _ids(np.ones(t_total, bool), 1, dev), 1),
              ("m=8 sparse", _ids(rng.random(t_total) < 0.4, 8, dev), 8))
-    plain, report = None, []
+    plain, report = {}, []
     for what, ids, m in steps:
         active = int(ids[t_total])
         survivors, ms = pair(table, twin, ids, tile, True, m, f"{p}x{n} {what}")
-        plain = plain if plain is not None else ms
+        plain.setdefault(m, ms)
         report.append(f"{what}: {active} -> {survivors} stripes")
+    plain, plain_m1 = plain[8], plain[1]
     del twin
     ms = time_ms(lambda: pk.frontier_round_packed(table, full, tile, True, 8), 3)
+    # #20 alone: one round over all stripes
+    one = _ids(np.ones(t_total, bool), 1, dev)
+    ms1 = time_ms(lambda: pk.frontier_round_packed(table, one, tile, True, 1), 3)
     del table
     # one read and one write of the table whatever m (see packed_round m=8)
     times[tag("frontier_round_packed", nf)] = (ms, plain, round_bound(nf, p * n, rounds=8))
+    times[tag("frontier_round_packed m=1", nf)] = (ms1, plain_m1, round_bound(nf, p * n))
     log(f"  frontier_round_packed [{LAYOUT_OF[nf]}] {p}x{n} tile {tile}, m=8, all {t_total} "
-        f"stripes: kernel {ms:.3f} ms, plain {plain:.3f} ms per call; bit-identical "
-        f"({'; '.join(report)})")
+        f"stripes: kernel {ms:.3f} ms, plain {plain:.3f} ms per call; m=1 kernel {ms1:.3f} ms, "
+        f"plain {plain_m1:.3f} ms; bit-identical ({'; '.join(report)})")
 
 
 def window_bound(nf: int, entries: int, m: int):
@@ -746,6 +792,279 @@ def check_small_packed_sims(dev):
         raise AssertionError(f"P=4096 packed ring: {rounds} rounds, max_abs_err {e}")
     log(f"  packed ring 4096 x 256: step(1) card == CPU; converged in {rounds} rounds "
         f"({secs:.3f} s) == the CPU's direct reconcile")
+
+
+# ------------------------------------------------ phase 3, lean and shards
+
+
+def lean_table(seed: int, p: int, n: int, device):
+    """A dense table for the lean kernels: its four value keys tiled as
+    ``random_table``'s, and writer/ctr/tick as 1 x 1 placeholders, which no
+    lean kernel reads or writes (so a 1024 x 2^20 table takes 17.2 GB)."""
+    from bullet_tpu_torch.ops.merge import TableState
+
+    rng = np.random.default_rng(seed)
+    w = min(n, BASE_N)
+    blocks = [rng.integers(lo, hi, (p, w), dtype=np.int32)
+              for lo, hi in ((0, 4), (-3, 3), (-3, 3), (0, 4))]
+    rest = [torch.zeros((1, 1), dtype=torch.int32, device=device) for _ in range(3)]
+    return TableState(*tiled(blocks, n, device), *rest)
+
+
+def check_ring_lean(dev, lean_shape, errs, times):
+    """The lean round against its plain version, ring and chain: writer,
+    ctr and tick untouched at the small and ragged shapes (full tables
+    there), the value keys at the main lean shape, timed."""
+    from bullet_tpu_torch.ops.ring_kernel import ring_round_lean, ring_round_lean_torch
+
+    for p in (1, 2, 3, 1000, 1024):
+        n = 333 if p >= 1000 else 130
+        base = random_table(110 + p, p, n, dev)
+        for wrap in (True, False):
+            got, c_got = ring_round_lean(clone(base), wrap)
+            want, c_want = ring_round_lean_torch(clone(base), wrap)
+            _pair("ring_round_lean", errs, (*got, c_got), (*want, c_want), f"p={p} wrap={wrap}")
+            _pair("ring_round_lean", errs, got[4:], base[4:], f"p={p} metadata untouched")
+    p, n = lean_shape
+    table, twin = lean_table(12, p, n, dev), lean_table(12, p, n, dev)
+    plain = {}
+    for what, wrap in (("chain", False), ("ring", True)):
+        c_got = ring_round_lean(table, wrap)[1]
+        (_, c_want), plain[what] = timed_once(lambda: ring_round_lean_torch(twin, wrap))
+        _pair("ring_round_lean", errs, (*table[:4], c_got), (*twin[:4], c_want),
+              f"{p}x{n} {what}")
+    del twin
+    ms = time_ms(lambda: ring_round_lean(table, True), 5)
+    del table
+    times["ring_round_lean"] = (ms, plain["ring"], round_bound(4, p * n))
+    log(f"  ring_round_lean {p}x{n}: kernel {ms:.3f} ms, plain {plain['ring']:.3f} ms per "
+        "round; ring and chain bit-identical, metadata untouched")
+
+
+def check_frontier_lean(dev, lean_shape, errs, times):
+    """The dense frontier at nf = 4 (lean) against its plain version: m = 1
+    and 8, all and sparse stripes, ring and chain; the main lean shape
+    timed at m = 8 over all stripes."""
+    from bullet_tpu_torch.ops.ring_kernel import (
+        frontier_round_dense,
+        frontier_round_dense_torch,
+        frontier_tile_n,
+    )
+
+    def pair(table, twin, ids, tile, wrap, m, what):
+        t_total = table.cls.shape[1] // tile
+        _, ids_got = frontier_round_dense(table, ids, tile, wrap, "reference", m, lean=True)
+        (_, ids_want), ms = timed_once(lambda: frontier_round_dense_torch(
+            twin, ids, tile, wrap, "reference", m, lean=True))
+        count = int(ids_want[t_total])
+        _pair("frontier_round_dense", errs, (*table, ids_got[:count], ids_got[t_total:]),
+              (*twin, ids_want[:count], ids_want[t_total:]), f"lean {what}")
+        return ms
+
+    rng = np.random.default_rng(13)
+    for p, n in ((1, 64), (3, 96), (64, 2048), (1000, 512)):
+        tile = frontier_tile_n(n)
+        t_total = n // tile
+        base = random_table(210 + p, p, n, dev)
+        for m in (1, 8):
+            for dirty in (np.ones(t_total, bool), rng.random(t_total) < 0.4):
+                for wrap in (True, False):
+                    pair(clone(base), clone(base), _ids(dirty, m, dev), tile, wrap, m,
+                         f"{p}x{n} m={m} wrap={wrap}")
+    p, n = lean_shape
+    tile = frontier_tile_n(n)
+    t_total = n // tile
+    table, twin = lean_table(14, p, n, dev), lean_table(14, p, n, dev)
+    full = _ids(np.ones(t_total, bool), 8, dev)
+    plain = pair(table, twin, full, tile, True, 8, f"{p}x{n} m=8 all")
+    pair(table, twin, _ids(rng.random(t_total) < 0.1, 8, dev), tile, False, 8,
+         f"{p}x{n} m=8 sparse chain")
+    pair(table, twin, _ids(np.ones(t_total, bool), 1, dev), tile, True, 1, f"{p}x{n} m=1 all")
+    del twin
+    ms = time_ms(lambda: frontier_round_dense(table, full, tile, True, "reference", 8, True), 3)
+    del table
+    # one read and one write of the four keys whatever m (see packed_round m=8)
+    times["frontier_round_dense lean"] = (ms, plain, round_bound(4, p * n, rounds=8))
+    log(f"  frontier_round_dense [lean] {p}x{n} tile {tile}, m=8, all {t_total} stripes: "
+        f"kernel {ms:.3f} ms, plain {plain:.3f} ms per call; m=1 and 8 bit-identical")
+
+
+def check_merge_lean(dev, main_shape, errs, times):
+    """The lean merge (merge.cu at nf = 4, in place into its first operand)
+    against its plain version; metadata untouched."""
+    from bullet_tpu_torch.ops.merge import lean_fields, merge_lean, merge_lean_torch
+
+    shapes = ((1, 1), (3, 130), (64, 1000), main_shape)
+    for p, n in shapes:
+        a, b = random_table(31 + p, p, n, dev), random_table(37 + n, p, n, dev)
+        got, want = clone(a), clone(a)
+        c_got = merge_lean(lean_fields(got), lean_fields(b))
+        (c_want, plain) = timed_once(lambda: merge_lean_torch(lean_fields(want), lean_fields(b)))
+        _pair("merge", errs, (*got, c_got), (*want, c_want), f"lean {p}x{n}")
+        _pair("merge", errs, got[4:], a[4:], f"lean {p}x{n} metadata untouched")
+    ms = time_ms(lambda: merge_lean(lean_fields(got), lean_fields(b)), 5)
+    del a, b, got, want
+    p, n = main_shape
+    times["merge lean"] = (ms, plain, bound(48 * p * n, 11 * p * n))
+    log(f"  merge [lean, in place] {p}x{n}: kernel {ms:.3f} ms, plain {plain:.3f} ms per call; "
+        f"bit-identical at {len(shapes)} shapes")
+
+
+def _boundary(rng, s, n, dev, zero: bool):
+    """[s, n] boundary rows of the seven dense fields: random with ties, or
+    zeros (a chain's end)."""
+    if zero:
+        return [torch.zeros((s, n), dtype=torch.int32, device=dev) for _ in range(7)]
+    ranges = ((0, 4), (-3, 3), (-3, 3), (0, 4), (0, 4), (0, 4), (0, 5))
+    return [torch.from_numpy(rng.integers(lo, hi, (s, n), dtype=np.int32)).to(dev)
+            for lo, hi in ranges]
+
+
+def check_frontier_shard(dev, shard_shape, errs, times):
+    """The per-shard frontier against its plain version: reference, lww and
+    lean (nf = 4); m = 1 (one boundary row) and m = 8 (eight); random
+    boundary rows (a ring, or a chain's inner shard) and zeroed ones (a
+    chain's end shard) on either side; all and sparse stripes. Counts
+    [m, t_total] and rows exact; the shard shape timed for nf = 7."""
+    from bullet_tpu_torch.ops.ring_kernel import (
+        beats_of,
+        frontier_shard_round,
+        frontier_shard_round_torch,
+        frontier_tile_n,
+    )
+
+    rng = np.random.default_rng(17)
+
+    def pair(base, m, mode, lean, zero_top, zero_bottom, dirty, what):
+        b, n = base.cls.shape
+        tile = frontier_tile_n(n)
+        nf = 4 if lean else 7
+        tops = _boundary(rng, m, n, dev, zero_top)[:nf]
+        bottoms = _boundary(rng, m, n, dev, zero_bottom)[:nf]
+        got, want = clone(base), clone(base)
+        ids = _ids(dirty, m, dev)
+        c_got = frontier_shard_round(got[:nf], [t.clone() for t in tops],
+                                     [t.clone() for t in bottoms], ids, tile, mode, m)
+        c_want, ms = timed_once(lambda: frontier_shard_round_torch(
+            want[:nf], tops, bottoms, ids, tile, beats_of(nf, mode), m))
+        name = "frontier_shard" if m == 1 else "frontier_shard fused"
+        _pair(name, errs, (*got, c_got), (*want, c_want), what)
+        return ms
+
+    for b, n in ((8, 64), (8, 1024), (37, 512), (256, 4096)):
+        base = random_table(400 + b, b, n, dev)
+        t_total = n // frontier_tile_n(n)
+        for m in (1, 8):
+            for mode, lean in (("reference", False), ("lww", False), ("reference", True)):
+                for zero_top, zero_bottom in ((False, False), (True, False), (False, True)):
+                    for dirty in (np.ones(t_total, bool), rng.random(t_total) < 0.4):
+                        pair(base, m, mode, lean, zero_top, zero_bottom, dirty,
+                             f"{b}x{n} m={m} {mode} lean={lean} zero={zero_top},{zero_bottom}")
+    b, n = shard_shape
+    t_total = n // frontier_tile_n(n)
+    base = random_table(41, b, n, dev)
+    plain = {}
+    for m in (1, 8):
+        for mode, lean in (("reference", False), ("lww", False), ("reference", True)):
+            ms = pair(base, m, mode, lean, False, mode == "lww", np.ones(t_total, bool),
+                      f"{b}x{n} m={m} {mode} lean={lean}")
+            plain.setdefault(m, ms)
+    tops = _boundary(rng, 8, n, dev, False)
+    bottoms = _boundary(rng, 8, n, dev, False)
+    for m, name in ((1, "frontier_shard"), (8, "frontier_shard fused")):
+        ids = _ids(np.ones(t_total, bool), m, dev)
+        ms = time_ms(lambda: frontier_shard_round(base, [t[:m] for t in tops],
+                                                  [t[:m] for t in bottoms], ids,
+                                                  frontier_tile_n(n), "reference", m), 3)
+        # one read and one write of the shard and its boundary rows whatever
+        # m; m rounds of compares
+        times[name] = (ms, plain[m], bound(56 * (b + 2 * m) * n, m * 38 * (b + 2 * m) * n))
+        log(f"  {name} {b}x{n} per shard, m={m}, all {t_total} stripes: kernel {ms:.3f} ms, "
+            f"plain {plain[m]:.3f} ms per call; bit-identical (reference, lww, lean; random "
+            "and zeroed boundary rows)")
+    del base
+
+
+def check_compact_counts(dev, t_main: int, errs, times):
+    """The count compaction against its plain version on random, all-zero
+    and all-dirty counts (negative counts included: sums wrap like int32),
+    t_total in {1, 7, 8192} and the main path's, m = 1 and 8; cells past
+    the count are unspecified."""
+    from bullet_tpu_torch.ops.packed import compact_counts, compact_counts_torch
+
+    rng = np.random.default_rng(19)
+
+    def pair(counts, what):
+        m, t_total = counts.shape
+        got = compact_counts(counts)
+        want, ms = timed_once(lambda: compact_counts_torch(counts))
+        count = int(want[t_total])
+        name = "compact_counts" if m == 1 else "compact_counts fused"
+        _pair(name, errs, (got[:count], got[t_total:]), (want[:count], want[t_total:]), what)
+        return ms
+
+    plain = {}
+    for t_total in (1, 7, 8192, t_main):
+        for m in (1, 8):
+            for what, counts in (
+                ("random", rng.integers(-2, 4, (m, t_total)) * (rng.random((m, t_total)) < 0.3)),
+                ("zero", np.zeros((m, t_total))),
+                ("dirty", rng.integers(1, 1 << 20, (m, t_total))),
+            ):
+                c = torch.from_numpy(counts.astype(np.int32)).to(dev)
+                ms = pair(c, f"t_total={t_total} m={m} {what}")
+                if t_total == t_main and what == "random":
+                    plain[m] = ms
+    for m, name in ((1, "compact_counts"), (8, "compact_counts fused")):
+        c = torch.from_numpy(rng.integers(0, 3, (m, t_main)).astype(np.int32)).to(dev)
+        ms = time_ms(lambda: compact_counts(c), 20)
+        times[name] = (ms, plain[m], bound(4 * m * t_main + 4 * (t_main + 3), 3 * m * t_main))
+        log(f"  {name} t_total={t_main}, m={m}: kernel {ms:.4f} ms, plain {plain[m]:.4f} ms "
+            "per call; bit-identical")
+
+
+def check_small_lean_and_sharded_sims(dev):
+    """Lean sims and sharded sims (4 shards on the card against 4 virtual
+    shards on the CPU) at a small size: the card against the CPU, every
+    field, residuals, rounds and reads."""
+    from bullet_tpu_torch import PeerNetworkSim
+    from bullet_tpu_torch.convert import table_to_numpy
+
+    cases = [dict(lean_gossip=True)]
+    cases += [dict(mesh_devices=4, use_shard_map=True, mode=m, lean_gossip=lean)
+              for m, lean in (("lww", False), ("reference", True))]
+    cases.append(dict(mesh_devices=4, mode="lww"))
+    for kw, topology in itertools.product(cases, ("ring", "chain")):
+        sims = []
+        for d in (dev, "cpu"):
+            extra = dict(kw)
+            if "mesh_devices" in extra:
+                extra["mesh_devices"] = [d] * extra["mesh_devices"]
+            sims.append(PeerNetworkSim(64, capacity=4096, topology=topology, device=d,
+                                       use_kernels=True, **extra))
+        rng = np.random.default_rng(8)
+        peers = rng.integers(0, 64, 3000)
+        paths = [f"s/{i}" for i in rng.integers(0, 3000, 3000)]
+        vals = rng.integers(-20, 20, 3000)
+        results = []
+        for sim in sims:
+            sim.put_bulk(peers, paths, vals)
+            sim.put(3, "s/str", "pear")
+            sim.put(60, "s/str", "apple")
+            r1 = sim.step(2)
+            r2 = sim.run_until_converged()
+            sim.put(9, "s/late", 4)
+            r3 = sim.run_until_converged(max_rounds=11)
+            sim.put(33, "s/later", 5)
+            sim.reconcile()
+            results.append((r1, r2, r3, sim.last_residual, sim.converged(), sim.tables_equal(),
+                            sim.get(5, "s")))
+        a, b = (table_to_numpy(s.table) for s in sims)
+        e = max(int(np.abs(x.astype(np.int64) - y).max()) for x, y in zip(a, b))
+        if results[0] != results[1] or e:
+            raise AssertionError(f"small sim {kw} {topology}: {results}, max_abs_err {e}")
+    log("  small lean and sharded sims (64 x 4096, 4 shards on the card; ring/chain, "
+        "lean/lww, spmd and data mesh): card == CPU")
 
 
 # ------------------------------------------------------------------ phase 4
@@ -1172,6 +1491,209 @@ def rank1_main_path(args, dev, window=wall_window, card=""):
     return launches, rate
 
 
+# ------------------------------------------------------------------ phase 7
+
+
+def own_writes(op_peer, op_leaf, op_val, peer):
+    """What ``peer`` applied itself in its first batch, per leaf: (leaf,
+    ctr) of its winning op (the largest value, then the largest Lamport
+    stamp; its stamps count 1, 2, ... in batch order). Lean gossip never
+    moves writer, ctr or tick, so the converged row still holds these."""
+    mine = np.flatnonzero(op_peer == peer)
+    leaf, _, _, ctr = expected_winners(op_peer[mine], op_leaf[mine], op_val[mine])
+    return leaf, ctr
+
+
+def lean_main_path(args, dev, window=wall_window):
+    """Phase 7: a lean dense ring at P x N (default 1024 x 2^20)."""
+    from bullet_tpu_torch import PeerNetworkSim, _build
+
+    p, n = args.peers, args.lean_capacity
+    secs: dict = {}
+    rng = np.random.default_rng(args.seed + 3)
+    sim = PeerNetworkSim(p, capacity=n, topology="ring", layout="dense", lean_gossip=True,
+                         device=dev)
+    n_leaf = n - 256
+    slot_of_leaf = sim.host.intern_batch([f"k/{i}" for i in range(n_leaf)])
+    op_peer = rng.integers(0, p, args.lean_ops).astype(np.int32)
+    op_leaf = rng.integers(0, n_leaf, args.lean_ops)
+    op_val = rng.integers(-500, 500, args.lean_ops)
+    batches = [(op_leaf, op_val)]
+
+    _build.reset_launches()
+    with window("lean put", secs):
+        sim.put_bulk(op_peer, slot_of_leaf[op_leaf], op_val)
+        sim.put(5, "s/name", "alice")
+        sim.put(p - 1, "s/name", "bob")
+        sim.put(p // 2, "s/obj", {"a": 1, "b": "x"})
+    with window("lean step(1)", secs):
+        residual = sim.step(1)
+    with window("lean run_until_converged", secs):
+        rounds = sim.run_until_converged()
+    route = sim._convergence_strategy()[0]
+    conv = secs["lean run_until_converged"]
+    log(f"  put_bulk {args.lean_ops} ops + 3 string/object puts: {secs['lean put']:.3f} s (host)")
+    log(f"  step(1) (apply + 1 lean round): {secs['lean step(1)']:.3f} s, residual {residual}")
+    log(f"  run_until_converged [{route}]: {rounds} rounds in {conv:.3f} s "
+        f"({1000 * conv / max(rounds, 1):.3f} ms/round)")
+    if route != "dense-frontier" or _build.LAUNCHES["ring_round_lean"] != 1:
+        raise AssertionError(f"lean main path took the {route} route, "
+                             f"{_build.LAUNCHES['ring_round_lean']} lean rounds")
+    if sim.last_residual != 0 or not sim.tables_equal():
+        raise AssertionError("lean run_until_converged did not reach the fixed point")
+    if not all(bool((f == f[0:1]).all()) for f in sim.table[:4]):
+        raise AssertionError("converged lean rows differ in a value key")
+    n_written = check_leaf_values(sim, batches, slot_of_leaf, rng, "lean converge")
+    if sim.get(3, "s") != {"name": "bob", "obj": {"a": 1, "b": "x"}}:
+        raise AssertionError(f"lean string/object puts: {sim.get(3, 's')}")
+    # writer, ctr and tick: each sampled row holds its own writes only
+    sampled = rng.choice(p, 8, replace=False)
+    for q in sampled.tolist():
+        leaf, ctr = own_writes(op_peer, op_leaf, op_val, q)
+        slots = slot_of_leaf[leaf]
+        meta = [f[q].cpu().numpy() for f in sim.table[4:]]
+        mine = np.zeros(n_leaf, bool)  # over the k/ leaves
+        mine[leaf] = True
+        ok = (np.array_equal(meta[0][slots], np.full(len(slots), q))
+              and np.array_equal(meta[1][slots], ctr) and bool((meta[2][slots] == 1).all())
+              and not any(bool(m[slot_of_leaf[~mine]].any()) for m in meta))
+        if not ok:
+            raise AssertionError(f"lean: writer/ctr/tick of row {q} moved")
+    log(f"  converged value keys == numpy per-leaf max over {n_written} written leaves; "
+        f"writer/ctr/tick of {len(sampled)} sampled rows == what each peer applied itself")
+
+    second_leaf = rng.integers(0, n_leaf, max(1, args.lean_ops // 16))
+    second_val = rng.integers(-600, 600, len(second_leaf))
+    batches.append((second_leaf, second_val))
+    sim.put_bulk(rng.integers(0, p, len(second_leaf)).astype(np.int32),
+                 slot_of_leaf[second_leaf], second_val)
+    sim.put(7, "s/name", "carol")
+    with window("lean reconcile", secs):
+        sim.reconcile()
+    if not sim.tables_equal() or sim.get(0, "s/name") != "carol":
+        raise AssertionError("lean reconcile did not reach the fixed point")
+    n_written = check_leaf_values(sim, batches, slot_of_leaf, rng, "lean reconcile")
+    log(f"  reconcile (apply {len(second_leaf) + 1} late ops + {(p - 1).bit_length()} lean "
+        f"doubling merges): {secs['lean reconcile']:.3f} s; {n_written} leaves == numpy "
+        "per-leaf max")
+    launches = {k: _build.LAUNCHES[k] for k in LEAN_KERNELS}
+    log(f"  launches on the lean main path: {dict(_build.LAUNCHES)}")
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"lean main path never launched: {missing}")
+    return launches
+
+
+# ------------------------------------------------------------------ phase 8
+
+
+def sharded_equal(sharded, table) -> bool:
+    """Every field of every shard equals the unsharded twin's rows."""
+    b = sharded.rows
+    return all(
+        torch.equal(f, g[i * b:(i + 1) * b])
+        for i, shard in enumerate(sharded.shards) for f, g in zip(shard, table)
+    )
+
+
+def sharded_main_path(args, dev, window=wall_window):
+    """Phase 8: ``args.shards`` shards on the one card, P x N (default
+    1024 x 2^18), lww (full metadata) and lean, against unsharded twins."""
+    from bullet_tpu_torch import PeerNetworkSim, _build
+
+    p, n = args.peers, args.capacity
+    secs: dict = {}
+    mesh = [dev] * args.shards
+    launches = {k: 0 for k in SHARD_KERNELS}
+    for mode, lean in (("lww", False), ("reference", True)):
+        tag = "lean" if lean else mode
+        rng = np.random.default_rng(args.seed + 4)
+
+        def make(**kw):
+            return PeerNetworkSim(p, capacity=n, topology="ring", mode=mode, lean_gossip=lean,
+                                  device=dev, **kw)
+
+        sim, twin = make(mesh_devices=mesh, use_shard_map=True), make()
+        n_leaf = n - 256
+        op_peer = rng.integers(0, p, args.ops).astype(np.int32)
+        op_leaf = rng.integers(0, n_leaf, args.ops)
+        op_val = rng.integers(-500, 500, args.ops)
+        slot_of_leaf = {}
+        for s in (sim, twin):
+            slot_of_leaf[s] = s.host.intern_batch([f"k/{i}" for i in range(n_leaf)])
+            s.put_bulk(op_peer, slot_of_leaf[s][op_leaf], op_val)
+            s.put(5, "s/name", "alice")
+            s.put(p - 1, "s/name", "bob")
+            s.put(17, "s/n", 3.5)
+            s.put(p // 2, "s/obj", {"a": 1, "b": "x"})
+        route = sim._convergence_strategy()[0]
+        if route != "dense-frontier-spmd":
+            raise AssertionError(f"sharded {tag} sim takes the {route} route")
+        _build.reset_launches()
+        steps = None
+        if not lean:  # a lean pair runs no step: see below
+            with window(f"{tag} sharded step(1)", secs):
+                steps = (sim.step(1), twin.step(1))
+        with window(f"{tag} sharded run_until_converged", secs):
+            rounds = sim.run_until_converged()
+        with window(f"{tag} twin run_until_converged", secs):
+            twin_rounds = twin.run_until_converged()
+        residuals = (sim.last_residual, twin.last_residual)
+        if ((steps and steps[0] != steps[1]) or rounds != twin_rounds or residuals != (0, 0)
+                or not sharded_equal(sim.table, twin.table)):
+            raise AssertionError(f"sharded {tag} converge differs from the twin: steps {steps}, "
+                                 f"rounds {rounds} vs {twin_rounds}, residuals {residuals}")
+        if not lean:
+            # on a mesh converged() runs the full-metadata exchange round, so
+            # a lean pair would differ by the reference's own rules
+            with window(f"{tag} sharded converged()", secs):
+                done = sim.converged()
+            if not done or not twin.converged():
+                raise AssertionError(f"sharded {tag}: converged() is False")
+        # a cutoff: one fused step and a tail of single rounds
+        more = max(1, args.ops // 16)
+        leaf2, val2 = rng.integers(0, n_leaf, more), rng.integers(-600, 600, more)
+        peer2 = rng.integers(0, p, more).astype(np.int32)
+        cut = []
+        for s in (sim, twin):
+            s.put_bulk(peer2, slot_of_leaf[s][leaf2], val2)
+            with window(f"{tag} {'sharded' if s is sim else 'twin'} cutoff converge", secs):
+                cut.append((s.run_until_converged(max_rounds=12), s.last_residual))
+        if cut[0] != cut[1] or not sharded_equal(sim.table, twin.table):
+            raise AssertionError(f"sharded {tag} cutoff differs from the twin: {cut}")
+        for s in (sim, twin):
+            s.put(7, "s/name", "carol")
+            with window(f"{tag} {'sharded' if s is sim else 'twin'} reconcile", secs):
+                s.reconcile()
+        if not sharded_equal(sim.table, twin.table) or not sim.tables_equal():
+            raise AssertionError(f"sharded {tag} reconcile differs from the twin")
+        sample = [f"k/{i}" for i in rng.integers(0, n_leaf, 64)] + ["s/name", "nope"]
+        peers = rng.integers(0, p, len(sample))
+        if (sim.get_bulk(peers, sample) != twin.get_bulk(peers, sample)
+                or sim.get(3, "s") != twin.get(3, "s") or sim.get(0, "s/name") != "carol"):
+            raise AssertionError(f"sharded {tag} reads differ from the twin")
+        for k in SHARD_KERNELS:
+            launches[k] += _build.LAUNCHES[k]
+        log(f"  {tag} ({'lean, ' if lean else ''}{args.shards} shards of {p // args.shards} x {n}"
+            f" on one card): run_until_converged [{route}] {rounds} rounds in "
+            f"{secs[f'{tag} sharded run_until_converged']:.3f} s (twin "
+            f"{secs[f'{tag} twin run_until_converged']:.3f} s); cutoff at 12 rounds residual "
+            f"{cut[0][1]}; reconcile {secs[f'{tag} sharded reconcile']:.3f} s (twin "
+            f"{secs[f'{tag} twin reconcile']:.3f} s); every field, rounds, residuals and reads "
+            "== the unsharded twin")
+        if not lean:
+            log(f"  {tag} step(1) of both, residual {steps[0]}: "
+                f"{secs[f'{tag} sharded step(1)']:.3f} s; converged() sharded "
+                f"{secs[f'{tag} sharded converged()']:.3f} s; both == the twin")
+        log(f"  launches ({tag}): {dict(_build.LAUNCHES)}")
+        del sim, twin
+        torch.cuda.empty_cache()
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"sharded path never launched: {missing}")
+    return launches
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1182,6 +1704,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--packed-ops", type=int, default=1 << 20)
     ap.add_argument("--rank1-capacity", type=int, default=1 << 20)
     ap.add_argument("--rank1-ops", type=int, default=1 << 20)
+    ap.add_argument("--lean-capacity", type=int, default=1 << 20)
+    ap.add_argument("--lean-ops", type=int, default=1 << 20)
+    ap.add_argument("--shards", type=int, default=4)
     return ap
 
 
@@ -1227,6 +1752,17 @@ def main() -> int:
     check_small_sims(dev)
     check_small_packed_sims(dev)
     torch.cuda.empty_cache()
+    from bullet_tpu_torch.ops.ring_kernel import frontier_tile_n
+
+    lean_shape = (args.peers, args.lean_capacity)
+    for check, shape in ((check_ring_lean, lean_shape), (check_frontier_lean, lean_shape),
+                         (check_merge_lean, main_shape),
+                         (check_frontier_shard, (args.peers // args.shards, args.capacity))):
+        check(dev, shape, errs, times)
+        torch.cuda.empty_cache()
+    check_compact_counts(dev, args.capacity // frontier_tile_n(args.capacity), errs, times)
+    check_small_lean_and_sharded_sims(dev)
+    torch.cuda.empty_cache()
 
     log(f"phase 4: dense main path, ring {args.peers} x {args.capacity}")
     launches = main_path(args, dev)
@@ -1236,12 +1772,26 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"phase 6: rank1 main path, ring {args.peers} x {args.rank1_capacity}")
     rank1_launches, _ = rank1_main_path(args, dev, card=smi)
+    torch.cuda.empty_cache()
+    log(f"phase 7: lean main path, ring {args.peers} x {args.lean_capacity}")
+    lean_launches = lean_main_path(args, dev)
+    torch.cuda.empty_cache()
+    log(f"phase 8: sharded dense path, {args.shards} shards on one card, ring "
+        f"{args.peers} x {args.capacity}")
+    shard_launches = sharded_main_path(args, dev)
 
     # one row per kernel at the layout its main path drives (dense: phase
-    # 4, packed: phase 5), and one per packed-family kernel at rank1
-    # (phase 6); the rank (nf = 2) times are in the log above
-    rows = [(name, name, launches[name]) for name in KERNELS]
+    # 4, packed: phase 5), one per packed-family kernel at rank1 (phase 6),
+    # the lean kernels (phase 7; the merge and the dense frontier at
+    # nf = 4) and the sharded ones (phase 8); the rank (nf = 2) times and
+    # the packed frontier's m = 1 times are in the log above
+    rows = [(name, name, launches[name]) for name in (*DENSE_KERNELS, *PACKED_KERNELS)]
     rows += [(tag(name, 1), name, rank1_launches[name]) for name in PACKED_KERNELS]
+    rows += [("ring_round_lean", "ring_round_lean", lean_launches["ring_round_lean"]),
+             ("frontier_round_dense lean", "frontier_round_dense",
+              lean_launches["frontier_round_dense"]),
+             ("merge lean", "merge", lean_launches["merge"])]
+    rows += [(name, name, shard_launches[name]) for name in SHARD_KERNELS]
     kernels = []
     for row, name, count in rows:
         src, rep = KERNELS[name]

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Trace the device over the main paths of chip_smoke.py (its phases 4,
-5 and 6: the dense, the packed and the rank1 ring).
+"""Trace the device over the main paths of chip_smoke.py (its phases 4
+to 8: the dense, the packed, the rank1 and the lean ring, and the sharded
+dense ring).
 
     python3 tools/profile_main.py [--seed S] [--peers P] [--capacity N] [--ops K]
                                   [--packed-capacity N] [--packed-ops K]
                                   [--rank1-capacity N] [--rank1-ops K]
+                                  [--lean-capacity N] [--lean-ops K] [--shards K]
 
 Runs the same main paths as ``chip_smoke.py`` (same data, windows and
 checks) with each timed window under ``torch.profiler`` (CUDA activity
@@ -97,6 +99,10 @@ def main() -> int:
     chip_smoke.packed_main_path(args, dev, window=traced_window)
     torch.cuda.empty_cache()
     chip_smoke.rank1_main_path(args, dev, window=traced_window, card=card)
+    torch.cuda.empty_cache()
+    chip_smoke.lean_main_path(args, dev, window=traced_window)
+    torch.cuda.empty_cache()
+    chip_smoke.sharded_main_path(args, dev, window=traced_window)
     if not any(EVENTS.values()):
         raise RuntimeError(f"the profiler recorded no device activity: {EVENTS}")
     return 0
