@@ -13,43 +13,25 @@
 // Design: one block of 1024 threads, deterministic. The TPU's sequential
 // grid appended stripes in order for free; here the block walks the
 // stripes in chunks of 1024, thread t folds stripe t's m counts (sum,
-// last changed round), and an exclusive block scan of the keep flags
-// (frontier.cuh, as the single-device frontier's compaction) places the
-// survivors in ascending order.
+// last changed round), and bt::ordered_compact (frontier.cuh, the
+// single-device frontier's compaction too) places the survivors in
+// ascending order with an exclusive block scan of the keep flags.
 #include "frontier.cuh"
 
 namespace {
 
 __global__ void compact_counts_kernel(const int32_t* counts, int32_t* ids, int m,
                                       int t_total) {
-  int next = 0;
-  unsigned total = 0;
-  int max_last = 0;
-  for (int start = 0; start < t_total; start += blockDim.x) {
-    const int t = start + threadIdx.x;
-    int flag = 0;
-    if (t < t_total) {
-      int last = 0;
-      for (int r = 0; r < m; ++r) {
-        const int32_t c = counts[(int64_t)r * t_total + t];
-        total += (unsigned)c;
-        if (c > 0) last = r + 1;
-      }
-      flag = (last == m) ? 1 : 0;
-      max_last = max(max_last, last);
+  // stripe t: the sum of its m counts and the last round with a count > 0
+  bt::ordered_compact(t_total, t_total, m, ids, [&](int t) {
+    bt::StripeFold f{t, 0u, 0};
+    for (int r = 0; r < m; ++r) {
+      const int32_t c = counts[(int64_t)r * t_total + t];
+      f.changed += (unsigned)c;
+      if (c > 0) f.last = r + 1;
     }
-    int chunk_total;
-    const int pos = bt::block_exclusive_scan(flag, &chunk_total);
-    if (flag) ids[next + pos] = t;
-    next += chunk_total;
-  }
-  total = bt::block_sum(total);
-  max_last = bt::block_max(max_last);
-  if (threadIdx.x == 0) {
-    ids[t_total] = next;
-    ids[t_total + 1] = (int32_t)total;
-    if (m > 1) ids[t_total + 2] = max_last;
-  }
+    return f;
+  });
 }
 
 }  // namespace

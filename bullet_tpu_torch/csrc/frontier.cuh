@@ -85,29 +85,41 @@ __device__ __forceinline__ int block_exclusive_scan(int flag, int* total) {
   return before + incl - flag;
 }
 
-// internal linkage: every source that includes this header gets its own
-namespace {
+// What ordered_compact needs of item j: its id, its changed count and the
+// last round (1..m, 0 for none) that changed it.
+struct StripeFold {
+  int id;
+  unsigned changed;
+  int last;
+};
 
-__global__ void frontier_compact_kernel(const int32_t* ids, int32_t* ids_out,
-                                        const unsigned* stripe_changed,
-                                        const int32_t* stripe_last,
-                                        int t_total, int m) {
-  const int count = ids[t_total];
+// Ordered compaction by one block: walks the items j < count in chunks of
+// blockDim.x, folds each (fold(j) -> StripeFold), and appends the id of
+// every item whose last changed round is m to ids_out in ascending j with
+// an exclusive block scan of the keep flags. Then writes the kept count
+// at [t_total], the changed total at [t_total + 1] (wrapping mod 2^32
+// like an int32 sum) and, for m > 1, the max last round at [t_total + 2].
+// count is uniform across the block, so every thread reaches each scan.
+template <typename Fold>
+__device__ __forceinline__ void ordered_compact(int count, int t_total, int m,
+                                                int32_t* ids_out, Fold fold) {
   int next = 0;
   unsigned changed = 0;
   int max_last = 0;
   for (int start = 0; start < count; start += blockDim.x) {
     const int j = start + threadIdx.x;
     int flag = 0;
+    int id = 0;
     if (j < count) {
-      const int last = stripe_last[j];
-      flag = (last == m) ? 1 : 0;
-      changed += stripe_changed[j];
-      max_last = max(max_last, last);
+      const StripeFold f = fold(j);
+      id = f.id;
+      flag = (f.last == m) ? 1 : 0;
+      changed += f.changed;
+      max_last = max(max_last, f.last);
     }
     int chunk_total;
     const int pos = block_exclusive_scan(flag, &chunk_total);
-    if (flag) ids_out[next + pos] = ids[j];
+    if (flag) ids_out[next + pos] = id;
     next += chunk_total;
   }
   changed = block_sum(changed);
@@ -117,6 +129,18 @@ __global__ void frontier_compact_kernel(const int32_t* ids, int32_t* ids_out,
     ids_out[t_total + 1] = (int32_t)changed;
     if (m > 1) ids_out[t_total + 2] = max_last;
   }
+}
+
+// internal linkage: every source that includes this header gets its own
+namespace {
+
+__global__ void frontier_compact_kernel(const int32_t* ids, int32_t* ids_out,
+                                        const unsigned* stripe_changed,
+                                        const int32_t* stripe_last,
+                                        int t_total, int m) {
+  ordered_compact(ids[t_total], t_total, m, ids_out, [&](int j) {
+    return StripeFold{ids[j], stripe_changed[j], stripe_last[j]};
+  });
 }
 
 }  // namespace

@@ -8,7 +8,9 @@ single controller; here one process drives every shard. Its
 shard's device, its ``psum`` a sum of the shards' count tensors on the
 mesh's first device, its ``all_gather`` a copy of the rows a shard needs.
 
-* ring/chain — one exchanged boundary row each way, chain ends zeroed.
+* ring/chain — one exchanged boundary row each way, chain ends zeroed;
+  the per-shard frontier kernel at m = 1 over every stripe, in place,
+  where the frontier stripes the slots.
 * full mesh — recursive doubling: log2(P) global rolls, each a whole-shard
   hop plus a remainder splice (``_global_roll``); bit-identical to
   ``gossip_round_mesh`` including change counts. Lean joins four fields.
@@ -93,11 +95,22 @@ def ring_round_shardmap(
 ) -> Tuple[ShardedTable, torch.Tensor]:
     """One ring (wrap) or chain round: each shard merges its rows shifted
     by one with the exchanged boundary row filling the gap, up then down,
-    from the pre-round rows. ``lean`` merges the four value keys in place.
-    Returns (table, changed) with the count summed on mesh[0]."""
+    from the pre-round rows. ``lean`` merges the four value keys. Where
+    the frontier stripes the slots this is the per-shard frontier step at
+    m = 1 over every stripe, in place; otherwise each shard merges shifted
+    copies. Returns (table, changed) with the count summed on mesh[0]."""
     parts = _parts(table, lean)
     tops, bottoms = boundary_rows(parts, 1, wrap, table.mesh)
     total = _zero_count(table.mesh)
+    tile_n = frontier_tile_n(table.shape[1])
+    if tile_n:
+        t_total = table.shape[1] // tile_n
+        for f, top, bottom, dev in zip(parts, tops, bottoms, table.mesh):
+            ids = torch.arange(t_total + 2, dtype=torch.int32, device=dev)
+            ids[t_total] = t_total
+            counts = frontier_shard_round(f, top, bottom, ids, tile_n, mode, 1)
+            total = total + counts.sum(dtype=torch.int32).to(table.mesh[0])
+        return table, total
     shards = []
     for shard, f, top, bottom in zip(table.shards, parts, tops, bottoms):
         up = [torch.cat([t, x[:-1]]) for x, t in zip(f, top)]

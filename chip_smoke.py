@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--seed S] [--peers P] [--capacity N] [--ops K]
                           [--packed-capacity N] [--packed-ops K]
                           [--rank1-capacity N] [--rank1-ops K]
-                          [--lean-capacity N] [--lean-ops K] [--shards K]
+                          [--lean-capacity N] [--lean-ops K]
 
 Phases, in order; any failure raises and exits nonzero:
 
@@ -133,6 +133,8 @@ PACKED_KERNELS = ("apply_packed", "packed_round", "reconcile_packed", "frontier_
 LEAN_KERNELS = ("ring_round_lean", "frontier_round_dense", "merge")
 SHARD_KERNELS = ("frontier_shard", "frontier_shard fused", "compact_counts",
                  "compact_counts fused")
+# phase 8's mesh: this many shards, all on the one card
+SHARDS = 4
 
 # the card's peaks, from the published H100 SXM figures: HBM3 bandwidth and
 # the float32 rate outside the tensor cores, which bounds these int32
@@ -889,25 +891,34 @@ def check_frontier_lean(dev, lean_shape, errs, times):
         f"kernel {ms:.3f} ms, plain {plain:.3f} ms per call; m=1 and 8 bit-identical")
 
 
-def check_merge_lean(dev, main_shape, errs, times):
+def check_merge_lean(dev, lean_shape, errs, times):
     """The lean merge (merge.cu at nf = 4, in place into its first operand)
-    against its plain version; metadata untouched."""
+    against its plain version: metadata untouched at the small shapes, the
+    value keys at the lean main path's shape (its reconcile's), timed."""
     from bullet_tpu_torch.ops.merge import lean_fields, merge_lean, merge_lean_torch
 
-    shapes = ((1, 1), (3, 130), (64, 1000), main_shape)
-    for p, n in shapes:
-        a, b = random_table(31 + p, p, n, dev), random_table(37 + n, p, n, dev)
-        got, want = clone(a), clone(a)
+    def pair(got, want, b, what):
         c_got = merge_lean(lean_fields(got), lean_fields(b))
         (c_want, plain) = timed_once(lambda: merge_lean_torch(lean_fields(want), lean_fields(b)))
-        _pair("merge", errs, (*got, c_got), (*want, c_want), f"lean {p}x{n}")
+        _pair("merge", errs, (*got[:4], c_got), (*want[:4], c_want), f"lean {what}")
+        return plain
+
+    shapes = ((1, 1), (3, 130), (64, 1000))
+    for p, n in shapes:
+        a, b = random_table(31 + p, p, n, dev), random_table(37 + n, p, n, dev)
+        got = clone(a)
+        pair(got, clone(a), b, f"{p}x{n}")
         _pair("merge", errs, got[4:], a[4:], f"lean {p}x{n} metadata untouched")
+    p, n = lean_shape
+    # three lean tables of 17.2 GB at 1024 x 2^20 (a copy of a would be a fourth)
+    got, want, b = lean_table(31, p, n, dev), lean_table(31, p, n, dev), lean_table(37, p, n, dev)
+    plain = pair(got, want, b, f"{p}x{n}")
+    del want
     ms = time_ms(lambda: merge_lean(lean_fields(got), lean_fields(b)), 5)
-    del a, b, got, want
-    p, n = main_shape
+    del got, b
     times["merge lean"] = (ms, plain, bound(48 * p * n, 11 * p * n))
     log(f"  merge [lean, in place] {p}x{n}: kernel {ms:.3f} ms, plain {plain:.3f} ms per call; "
-        f"bit-identical at {len(shapes)} shapes")
+        f"bit-identical at {len(shapes) + 1} shapes")
 
 
 def _boundary(rng, s, n, dev, zero: bool):
@@ -976,9 +987,10 @@ def check_frontier_shard(dev, shard_shape, errs, times):
         ms = time_ms(lambda: frontier_shard_round(base, [t[:m] for t in tops],
                                                   [t[:m] for t in bottoms], ids,
                                                   frontier_tile_n(n), "reference", m), 3)
-        # one read and one write of the shard and its boundary rows whatever
-        # m; m rounds of compares
-        times[name] = (ms, plain[m], bound(56 * (b + 2 * m) * n, m * 38 * (b + 2 * m) * n))
+        # whatever m: one read and one write of the shard's rows and one
+        # read of the 2 m boundary rows (which the kernel happens to use as
+        # scratch); m rounds of compares over the extended column
+        times[name] = (ms, plain[m], bound(56 * (b + m) * n, m * 38 * (b + 2 * m) * n))
         log(f"  {name} {b}x{n} per shard, m={m}, all {t_total} stripes: kernel {ms:.3f} ms, "
             f"plain {plain[m]:.3f} ms per call; bit-identical (reference, lww, lean; random "
             "and zeroed boundary rows)")
@@ -1597,13 +1609,13 @@ def sharded_equal(sharded, table) -> bool:
 
 
 def sharded_main_path(args, dev, window=wall_window):
-    """Phase 8: ``args.shards`` shards on the one card, P x N (default
+    """Phase 8: ``SHARDS`` shards on the one card, P x N (default
     1024 x 2^18), lww (full metadata) and lean, against unsharded twins."""
     from bullet_tpu_torch import PeerNetworkSim, _build
 
     p, n = args.peers, args.capacity
     secs: dict = {}
-    mesh = [dev] * args.shards
+    mesh = [dev] * SHARDS
     launches = {k: 0 for k in SHARD_KERNELS}
     for mode, lean in (("lww", False), ("reference", True)):
         tag = "lean" if lean else mode
@@ -1674,7 +1686,7 @@ def sharded_main_path(args, dev, window=wall_window):
             raise AssertionError(f"sharded {tag} reads differ from the twin")
         for k in SHARD_KERNELS:
             launches[k] += _build.LAUNCHES[k]
-        log(f"  {tag} ({'lean, ' if lean else ''}{args.shards} shards of {p // args.shards} x {n}"
+        log(f"  {tag} ({'lean, ' if lean else ''}{SHARDS} shards of {p // SHARDS} x {n}"
             f" on one card): run_until_converged [{route}] {rounds} rounds in "
             f"{secs[f'{tag} sharded run_until_converged']:.3f} s (twin "
             f"{secs[f'{tag} twin run_until_converged']:.3f} s); cutoff at 12 rounds residual "
@@ -1706,7 +1718,6 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--rank1-ops", type=int, default=1 << 20)
     ap.add_argument("--lean-capacity", type=int, default=1 << 20)
     ap.add_argument("--lean-ops", type=int, default=1 << 20)
-    ap.add_argument("--shards", type=int, default=4)
     return ap
 
 
@@ -1756,8 +1767,8 @@ def main() -> int:
 
     lean_shape = (args.peers, args.lean_capacity)
     for check, shape in ((check_ring_lean, lean_shape), (check_frontier_lean, lean_shape),
-                         (check_merge_lean, main_shape),
-                         (check_frontier_shard, (args.peers // args.shards, args.capacity))):
+                         (check_merge_lean, lean_shape),
+                         (check_frontier_shard, (args.peers // SHARDS, args.capacity))):
         check(dev, shape, errs, times)
         torch.cuda.empty_cache()
     check_compact_counts(dev, args.capacity // frontier_tile_n(args.capacity), errs, times)
@@ -1776,7 +1787,7 @@ def main() -> int:
     log(f"phase 7: lean main path, ring {args.peers} x {args.lean_capacity}")
     lean_launches = lean_main_path(args, dev)
     torch.cuda.empty_cache()
-    log(f"phase 8: sharded dense path, {args.shards} shards on one card, ring "
+    log(f"phase 8: sharded dense path, {SHARDS} shards on one card, ring "
         f"{args.peers} x {args.capacity}")
     shard_launches = sharded_main_path(args, dev)
 

@@ -32,6 +32,7 @@ from bullet_tpu_torch.ops.ring_kernel import (
     frontier_shard_round,
     frontier_shard_round_torch,
     frontier_tile_n,
+    ring_round_lean_torch,
 )
 from bullet_tpu_torch.parallel import mesh as port_mesh
 from bullet_tpu_torch.parallel import shardmap_gossip as sg
@@ -127,8 +128,9 @@ def test_make_mesh_never_shrinks():
 @pytest.mark.parametrize("mode", ["reference", "lww"])
 @pytest.mark.parametrize("wrap", [True, False])
 @pytest.mark.parametrize("k", [8, 2])
-def test_ring_round_matches_reference(k, wrap, mode):
-    t = random_fields(16, 128, seed=k + wrap)
+@pytest.mark.parametrize("n", [128, 100])  # the per-shard frontier; shifted copies
+def test_ring_round_matches_reference(n, k, wrap, mode):
+    t = random_fields(16, n, seed=k + wrap)
     tbl, mesh = jax_sharded(t, k)
     want, c_want = ref_sg.ring_round_shardmap(tbl, mesh, mode=mode, wrap=wrap)
     got, c_got = sg.ring_round_shardmap(sharded(t, k), mode, wrap)
@@ -138,12 +140,18 @@ def test_ring_round_matches_reference(k, wrap, mode):
 
 @needs_devices
 @pytest.mark.parametrize("wrap", [True, False])
-def test_lean_ring_round_matches_reference(wrap):
+@pytest.mark.parametrize("n", [128, 100])  # the per-shard frontier; shifted copies
+def test_lean_ring_round_matches_reference(n, wrap):
     """A data mesh's lean round: the reference's lean kernel on the whole
-    table, interpret mode."""
-    t = random_fields(16, 128, seed=3)
-    want, c_want = ref_rk.ring_round_pallas_lean(
-        JaxTable(*(jnp.asarray(f) for f in t)), wrap=wrap, interpret=True)
+    table, interpret mode, where it takes the shape (n % 128 == 0); else
+    the port's plain lean round, itself held against that kernel in
+    test_torch_lean.py."""
+    t = random_fields(16, n, seed=3)
+    if n % 128 == 0:
+        want, c_want = ref_rk.ring_round_pallas_lean(
+            JaxTable(*(jnp.asarray(f) for f in t)), wrap=wrap, interpret=True)
+    else:
+        want, c_want = ring_round_lean_torch(table_from_numpy(t, "cpu"), wrap)
     got, c_got = sg.ring_round_shardmap(sharded(t), "reference", wrap, lean=True)
     assert_fields_equal(got, want)
     assert int(c_got) == int(c_want)

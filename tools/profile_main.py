@@ -6,7 +6,7 @@ dense ring).
     python3 tools/profile_main.py [--seed S] [--peers P] [--capacity N] [--ops K]
                                   [--packed-capacity N] [--packed-ops K]
                                   [--rank1-capacity N] [--rank1-ops K]
-                                  [--lean-capacity N] [--lean-ops K] [--shards K]
+                                  [--lean-capacity N] [--lean-ops K]
 
 Runs the same main paths as ``chip_smoke.py`` (same data, windows and
 checks) with each timed window under ``torch.profiler`` (CUDA activity
