@@ -28,7 +28,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (
     "merge.cu", "ring_round.cu", "frontier_dense.cu", "frontier_shard.cu",
-    "compact_counts.cu",
+    "frontier_shard_window.cu", "compact_counts.cu",
     "apply_packed.cu", "packed_round.cu", "reconcile_packed.cu", "frontier_packed.cu",
     "window_packed.cu",
 )
@@ -45,7 +45,8 @@ NVCC_FLAGS = (
 LAUNCHES = {
     "merge": 0, "ring_round": 0, "ring_round_lean": 0, "frontier_round_dense": 0,
     "frontier_shard": 0, "frontier_shard fused": 0, "compact_counts": 0,
-    "compact_counts fused": 0,
+    "compact_counts fused": 0, "frontier_shard packed": 0, "frontier_shard packed fused": 0,
+    "frontier_shard_window": 0, "compact_counts window": 0,
     "apply_packed": 0, "packed_round": 0, "reconcile_packed": 0,
     "frontier_round_packed": 0, "window_packed": 0,
 }
@@ -68,8 +69,17 @@ _SIGNATURES = {
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P,
     ),
     "bt_compact_counts": (_P, _P, ctypes.c_int, ctypes.c_int, _P),
+    "bt_compact_counts_window": (_P, _P, ctypes.c_int, ctypes.c_int, _P),
     # the packed-family kernels take the table's field count nf (1, 2, 3)
     # as their last argument before the stream
+    "bt_frontier_shard_packed": (
+        _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, _P,
+    ),
+    "bt_frontier_shard_window": (
+        _P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, _P,
+    ),
     "bt_apply_packed": (
         _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, _P,
         ctypes.c_int, _P,

@@ -1,7 +1,9 @@
 // Compacting frontier step, shared by every layout: m ring/chain rounds, in
 // place, on the active slot stripes only, then the next round's ids array.
 // frontier_dense.cu and frontier_packed.cu instantiate it for their entry
-// types (lexmax.cuh).
+// types (lexmax.cuh). Also the ordered compaction (compact_counts.cu) and
+// the extended-column sweep of the per-shard steps on a device mesh
+// (frontier_shard.cu, frontier_shard_window.cu).
 //
 // ids layout (as the reference's ops/packed.py frontier loops use it):
 //   [0, count)    active stripe ids, ascending
@@ -128,6 +130,75 @@ __device__ __forceinline__ void ordered_compact(int count, int t_total, int m,
     ids_out[t_total] = next;
     ids_out[t_total + 1] = (int32_t)changed;
     if (m > 1) ids_out[t_total + 2] = max_last;
+  }
+}
+
+// One shard's extended column (frontier_shard.cu, frontier_shard_window.cu):
+// s rows of top, b rows of mid, s rows of bot, every segment row-major with
+// row stride n.
+template <int NF>
+struct ExtColumn {
+  Fields<NF> top, mid, bot;
+  int s, b;
+  int64_t n, col;
+
+  // r is uniform across a warp, so the segment branches never diverge
+  __device__ __forceinline__ void load(int32_t (&v)[NF], int r) const {
+    if (r < s) {
+      load_entry(v, top, (int64_t)r * n + col);
+    } else if (r < s + b) {
+      load_entry(v, mid, (int64_t)(r - s) * n + col);
+    } else {
+      load_entry(v, bot, (int64_t)(r - s - b) * n + col);
+    }
+  }
+  __device__ __forceinline__ void store(int r, const int32_t (&v)[NF]) const {
+    if (r < s) {
+      store_entry(top, (int64_t)r * n + col, v);
+    } else if (r < s + b) {
+      store_entry(mid, (int64_t)(r - s) * n + col, v);
+    } else {
+      store_entry(bot, (int64_t)(r - s - b) * n + col, v);
+    }
+  }
+};
+
+// One round on the extended column as a ring, in place (the pre-round rows
+// r - 1 and r and the original row 0 stay in registers, as in
+// sweep_column). After round k the rows [k, 2 s + b - k) are exact (the
+// trapezoid of the reference's time tiling), so m <= s rounds leave the
+// shard's rows exact; garbage from the internal wrap never reaches them.
+// Calls on_row(r, wins) for every row r, wins being how many of its two
+// neighbours beat it in turn (0, 1 or 2; nonzero iff the row changed).
+template <typename E, typename OnRow>
+__device__ __forceinline__ void sweep_ext(const ExtColumn<E::NF>& c, OnRow on_row) {
+  constexpr int NF = E::NF;
+  const int len = 2 * c.s + c.b;
+  int32_t row0[NF], up[NF], cur[NF], down[NF];
+  c.load(row0, 0);
+  c.load(up, len - 1);
+  copy_entry(cur, row0);
+  for (int r = 0; r < len; ++r) {
+    if (r + 1 < len) {
+      c.load(down, r + 1);
+    } else {
+      copy_entry(down, row0);
+    }
+    int32_t m[NF];
+    unsigned wins = 0;
+    copy_entry(m, cur);
+    if (E::gt(up, m)) {
+      copy_entry(m, up);
+      ++wins;
+    }
+    if (E::gt(down, m)) {
+      copy_entry(m, down);
+      ++wins;
+    }
+    c.store(r, m);
+    on_row(r, wins);
+    copy_entry(up, cur);
+    copy_entry(cur, down);
   }
 }
 

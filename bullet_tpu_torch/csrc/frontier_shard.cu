@@ -1,14 +1,19 @@
-// Per-shard frontier step of the dense table on a device mesh: m ring
-// rounds, in place, on the active slot stripes of one shard's [b, n] rows,
-// given the neighbour shards' boundary rows taken before the step; emits
-// the uncompacted per-round, per-stripe change counts of the shard's rows
-// [m, t_total]. The caller sums the shards' counts and compacts them into
-// the next ids array (compact_counts.cu).
+// Per-shard frontier step on a device mesh: m ring rounds, in place, on the
+// active slot stripes of one shard's [b, n] rows, given the neighbour
+// shards' boundary rows taken before the step; emits the uncompacted
+// per-round, per-stripe change counts of the shard's rows [m, t_total]. The
+// caller sums the shards' counts and compacts them into the next ids array
+// (compact_counts.cu).
 //
 // Replaces: bullet_tpu/ops/ring_kernel.py::_frontier_shard_kernel_dense
 // (m = 1, one boundary row each way) and
 // ::_frontier_shard_multiround_kernel_dense (8 fused rounds, 8 boundary
-// rows each way), at nf = 7 (reference or lww order) and nf = 4 (lean).
+// rows each way), at nf = 7 (reference or lww order) and nf = 4 (lean)
+// (bt_frontier_shard); bullet_tpu/ops/packed.py::_frontier_halo_kernel_counts
+// (m = 1: the reference pads its boundary rows to 8 and reads row 7 above
+// and row 0 below; here the one row is passed) and
+// ::_frontier_shard_multiround_kernel_packed (m = 8), at nf = 3 (packed),
+// 2 (rank) and 1 (rank1) (bt_frontier_shard_packed).
 //
 // Bound on the H100: device memory. Each round reads and writes each entry
 // of an active stripe (8 x nf bytes per entry per round) plus the 2 s
@@ -16,85 +21,16 @@
 // Design: block j owns stripe ids[j], thread c column c of it. The thread
 // sweeps its EXTENDED column, the s snapshot rows above (tops, [s, n]),
 // the shard's b rows, and the s snapshot rows below (bottoms, [s, n]), as
-// one ring of 2 s + b rows (the sweep of bt::sweep_column, wrapping inside
-// the extended column). After round k the rows [k, 2 s + b - k) are exact
-// (the trapezoid of the reference's time tiling), so m <= s rounds leave
-// the shard's rows exact; garbage from the internal wrap never reaches
-// them. A chain's global ends arrive as zeroed snapshots: an all-zero row
-// is the bottom of every priority order, so it adds nothing the classic
-// round's zero neighbour would not. Only the shard's rows count. The
-// snapshot rows are the caller's per-call scratch: the sweep overwrites
-// them. Counts land per round with one block reduction, at
-// counts[k * t_total + stripe]; stripes not in ids keep the caller's
-// zeros.
+// one ring of 2 s + b rows (bt::sweep_ext, frontier.cuh), m <= s times. A
+// chain's global ends arrive as zeroed snapshots: an all-zero row is the
+// bottom of every priority order, so it adds nothing the classic round's
+// zero neighbour would not. Only the shard's rows count. The snapshot rows
+// are the caller's per-call scratch: the sweep overwrites them. Counts
+// land per round with one block reduction, at counts[k * t_total +
+// stripe]; stripes not in ids keep the caller's zeros.
 #include "frontier.cuh"
 
 namespace {
-
-// One shard's extended column: s rows of top, b rows of mid, s rows of
-// bot, every segment row-major with row stride n.
-template <int NF>
-struct ExtColumn {
-  bt::Fields<NF> top, mid, bot;
-  int s, b;
-  int64_t n, col;
-
-  // r is uniform across a warp, so the segment branches never diverge
-  __device__ __forceinline__ void load(int32_t (&v)[NF], int r) const {
-    if (r < s) {
-      bt::load_entry(v, top, (int64_t)r * n + col);
-    } else if (r < s + b) {
-      bt::load_entry(v, mid, (int64_t)(r - s) * n + col);
-    } else {
-      bt::load_entry(v, bot, (int64_t)(r - s - b) * n + col);
-    }
-  }
-  __device__ __forceinline__ void store(int r, const int32_t (&v)[NF]) const {
-    if (r < s) {
-      bt::store_entry(top, (int64_t)r * n + col, v);
-    } else if (r < s + b) {
-      bt::store_entry(mid, (int64_t)(r - s) * n + col, v);
-    } else {
-      bt::store_entry(bot, (int64_t)(r - s - b) * n + col, v);
-    }
-  }
-};
-
-// One round on the extended column as a ring, in place (the pre-round rows
-// r - 1 and r and the original row 0 stay in registers, as in
-// bt::sweep_column). Returns the changed count of the rows [s, s + b).
-template <typename E>
-__device__ __forceinline__ unsigned sweep_ext(const ExtColumn<E::NF>& c) {
-  constexpr int NF = E::NF;
-  const int len = 2 * c.s + c.b;
-  int32_t row0[NF], up[NF], cur[NF], down[NF];
-  c.load(row0, 0);
-  c.load(up, len - 1);
-  bt::copy_entry(cur, row0);
-  unsigned changed = 0;
-  for (int r = 0; r < len; ++r) {
-    if (r + 1 < len) {
-      c.load(down, r + 1);
-    } else {
-      bt::copy_entry(down, row0);
-    }
-    const unsigned mine = (r >= c.s && r < c.s + c.b) ? 1u : 0u;
-    int32_t m[NF];
-    bt::copy_entry(m, cur);
-    if (E::gt(up, m)) {
-      bt::copy_entry(m, up);
-      changed += mine;
-    }
-    if (E::gt(down, m)) {
-      bt::copy_entry(m, down);
-      changed += mine;
-    }
-    c.store(r, m);
-    bt::copy_entry(up, cur);
-    bt::copy_entry(cur, down);
-  }
-  return changed;
-}
 
 template <typename E>
 __global__ void __launch_bounds__(bt::kMaxTile)
@@ -106,9 +42,14 @@ __global__ void __launch_bounds__(bt::kMaxTile)
   const int stripe = ids[j];
   const int64_t col = (int64_t)stripe * tile_n + threadIdx.x;
   const bool live = threadIdx.x < tile_n && col < n;
-  const ExtColumn<E::NF> c{top, mid, bot, s, b, n, col};
+  const bt::ExtColumn<E::NF> c{top, mid, bot, s, b, n, col};
   for (int k = 0; k < m; ++k) {
-    unsigned changed = live ? sweep_ext<E>(c) : 0u;
+    unsigned changed = 0;
+    if (live) {
+      bt::sweep_ext<E>(c, [&](int r, unsigned wins) {
+        if (r >= s && r < s + b) changed += wins;
+      });
+    }
     changed = bt::block_sum(changed);
     if (threadIdx.x == 0) counts[(int64_t)k * t_total + stripe] = (int32_t)changed;
   }
@@ -150,4 +91,16 @@ extern "C" cudaError_t bt_frontier_shard(void* const* fields, void* const* tops,
   return bt::dispatch_dense<FrontierShard>(nf, lww, fields, tops, bottoms, ids, counts, b,
                                            s, n, tile_n, t_total, m,
                                            static_cast<cudaStream_t>(stream));
+}
+
+// The same for a packed-family shard of nf = 3, 2 or 1 fields (lexmax.cuh's
+// PackedEntry, RankEntry, Rank1Entry).
+extern "C" cudaError_t bt_frontier_shard_packed(void* const* fields, void* const* tops,
+                                                void* const* bottoms, const void* ids,
+                                                void* counts, int b, int s, long long n,
+                                                int tile_n, int t_total, int m, int nf,
+                                                void* stream) {
+  return bt::dispatch_nf<FrontierShard>(nf, fields, tops, bottoms, ids, counts, b, s, n,
+                                        tile_n, t_total, m,
+                                        static_cast<cudaStream_t>(stream));
 }

@@ -1,10 +1,10 @@
 """PeerNetworkSim on PyTorch: P replicated peers, one graph table each.
 
 The port of ``bullet_tpu.models.netsim`` for the dense (7 fields,
-28 B/entry) layout, with lean gossip and on a device mesh, and the packed
-family, reference mode only, on one device: packed (3 fields, 12 B/entry),
-rank (2 fields, 8 B/entry) and rank1 (1 field, 4 B/entry; see
-ops/rank.py):
+28 B/entry) layout, with lean gossip, and the packed family, reference
+mode only: packed (3 fields, 12 B/entry), rank (2 fields, 8 B/entry) and
+rank1 (1 field, 4 B/entry; see ops/rank.py); every layout on one device
+or on a device mesh:
 
     step = apply op batch  ->  gossip round(s) over the topology
 
@@ -26,9 +26,13 @@ shape) merge four fields, every other round all seven.
 On a device mesh (``mesh_devices``: a count, or devices that may repeat)
 the table is a ``ShardedTable`` split by peer rows. With ``use_shard_map``
 its ring and chain sims converge on the per-shard frontier
-(``dense-frontier-spmd``); every sharded sim's rounds are the explicit
-exchanges of ``parallel/shardmap_gossip.py``. A data mesh (no
-``use_shard_map``) never runs the frontier.
+(``dense-frontier-spmd``, ``packed-frontier-spmd``: on the card the
+packed family takes m-round windows per boundary exchange) where the
+reference's sharded predicate holds; every sharded sim's rounds are the
+explicit exchanges of ``parallel/shardmap_gossip.py``, and a packed
+family's ``fast_forward`` takes one window per exchange of m-row slabs.
+A data mesh (no ``use_shard_map``) never runs the frontier. A packed
+family's op apply and reconcile run per shard.
 
 Convergence is deterministic: the merge is a join-semilattice, so
 ``run_until_converged`` reaches the unique fixed point in at most
@@ -59,7 +63,10 @@ from ..parallel.shardmap_gossip import (
     HALO_FUSE,
     data_mesh_round,
     gossip_frontier_shardmap_dense,
+    gossip_frontier_shardmap_packed,
     mesh_round_shardmap,
+    reconcile_shardmap_packed,
+    ring_window_shardmap_packed,
     shardmap_round,
 )
 from ..utils.encode import CLS_ABSENT, VID_NULL
@@ -87,12 +94,18 @@ class ConvergenceCell(NamedTuple):
 
 
 # Convergence strategy table: (name, predicate, runner method name) — FIRST
-# match wins. The reference package's table has one more row, the packed
-# family on a mesh (not ported yet).
+# match wins; the rows and predicates are the reference package's.
 CONVERGENCE_STRATEGIES: Tuple[Tuple[str, Callable, str], ...] = (
     (
+        "packed-frontier-spmd",  # per-shard packed frontier, windows on the card
+        lambda c: c.layout in PACKED_FAMILY and c.spmd and c.frontier and c.ring_chain
+        and c.kernels,
+        "_converge_frontier_spmd",
+    ),
+    (
         "packed-frontier-local",  # packed-family compacting frontier, fused on the card
-        lambda c: c.layout in PACKED_FAMILY and c.frontier and c.ring_chain and c.kernels,
+        lambda c: c.layout in PACKED_FAMILY and not c.spmd and not c.data_mesh and c.frontier
+        and c.ring_chain and c.kernels,
         "_converge_frontier_local",
     ),
     (
@@ -258,7 +271,7 @@ class PeerNetworkSim:
     topology : "ring" | "chain" | "mesh" | "star" | "bridge" | Topology
     mode : "reference" (converged-state parity) | "lww" (Lamport LWW)
     mesh_devices : int | sequence of devices | None — shard the peer axis
-        over a mesh (dense layout): the first k devices of ``device``'s
+        over a mesh (every layout): the first k devices of ``device``'s
         type (k virtual shards on the CPU), or the devices given, which may
         repeat. P is padded up to a multiple of the mesh size
     use_kernels : bool | None — take the kernel routes (the compacting
@@ -267,8 +280,8 @@ class PeerNetworkSim:
         the kernels' plain versions, and False picks the whole-table round
         loop of full merges
     use_shard_map : bool — on a mesh, the explicit SPMD path: the
-        per-shard frontier and the full-metadata exchange rounds (without a
-        mesh it changes nothing)
+        per-shard frontier, the full-metadata exchange rounds and the
+        packed star's hub reduce (without a mesh it changes nothing)
     lean_gossip : bool — gossip the four value keys only (reference mode;
         ignored in lww mode, as in the reference)
     layout : "dense" (7 fields, full metadata) | "packed" (3 fields,
@@ -302,11 +315,6 @@ class PeerNetworkSim:
             )
         if mode not in ("reference", "lww"):
             raise ValueError(f"unknown merge mode: {mode}")
-        if layout in PACKED_FAMILY and mesh_devices:
-            raise NotImplementedError(
-                f"the {layout} layout on a device mesh is not ported yet "
-                "(ROADMAP.md Queue 1: the packed family on a mesh)"
-            )
         self.layout = layout
         self.mode = mode
         self.use_shard_map = bool(use_shard_map)
@@ -607,11 +615,12 @@ class PeerNetworkSim:
         return tuple(np.concatenate([c[i] for c in chunks]) for i in range(6))
 
     def _init_table(self, num_peers: int, capacity: int):
+        init = {"packed": pk.init_packed, "rank": rk.init_rank, "rank1": rk.init_rank1}
+        init = init.get(self.layout, init_table)
         if self.mesh is not None:
             rows = num_peers // len(self.mesh)
-            return ShardedTable([init_table(rows, capacity, d) for d in self.mesh], self.mesh)
-        init = {"packed": pk.init_packed, "rank": rk.init_rank, "rank1": rk.init_rank1}
-        return init.get(self.layout, init_table)(num_peers, capacity, self.device)
+            return ShardedTable([init(rows, capacity, d) for d in self.mesh], self.mesh)
+        return init(num_peers, capacity, self.device)
 
     def _shape(self) -> Tuple[int, int]:
         """(P, N) of the table, sharded or not."""
@@ -647,13 +656,8 @@ class PeerNetworkSim:
             torch.from_numpy(np.asarray(m, dtype=np.int32)).to(self.device)
             for m in self.host.key_tables()
         ]
-        if isinstance(self.table, ShardedTable):
-            self.table = self.table.map(
-                lambda t: _rekey(t, *(m.to(t.cls.device) for m in maps))
-            )
-        else:
-            rekey = _rekey_packed if self.layout == "packed" else _rekey
-            self.table = rekey(self.table, *maps)
+        rekey = _rekey_packed if self.layout == "packed" else _rekey
+        self.table = self._per_shard(lambda t: rekey(t, *(m.to(t[0].device) for m in maps)))
         self.host.needs_rekey = False
 
     def _stage_rank_inserts(self) -> None:
@@ -670,8 +674,8 @@ class PeerNetworkSim:
             new = np.arange(n_ranked, len(vals))
             self.rank_index.insert_batch(new, cls_map[new], khi_map[new], klo_map[new])
 
-    def _device_lut(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(self.device)
+    def _device_lut(self, a: np.ndarray, device=None) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(device or self.device)
 
     def _sync_rank_index(self) -> None:
         """Bring the RankIndex up to date with the interner and, if a gap
@@ -682,15 +686,30 @@ class PeerNetworkSim:
         self._stage_rank_inserts()
         if not self.rank_index.needs_rekey:
             return
-        rank_map = self._device_lut(self.rank_index.rank_map())
         if self.layout == "rank1":
-            osr, osv = self.rank_index.prev_inverse
-            self.table = rk.rekey_rank1(
-                self.table, self._device_lut(osr), self._device_lut(osv), rank_map
-            )
+            self._rekey_rank1(*self.rank_index.prev_inverse)
         else:
-            self.table = rk.rekey_rank(self.table, rank_map)
+            self._rekey_rank()
         self.rank_index.needs_rekey = False
+
+    def _per_shard(self, fn: Callable):
+        """``fn`` applied to the table, or to each shard of a sharded one."""
+        if isinstance(self.table, ShardedTable):
+            return self.table.map(fn)
+        return fn(self.table)
+
+    def _rekey_rank(self) -> None:
+        """Re-gather a rank table's ranks from cv's vid, per shard."""
+        rank_map = self.rank_index.rank_map()
+        self.table = self._per_shard(
+            lambda t: rk.rekey_rank(t, self._device_lut(rank_map, t[0].device)))
+
+    def _rekey_rank1(self, old_sranks: np.ndarray, old_svids: np.ndarray) -> None:
+        """Re-gather a rank1 table's ranks through an older epoch's inverse
+        (sorted ranks, their vids), per shard."""
+        luts = (old_sranks, old_svids, self.rank_index.rank_map())
+        self.table = self._per_shard(
+            lambda t: rk.rekey_rank1(t, *(self._device_lut(a, t[0].device) for a in luts)))
 
     def _mark_dirty(self, slots: np.ndarray) -> None:
         """Frontier bookkeeping: the stripes holding ``slots`` need work."""
@@ -734,9 +753,11 @@ class PeerNetworkSim:
     def _apply_pending_packed(self) -> int:
         """Packed-family apply: host lattice pre-reduction per (peer, slot),
         then ONE upload of the [2 + nf, K] winners and one flat apply (the
-        kernel on the card) — no dense batch. The rank layouts stamp each
-        op with its value's rank first. Unlike the reference, ops are never
-        staged on the device at put time (that hid a TPU link's latency)."""
+        kernel on the card) — no dense batch; on a mesh, one of each per
+        shard, with the winners of its peers at their local rows. The rank
+        layouts stamp each op with its value's rank first. Unlike the
+        reference, ops are never staged on the device at put time (that hid
+        a TPU link's latency)."""
         flat = self._drain_flat()
         if flat is None:
             return 0
@@ -761,20 +782,35 @@ class PeerNetworkSim:
         if reduced is None:
             return 0
         self._mark_dirty(reduced[1])
-        ops = torch.from_numpy(np.stack(reduced)).to(self.device)
+        ops = np.stack(reduced)
+        if isinstance(self.table, ShardedTable):
+            # the winners are sorted by peer: each shard's are one run
+            b, applied = self.table.rows, 0
+            cuts = np.searchsorted(ops[0], np.arange(len(self.table.shards) + 1) * b)
+            for i, (shard, dev) in enumerate(zip(self.table.shards, self.table.mesh)):
+                if cuts[i] == cuts[i + 1]:
+                    continue
+                local = ops[:, cuts[i]:cuts[i + 1]].copy()
+                local[0] -= i * b
+                applied += int(pk.apply_flat_packed(shard, torch.from_numpy(local).to(dev))[1])
+            return applied
         # one flat apply for the whole family: the wrapper dispatches on nf
-        self.table, applied = pk.apply_flat_packed(self.table, ops)
+        self.table, applied = pk.apply_flat_packed(
+            self.table, torch.from_numpy(ops).to(self.device))
         return int(applied)
 
     def _frontier_tile(self) -> int:
         """Stripe width the frontier convergence path would use at the
         current shape (the port's own width); 0 = no frontier runs and
-        dirty-stripe bookkeeping is pointless. A lean or sharded dense sim
-        runs it exactly where the reference does (its route decides the
-        bits); a data mesh never does."""
+        dirty-stripe bookkeeping is pointless. A lean or sharded sim runs it
+        exactly where the reference does (a lean sim's route decides its
+        bits); a data mesh never does (a packed one keeps the bookkeeping,
+        as the reference)."""
         p, n = self._shape()
         tile_n = pk.frontier_tile_n(n)
         if self.layout in PACKED_FAMILY:
+            if self.mesh is not None and self.use_shard_map:
+                return tile_n if pk.frontier_available_sharded(p, n, len(self.mesh)) else 0
             return tile_n
         if self.mesh is not None:
             spmd = self.use_shard_map and dense_frontier_available_sharded(
@@ -791,9 +827,10 @@ class PeerNetworkSim:
 
     def _round(self, table):
         """One gossip round of ``table`` over the topology: the packed
-        family's, the explicit exchange on a mesh (full metadata with
-        use_shard_map, as the reference's shard_map rounds), else the
-        single-device round. Returns (table, changed)."""
+        family's (the explicit exchange on a mesh, with the unsharded
+        round's bits and counts), the dense explicit exchange on a mesh
+        (full metadata with use_shard_map, as the reference's shard_map
+        rounds), else the single-device round. Returns (table, changed)."""
         if self.layout in PACKED_FAMILY:
             return pk.gossip_round_packed(table, self.topology)
         if self.mesh is not None:
@@ -825,6 +862,8 @@ class PeerNetworkSim:
 
     def _fast_forward_route(self) -> str:
         """Which implementation fast_forward uses for this sim state:
+        "spmd" (a packed-family ring or chain sim on a mesh: one window per
+        exchange of slabs as deep as a shard, ``ring_window_shardmap_packed``),
         "frontier" (the compacting frontier loop with max_rounds = k: a
         packed sim on the card whose dirty-stripe tracking is valid, so the
         jump is not blind), "window" (every other packed-family ring or
@@ -832,9 +871,11 @@ class PeerNetworkSim:
         the CPU) or "step" (dense layouts and other topologies). The
         reference's "pallas", "halo_window" and "xla" routes all become
         "window": a column-owning kernel has no VMEM budget to route
-        around."""
+        around; its "xla" route on a data mesh becomes "spmd"."""
         if self.layout not in PACKED_FAMILY or self.topology.kind not in ("ring", "chain"):
             return "step"
+        if self.mesh is not None:
+            return "spmd"
         if (self.device.type == "cuda" and self.layout == "packed"
                 and self._frontier_tracking_valid()):
             return "frontier"
@@ -850,9 +891,10 @@ class PeerNetworkSim:
         A window pass covers min(left, P + 1) rounds: P + 1 rounds reach
         the fixed point of any ring or chain of P peers (a chain's all-zero
         ends are P rows from its far edge), so a longer pass could change
-        nothing more. A pass whose round-m residual is 0 has reached the
-        fixed point; the remaining rounds are no-ops and are skipped, and
-        every stripe is marked clean. The "frontier" route (see
+        nothing more; on a mesh min(left, b), b the rows of a shard (its
+        slabs come from one neighbour). A pass whose round-m residual is 0
+        has reached the fixed point; the remaining rounds are no-ops and are
+        skipped, and every stripe is marked clean. The "frontier" route (see
         ``_fast_forward_route``) runs the fused frontier loop with
         ``max_rounds = rounds`` instead.
 
@@ -871,7 +913,7 @@ class PeerNetworkSim:
         # re-resolve: the apply refreshed the dirty-stripe tracking
         route = self._fast_forward_route()
         wrap = self.topology.kind == "ring"
-        p, n = self.table[0].shape
+        p, n = self._shape()
         if route == "frontier":
             tile_n = self._frontier_tile()
             t_total = n // tile_n
@@ -885,8 +927,12 @@ class PeerNetworkSim:
             self._frontier_dirty = None  # untracked gossip advances stripes
             left, residual = rounds, 0
             while left:
-                m = min(left, p + 1)
-                self.table, changed = pk.ring_window_packed(self.table, wrap, m)
+                if route == "spmd":
+                    m = min(left, self.table.rows)
+                    self.table, changed = ring_window_shardmap_packed(self.table, wrap, m)
+                else:
+                    m = min(left, p + 1)
+                    self.table, changed = pk.ring_window_packed(self.table, wrap, m)
                 left -= m
                 residual = int(changed)
                 if residual == 0:
@@ -985,11 +1031,35 @@ class PeerNetworkSim:
         self._finish_frontier(t_total, rounds, final_changed, max_rounds)
         return self._finish_converge(rounds, final_changed)
 
+    def _converge_frontier_spmd(self, max_rounds: int) -> int:
+        """The packed family's frontier on a mesh: per-shard frontier steps
+        between boundary exchanges, the shards' results agreed and folded.
+        On the card each exchange of m-row slabs buys an m-round window (m
+        of the reference's ``window_frontier_params``; HALO_FUSE = 8 rounds
+        where the shards are too small for a window), with the exact
+        classic round count rebuilt on the host; on the CPU it runs
+        unfused, as the reference's interpret mode does."""
+        p, n = self._shape()
+        tile_n = self._frontier_tile()
+        t_total = n // tile_n
+        window = fuse = 1
+        if self.device.type == "cuda":
+            window = pk.window_frontier_depth(p // len(self.mesh), n)
+            fuse = 1 if window else HALO_FUSE
+        self.table, rounds, final_changed = gossip_frontier_shardmap_packed(
+            self.table, self._frontier_seed(t_total), self.topology.kind == "ring",
+            max_rounds, fuse=fuse, window_fuse=window, tile_n=tile_n,
+        )
+        self._finish_frontier(t_total, rounds, final_changed, max_rounds)
+        return self._finish_converge(rounds, final_changed)
+
     def _converge_packed_loop(self, max_rounds: int) -> int:
-        """Packed-family whole-table round loop for any topology, one count read
-        per round."""
+        """Packed-family whole-table round loop for any topology, one count
+        read per round (on a mesh with use_shard_map, a star's rounds are
+        the hub reduce, as the reference's)."""
         self.table, rounds, final_changed = pk.gossip_until_converged_packed(
-            self.table, self.topology, max_rounds
+            self.table, self.topology, max_rounds,
+            spmd=self.mesh is not None and self.use_shard_map,
         )
         return self._finish_converge(rounds, final_changed)
 
@@ -1041,7 +1111,8 @@ class PeerNetworkSim:
         On a strongly connected topology every peer reaches every peer, so
         every row becomes the join of its whole column: ceil(log2 P)
         doubling merges (the merge kernel on the card) on the dense layout,
-        one pass of the reconcile kernel on the packed family. Otherwise a
+        one pass of the reconcile kernel on the packed family (on a mesh,
+        one per shard, then one over the shards' first rows). Otherwise a
         dynamic program over the SCC condensation joins each component's
         members plus one representative row per successor component.
         Either way the result is bit-identical to run_until_converged's
@@ -1054,7 +1125,8 @@ class PeerNetworkSim:
         if not self.topology.is_connected():
             self._reconcile_weak()
         elif self.layout in PACKED_FAMILY:
-            self.table = pk.reconcile_packed(self.table)
+            reconcile = reconcile_shardmap_packed if self.mesh is not None else pk.reconcile_packed
+            self.table = reconcile(self.table)
         elif self.mesh is not None:
             self.table, _ = mesh_round_shardmap(self.table, self.mode, self.lean_gossip)
         else:
@@ -1095,7 +1167,9 @@ class PeerNetworkSim:
                 # member's shard
                 fields = range(4) if self.lean_gossip else None
                 rows = self.table.take_rows(np.asarray(idx), self.device, fields)
-                joined = _join_rows(rows, beats_of(len(rows), self.mode))
+                beats = (pk.packed_beats if self.layout in PACKED_FAMILY
+                         else beats_of(len(rows), self.mode))
+                joined = _join_rows(rows, beats)
                 k = len(members[c])
                 self.table.put_rows(members[c], [r.expand(k, -1) for r in joined], fields)
                 continue
@@ -1124,12 +1198,14 @@ class PeerNetworkSim:
 
     def converged(self) -> bool:
         """True iff one more gossip round (the round ``step`` would run)
-        would change nothing. A packed-family ring/chain sim asks the
-        count-only probe (the kernel writes nothing, so no table-sized
-        scratch at the north-star shape); other sims run the round on a
-        scratch copy, since the port's rounds update in place."""
+        would change nothing. An unsharded packed-family ring/chain sim asks
+        the count-only probe (the kernel writes nothing, so no table-sized
+        scratch at the north-star shape); other sims, a mesh's among them
+        as in the reference, run the round on a scratch copy, since the
+        port's rounds update in place."""
         self._sync_device_state()
-        if self.layout in PACKED_FAMILY and self.topology.kind in ("ring", "chain"):
+        if (self.layout in PACKED_FAMILY and self.topology.kind in ("ring", "chain")
+                and self.mesh is None):
             changed = pk.count_changes_round_packed(
                 self.table, self.topology.kind == "ring"
             )
@@ -1147,24 +1223,30 @@ class PeerNetworkSim:
 
     def _gather_present_vid(self, peers, slots) -> Tuple[np.ndarray, np.ndarray]:
         """(present, vid) at the K (peer, slot) pairs, in one device gather
-        per stored field (one, cv, on the packed and rank layouts). Rank1
-        gathers the ranks and decodes them on the host through the
-        RankIndex; a rank with no exact hit reads as absent."""
+        per stored field (one, cv, on the packed and rank layouts; on a mesh
+        one per shard). Rank1 gathers the ranks and decodes them on the host
+        through the RankIndex; a rank with no exact hit reads as absent."""
+        if self.layout == "dense":
+            cls, vid = self._gather(peers, slots, (0, 3))  # cls, vid
+            return cls != CLS_ABSENT, vid
+        if self.layout == "rank1":
+            vid = self.rank_index.decode_ranks(self._gather(peers, slots, (0,))[0])
+            return vid >= 0, vid
+        one = self.table.shards[0] if isinstance(self.table, ShardedTable) else self.table
+        cv = self._gather(peers, slots, (len(one) - 1,))[0]  # cv is the last field
+        return (cv >> pk.CV_SHIFT) != CLS_ABSENT, cv & pk.VID_MASK
+
+    def _gather(self, peers, slots, fields: Sequence[int]) -> List[np.ndarray]:
+        """The entries at the K (peer, slot) pairs of the field indices
+        ``fields``, as numpy arrays: one device gather per field (per shard
+        and field on a mesh)."""
+        if isinstance(self.table, ShardedTable):
+            return self.table.gather(peers, slots, fields)
         idx = tuple(
             torch.from_numpy(np.ascontiguousarray(a, dtype=np.int64)).to(self.device)
             for a in (peers, slots)
         )
-        if isinstance(self.table, ShardedTable):
-            cls, vid = self.table.gather(peers, slots, (0, 3))  # cls, vid
-            return cls != CLS_ABSENT, vid
-        if self.layout == "rank1":
-            vid = self.rank_index.decode_ranks(self.table.rank[idx].cpu().numpy())
-            return vid >= 0, vid
-        if self.layout in PACKED_FAMILY:
-            cv = self.table.cv[idx].cpu().numpy()
-            return (cv >> pk.CV_SHIFT) != CLS_ABSENT, cv & pk.VID_MASK
-        cls = self.table.cls[idx].cpu().numpy()
-        return cls != CLS_ABSENT, self.table.vid[idx].cpu().numpy()
+        return [self.table[f][idx].cpu().numpy() for f in fields]
 
     def _decode_slots(self, peer: int, slots: List[int]) -> Dict[int, Any]:
         if not slots:
@@ -1368,17 +1450,14 @@ class PeerNetworkSim:
             # are not compared: rank re-gathers from cv, one pass; rank1
             # decodes through the snapshot's own inverse unless it is the
             # current one
-            rank_map = self._device_lut(self.rank_index.rank_map())
             if self.layout == "rank":
-                self.table = rk.rekey_rank(self.table, rank_map)
+                self._rekey_rank()
             else:
                 osr, osv = (np.asarray(a) for a in snap["rank_inverse"])
                 sr, sv = self.rank_index.inverse_arrays()
                 # an empty inverse means an all-absent table
                 if len(osr) and not (np.array_equal(osr, sr) and np.array_equal(osv, sv)):
-                    self.table = rk.rekey_rank1(
-                        self.table, self._device_lut(osr), self._device_lut(osv), rank_map
-                    )
+                    self._rekey_rank1(osr, osv)
         self.tick = snap["tick"]
         self._clock = np.asarray(snap["clock"], dtype=np.int64).copy()
         self._clock_list = self._clock.tolist()
@@ -1390,14 +1469,12 @@ class PeerNetworkSim:
         <=> (cls, vid) equal; the rank alone on rank1, a bijection over
         entries). Computed on the device; one scalar crosses to the
         host."""
+        # the compared fields' indices: (vid, cls) dense, cv packed and
+        # rank, the rank rank1
+        fields = {"dense": (3, 0), "packed": (2,), "rank": (1,), "rank1": (0,)}[self.layout]
         t = self.table
-        if isinstance(t, ShardedTable):
-            first = t.shards[0]
-            return all(
-                bool((s.vid == first.vid[0:1].to(d)).all() & (s.cls == first.cls[0:1].to(d)).all())
-                for s, d in zip(t.shards, t.mesh)
-            )
-        if self.layout in PACKED_FAMILY:
-            field = t.rank if self.layout == "rank1" else t.cv
-            return bool((field == field[0:1]).all())
-        return bool((t.vid == t.vid[0:1]).all() & (t.cls == t.cls[0:1]).all())
+        shards = t.shards if isinstance(t, ShardedTable) else [t]
+        first = shards[0]
+        return all(
+            bool((s[f] == first[f][0:1].to(s[f].device)).all()) for s in shards for f in fields
+        )

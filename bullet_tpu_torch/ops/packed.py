@@ -26,7 +26,15 @@ Each kernel sits beside its plain PyTorch version:
   returning the next compact ids array;
 * ``ring_window_packed`` (``csrc/window_packed.cu``) /
   ``ring_window_packed_torch``: m rounds as one radius-(m-1) window join
-  plus a classic last round, returning the round-m residual.
+  plus a classic last round, returning the round-m residual;
+* on a device mesh, per shard: ``frontier_shard_round_packed``
+  (``csrc/frontier_shard.cu``) / ``frontier_shard_round_torch`` with
+  ``packed_beats``: m = 1 or 8 rounds on the active stripes, per-round
+  counts; ``frontier_shard_window`` (``csrc/frontier_shard_window.cu``) /
+  ``frontier_shard_window_torch``: m <= 63 rounds per boundary exchange,
+  the window stats; and the fold of the shards' agreed stats,
+  ``compact_counts_window`` (``csrc/compact_counts.cu``) /
+  ``compact_counts_window_torch``.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches its kernel or raises. Every kernel is instantiated for the three
@@ -53,15 +61,19 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..parallel.mesh import ShardedTable
 from .merge import TableState, lex_gt
 from .ring_kernel import (
     _PLAIN_BLOCK_ELEMS,
     _lexmax,
     _round_masks,
     check_frontier_step,
+    check_shard_step,
     frontier_round_torch,
+    frontier_shard_round_torch,
     frontier_tile_n,
     launch_frontier_step,
+    launch_shard_step,
     rounds_torch,
 )
 
@@ -338,7 +350,18 @@ def gossip_round_generic_packed(table, neighbors) -> Tuple[object, torch.Tensor]
 def gossip_round_packed(table, topology) -> Tuple[object, torch.Tensor]:
     """One packed round for any topology: ring/chain on ``ring_round_packed``
     (the kernel on the card, in place), mesh and generic topologies as
-    plain PyTorch merges."""
+    plain PyTorch merges. A ``ShardedTable`` takes the explicit exchanges
+    of ``parallel/shardmap_gossip.py`` (the reference's ``mesh=``): the
+    ring/chain exchange, the mesh's doubling, the generic gathers (a star's
+    too), each bit-identical to the unsharded round, counts included."""
+    if isinstance(table, ShardedTable):
+        from ..parallel import shardmap_gossip as sg
+
+        if topology.kind in ("ring", "chain"):
+            return sg.ring_round_shardmap_packed(table, topology.kind == "ring")
+        if topology.kind == "mesh":
+            return sg.mesh_round_shardmap_packed(table)
+        return sg.generic_round_shardmap_packed(table, topology.neighbors)
     if topology.kind in ("ring", "chain"):
         return ring_round_packed(table, topology.kind == "ring")
     if topology.kind == "mesh":
@@ -346,13 +369,19 @@ def gossip_round_packed(table, topology) -> Tuple[object, torch.Tensor]:
     return gossip_round_generic_packed(table, topology.neighbors)
 
 
-def gossip_until_converged_packed(table, topology, max_rounds: int):
+def gossip_until_converged_packed(table, topology, max_rounds: int, spmd: bool = False):
     """Whole-table round loop: rounds until one changes nothing or
-    ``max_rounds``; the host reads one count per round. Returns (table,
-    rounds executed, last round's changed count; 1 if no round ran)."""
+    ``max_rounds``; the host reads one count per round. ``spmd`` (a
+    ``ShardedTable`` under ``use_shard_map``, the reference's
+    ``spmd_mesh``) takes ``shardmap_round_packed``, whose star round is the
+    hub reduce. Returns (table, rounds executed, last round's changed
+    count; 1 if no round ran)."""
+    round_fn = gossip_round_packed
+    if spmd:
+        from ..parallel.shardmap_gossip import shardmap_round_packed as round_fn
     rounds, last_changed = 0, 1
     while rounds < max_rounds and last_changed > 0:
-        table, changed = gossip_round_packed(table, topology)
+        table, changed = round_fn(table, topology)
         last_changed = int(changed)
         rounds += 1
     return table, rounds, last_changed
@@ -517,6 +546,12 @@ def frontier_ids_compact(dirty: torch.Tensor, t_total: int) -> torch.Tensor:
     return ids
 
 
+def _wrap_int32(x: int) -> int:
+    """A Python int wrapped like an int32 sum."""
+    x &= 0xFFFFFFFF
+    return x - (1 << 32) if x >= 1 << 31 else x
+
+
 def compact_counts_torch(counts: torch.Tensor) -> torch.Tensor:
     """Plain version of the count compaction: int32 [m, t_total] per-round,
     per-stripe change counts (summed over a mesh's shards) -> the next ids
@@ -532,8 +567,7 @@ def compact_counts_torch(counts: torch.Tensor) -> torch.Tensor:
     out = torch.zeros(t_total + (3 if m > 1 else 2), dtype=torch.int32, device=counts.device)
     out[: keep.numel()] = keep.to(torch.int32)
     out[t_total] = keep.numel()
-    total = int(c.sum()) & 0xFFFFFFFF
-    out[t_total + 1] = total - (1 << 32) if total >= 1 << 31 else total
+    out[t_total + 1] = _wrap_int32(int(c.sum()))
     if m > 1:
         out[t_total + 2] = int(last.max()) if t_total else 0
     return out
@@ -657,3 +691,223 @@ def gossip_frontier_packed(
         table, dirty, n // tile_n, max_rounds, fuse,
         lambda m: lambda tbl, ids: frontier_round_packed(tbl, ids, tile_n, wrap, m),
     )
+
+
+# ----------------------------------------------- per-shard steps (device mesh)
+
+# the window depths of the spmd window frontier, deepest first
+WINDOW_DEPTHS = (63, 31, 15)
+# the reference's TPU tiling minima (8 sublanes, 128 lanes): they decide
+# WHERE a packed sim takes the frontier on a mesh, never the port's tiling
+_SUBLANES, _LANES = 8, 128
+# a distance no window radius reaches: the line shift's fill, which never
+# survives a live compare
+_DIST_FILL = 1 << 24
+
+
+def frontier_available_sharded(p: int, n: int, shards: int) -> bool:
+    """Whether the reference runs its packed frontier on a mesh of
+    ``shards`` at [p, n] (``frontier_tile_n_sharded(p, n, shards) > 0``,
+    ``ops/packed.py:2451``): P divides evenly, each shard holds at least 8
+    rows, a multiple of 8, and n % 128 == 0 (its stripe search then always
+    finds 128). The port's stripe width is its own, ``frontier_tile_n``."""
+    if shards <= 0 or p % shards:
+        return False
+    b = p // shards
+    return b % _SUBLANES == 0 and b >= _SUBLANES and n % _LANES == 0
+
+
+def window_frontier_depth(b: int, n: int) -> int:
+    """The m of the reference's ``window_frontier_params(nf, b, n)``
+    (``ops/packed.py:2963``) for shards of b rows: the deepest of
+    WINDOW_DEPTHS that is <= b (a slab comes from one neighbour), 0 where
+    none is or the shape is not the sharded frontier's. The reference's
+    VMEM budget only picks its tile: once b >= 8, b % 8 == 0 and
+    n % 128 == 0, a 128-wide tile divides n and is accepted at every
+    depth, so the budget never decides m. The port's tile is
+    ``frontier_tile_n(n)``."""
+    if b % _SUBLANES or b < _SUBLANES or n % _LANES:
+        return 0
+    return next((m for m in WINDOW_DEPTHS if m <= b), 0)
+
+
+def frontier_shard_round_packed(fields, tops, bottoms, ids: torch.Tensor, tile_n: int,
+                                m: int = 1) -> torch.Tensor:
+    """One per-shard frontier step of ``m`` rounds on a packed-family shard
+    (see ``ring_kernel.frontier_shard_round_torch``, whose plain version it
+    runs with ``packed_beats`` for CPU tensors): the CUDA kernel
+    (``csrc/frontier_shard.cu``) for CUDA tensors. ``tops`` and ``bottoms``
+    hold the neighbour shards' s >= m boundary rows, per-call scratch that
+    the kernel overwrites. m = 1 is the port of the reference's
+    ``_frontier_halo_kernel_counts`` (which reads one row of its 8-row
+    pads), m = 8 of ``_frontier_shard_multiround_kernel_packed``. Returns
+    the int32 [m, t_total] per-round, per-stripe counts of the shard's
+    rows."""
+    nf = len(fields)
+    if nf not in (1, 2, 3):
+        raise ValueError(f"frontier_shard_round_packed takes 1, 2 or 3 fields, got {nf}")
+    check_shard_step(fields, tops, bottoms, tile_n, m, m)
+    if fields[0].device.type == "cpu":
+        return frontier_shard_round_torch(fields, tops, bottoms, ids, tile_n, packed_beats, m)
+    counts = torch.zeros((m, fields[0].shape[1] // tile_n), dtype=torch.int32,
+                         device=fields[0].device)
+    launch_shard_step("frontier_shard_packed", fields, tops, bottoms, ids, tile_n, (counts,),
+                      m, nf)
+    _build.LAUNCHES["frontier_shard packed" if m == 1 else "frontier_shard packed fused"] += 1
+    return counts
+
+
+def _shift_line(f: torch.Tensor, s: int, fill: int) -> torch.Tensor:
+    """Rows of ``f`` moved down by ``s`` (up for s < 0), the vacated rows
+    ``fill``: line semantics, no wrap (the extended column's slabs already
+    hold the ring's neighbourhood)."""
+    out = torch.full_like(f, fill)
+    rows = f.shape[0]
+    if abs(s) < rows:
+        if s >= 0:
+            out[s:] = f[:rows - s]
+        else:
+            out[:rows + s] = f[-s:]
+    return out
+
+
+def _keys_eq(b_keys, a_keys) -> torch.Tensor:
+    """Equality of two whole key chains (the same lattice value)."""
+    eq = b_keys[0] == a_keys[0]
+    for kb, ka in zip(b_keys[1:], a_keys[1:]):
+        eq = eq & (kb == ka)
+    return eq
+
+
+def _window_dist_chain(vals: List[torch.Tensor], dist: torch.Tensor, m: int):
+    """Plain twin of the reference's ``_window_dist_chain``: join ``vals``
+    to window radius ``m`` on a line in O(log m) doubling steps, keeping in
+    ``dist`` each entry's least distance to a source of its current value.
+    A step joins copies shifted by +-s, s <= r + 1, carrying the candidate
+    distance d + s: a strict win takes it, an equal key the smaller one.
+    Returns (vals, dist)."""
+    r = 0
+    while r < m:
+        s = min(m - r, r + 1)
+        for sign in (1, -1):
+            shifted = [_shift_line(f, sign * s, 0) for f in vals]
+            cand = _shift_line(dist, sign * s, _DIST_FILL - s) + s
+            kb, ka = table_keys(shifted), table_keys(vals)
+            gt, eq = lex_gt(kb, ka), _keys_eq(kb, ka)
+            vals = [torch.where(gt, fb, fa) for fa, fb in zip(vals, shifted)]
+            dist = torch.where(gt, cand, torch.where(eq, torch.minimum(dist, cand), dist))
+        r += s
+    return vals, dist
+
+
+def frontier_shard_window_torch(fields, tops, bottoms, ids: torch.Tensor, tile_n: int,
+                                m: int) -> torch.Tensor:
+    """Plain version of one per-shard window step, the port of the
+    reference's ``_frontier_shard_window_kernel_packed``: on each stripe of
+    ``ids[:ids[t_total]]`` the extended column [m rows ``tops`` | the
+    shard's b rows | m rows ``bottoms``] joins to radius m by the distance
+    chain, and the shard's rows take their new values, in place (m rounds,
+    exact: the slabs are m deep). Returns the window stats, int32
+    [2, t_total]: row 0 the shard's entries the step changed, row 1 the
+    largest distance of a changed entry to its value's source (its last
+    changed round); zero for stripes not in ids."""
+    b, n = fields[0].shape
+    t_total = n // tile_n
+    device = fields[0].device
+    stats = torch.zeros((2, t_total), dtype=torch.int32, device=device)
+    count = int(ids[t_total])
+    if count == 0:
+        return stats
+    stripes = ids[:count].to(device=device, dtype=torch.int64)
+    lanes = torch.arange(tile_n, device=device)
+    per_block = max(1, _PLAIN_BLOCK_ELEMS // max((b + 2 * m) * tile_n, 1))
+    for s0 in range(0, count, per_block):
+        s1 = min(count, s0 + per_block)
+        cols = (stripes[s0:s1, None] * tile_n + lanes).reshape(-1)
+        orig = [f.index_select(1, cols) for f in fields]
+        ext = [torch.cat([t.index_select(1, cols), o, bo.index_select(1, cols)])
+               for o, t, bo in zip(orig, tops, bottoms)]
+        ext, dist = _window_dist_chain(ext, torch.zeros_like(ext[0]), m)
+        new = [e[m:m + b] for e in ext]
+        changed = packed_beats(new, orig)
+        per_stripe = (b, s1 - s0, tile_n)
+        stats[0, stripes[s0:s1]] = changed.reshape(per_stripe).sum((0, 2)).to(torch.int32)
+        last = torch.where(changed, dist[m:m + b], 0).reshape(per_stripe).amax((0, 2))
+        stats[1, stripes[s0:s1]] = last.to(torch.int32)
+        for f, v in zip(fields, new):
+            f.index_copy_(1, cols, v)
+    return stats
+
+
+def frontier_shard_window(fields, tops, bottoms, ids: torch.Tensor, tile_n: int,
+                          m: int) -> torch.Tensor:
+    """One per-shard window step of ``m`` rounds on a packed-family shard
+    (see ``frontier_shard_window_torch``): the CUDA kernel
+    (``csrc/frontier_shard_window.cu``: m in-place sweeps of the extended
+    column, a per-call bitmask marking each entry's first change) for CUDA
+    tensors, the plain version for CPU tensors. ``tops`` and ``bottoms``
+    are the neighbour shards' [m, N] slabs, per-call scratch that the
+    kernel overwrites. Returns the int32 [2, t_total] window stats; the
+    caller sums row 0 and maxes row 1 over the shards and folds them
+    (``compact_counts_window``)."""
+    nf = len(fields)
+    if nf not in (1, 2, 3):
+        raise ValueError(f"frontier_shard_window takes 1, 2 or 3 fields, got {nf}")
+    check_shard_step(fields, tops, bottoms, tile_n, m, m)
+    if tops[0].shape[0] != m:
+        raise ValueError(f"a window of {m} rounds takes {m}-row slabs, got {tops[0].shape[0]}")
+    if fields[0].device.type == "cpu":
+        return frontier_shard_window_torch(fields, tops, bottoms, ids, tile_n, m)
+    b, n = fields[0].shape
+    device = fields[0].device
+    stats = torch.zeros((2, n // tile_n), dtype=torch.int32, device=device)
+    marks = torch.zeros(((b + 31) // 32, n), dtype=torch.int32, device=device)
+    launch_shard_step("frontier_shard_window", fields, tops, bottoms, ids, tile_n,
+                      (stats, marks), nf)
+    _build.LAUNCHES["frontier_shard_window"] += 1
+    return stats
+
+
+def compact_counts_window_torch(stats: torch.Tensor, m: int) -> torch.Tensor:
+    """Plain version of the window fold: agreed int32 [2, t_total] window
+    stats (row 0 summed over the shards, row 1 maxed) -> the fused ids
+    array [t_total + 3]: the stripes whose last changed round is m,
+    ascending (the others reached their fixed point inside the window);
+    their count; the total of row 0 (wrapping like int32); the max of row 1
+    (at least 0). Cells past the count are zero."""
+    t_total = stats.shape[1]
+    last = stats[1].to(torch.int64)
+    keep = torch.nonzero(last == m).flatten()
+    out = torch.zeros(t_total + 3, dtype=torch.int32, device=stats.device)
+    out[: keep.numel()] = keep.to(torch.int32)
+    out[t_total] = keep.numel()
+    out[t_total + 1] = _wrap_int32(int(stats[0].to(torch.int64).sum()))
+    out[t_total + 2] = max(0, int(last.max())) if t_total else 0
+    return out
+
+
+def compact_counts_window(stats: torch.Tensor, m: int) -> torch.Tensor:
+    """The window fold (see ``compact_counts_window_torch``) for a window
+    of m >= 2 rounds: the CUDA kernel (``csrc/compact_counts.cu``, one
+    block) for a CUDA tensor, the plain version for a CPU tensor. The port
+    of the reference's ``compact_counts_window_packed``. Cells of the
+    result past its count are left unwritten by the kernel."""
+    if stats.dim() != 2 or stats.shape[0] != 2 or stats.dtype != torch.int32:
+        raise ValueError("compact_counts_window takes int32 [2, t_total] stats")
+    if m < 2:
+        raise ValueError(f"a window folds m >= 2 rounds, got {m}")
+    if stats.device.type == "cpu":
+        return compact_counts_window_torch(stats, m)
+    device = stats.device
+    _build.require_cuda(device, "compact_counts_window")
+    t_total = stats.shape[1]
+    stats = stats.contiguous()
+    lib = _build.library()
+    ids = torch.empty(t_total + 3, dtype=torch.int32, device=device)
+    with torch.cuda.device(device):
+        err = lib.bt_compact_counts_window(
+            stats.data_ptr(), ids.data_ptr(), m, t_total, _build.stream_of(device)
+        )
+    _build.check(err, "compact_counts_window")
+    _build.LAUNCHES["compact_counts window"] += 1
+    return ids

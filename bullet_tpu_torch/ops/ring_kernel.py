@@ -448,34 +448,56 @@ def frontier_shard_round(
     if mode not in ("reference", "lww"):
         raise ValueError(f"unknown merge mode: {mode}")
     nf = len(fields)
-    if nf not in (4, 7) or len(tops) != nf or len(bottoms) != nf:
+    if nf not in (4, 7):
         raise ValueError(f"frontier_shard_round takes 4 or 7 fields per part, got {nf}")
-    check_frontier_step(fields, tile_n, m)
-    b, n = fields[0].shape
-    s = tops[0].shape[0]
-    if m > s:
-        raise ValueError(f"{m} fused rounds need {m} boundary rows, got {s}")
-    device = fields[0].device
-    if device.type == "cpu":
+    check_shard_step(fields, tops, bottoms, tile_n, m, m)
+    if fields[0].device.type == "cpu":
         return frontier_shard_round_torch(fields, tops, bottoms, ids, tile_n, beats_of(nf, mode), m)
-    _build.require_cuda(device, "frontier_shard_round")
+    counts = torch.zeros((m, fields[0].shape[1] // tile_n), dtype=torch.int32,
+                         device=fields[0].device)
+    launch_shard_step("frontier_shard", fields, tops, bottoms, ids, tile_n, (counts,),
+                      m, int(mode == "lww"), nf)
+    _build.LAUNCHES["frontier_shard" if m == 1 else "frontier_shard fused"] += 1
+    return counts
+
+
+def check_shard_step(fields, tops, bottoms, tile_n: int, m: int, min_rows: int) -> None:
+    """Raise unless a per-shard step of ``m`` rounds can run: ``tile_n``
+    stripes the shard, and ``tops`` / ``bottoms`` hold one part each of at
+    least ``min_rows`` boundary rows."""
+    nf = len(fields)
+    if len(tops) != nf or len(bottoms) != nf:
+        raise ValueError(f"{nf} fields with {len(tops)} tops and {len(bottoms)} bottoms")
+    check_frontier_step(fields, tile_n, m)
+    s = tops[0].shape[0]
+    if s < min_rows:
+        raise ValueError(f"{m} fused rounds need {min_rows} boundary rows, got {s}")
+
+
+def launch_shard_step(name: str, fields, tops, bottoms, ids: torch.Tensor, tile_n: int,
+                      outs: Sequence[torch.Tensor], *ints: int) -> None:
+    """Launch the per-shard kernel ``bt_<name>`` on a CUDA shard, in place.
+    Every per-shard kernel takes (fields, tops, bottoms, ids, its output
+    and scratch tensors ``outs``, the shard's rows b, the boundary rows s,
+    n, tile_n, t_total, its own trailing ``ints``, the stream)."""
+    device = fields[0].device
+    _build.require_cuda(device, name)
     if tile_n % 32 or tile_n > FRONTIER_TILE_MAX:
         raise ValueError(
             f"kernel tile_n must be a multiple of 32 <= {FRONTIER_TILE_MAX}, got {tile_n}"
         )
+    b, n = fields[0].shape
+    s = tops[0].shape[0]
     t_total = n // tile_n
-    _build.check_fields(fields, (b, n), device, "frontier_shard_round")
-    _build.check_fields((*tops, *bottoms), (s, n), device, "frontier_shard_round boundary")
+    _build.check_fields(fields, (b, n), device, name)
+    _build.check_fields((*tops, *bottoms), (s, n), device, f"{name} boundary")
     if ids.device != device or ids.dtype != torch.int32 or ids.numel() < t_total + 2:
-        raise ValueError("frontier_shard_round: ids must be int32 [t_total + 2 or 3] on the shard")
+        raise ValueError(f"{name}: ids must be int32 [t_total + 2 or 3] on the shard")
     lib = _build.library()
-    counts = torch.zeros((m, t_total), dtype=torch.int32, device=device)
     with torch.cuda.device(device):
-        err = lib.bt_frontier_shard(
+        err = getattr(lib, f"bt_{name}")(
             _build.pointers(fields), _build.pointers(tops), _build.pointers(bottoms),
-            ids.data_ptr(), counts.data_ptr(), b, s, n, tile_n, t_total, m,
-            int(mode == "lww"), nf, _build.stream_of(device),
+            ids.data_ptr(), *(t.data_ptr() for t in outs), b, s, n, tile_n, t_total, *ints,
+            _build.stream_of(device),
         )
-    _build.check(err, "frontier_shard_round")
-    _build.LAUNCHES["frontier_shard" if m == 1 else "frontier_shard fused"] += 1
-    return counts
+    _build.check(err, name)

@@ -1,12 +1,14 @@
-"""Explicit SPMD gossip on a sharded dense table.
+"""Explicit SPMD gossip on a sharded table.
 
-The port of the dense parts of ``bullet_tpu.parallel.shardmap_gossip``:
-per-shard local merges plus hand-placed exchanges between the shards of a
-``ShardedTable``. The reference ran one ``shard_map`` program under a
-single controller; here one process drives every shard. Its
-``ppermute`` becomes a ``copy_`` of the boundary rows into the neighbour
-shard's device, its ``psum`` a sum of the shards' count tensors on the
-mesh's first device, its ``all_gather`` a copy of the rows a shard needs.
+The port of ``bullet_tpu.parallel.shardmap_gossip``: per-shard local merges
+plus hand-placed exchanges between the shards of a ``ShardedTable``, for
+the dense layout (full or lean) and the packed family (packed, rank,
+rank1). The reference ran one ``shard_map`` program under a single
+controller; here one process drives every shard. Its ``ppermute``
+becomes a ``copy_`` of the boundary rows into the neighbour shard's
+device, its ``psum`` a sum of the shards' count tensors on the mesh's
+first device (``pmax`` a max), its ``all_gather`` a copy of the rows a
+shard needs.
 
 * ring/chain — one exchanged boundary row each way, chain ends zeroed;
   the per-shard frontier kernel at m = 1 over every stripe, in place,
@@ -21,9 +23,14 @@ mesh's first device, its ``all_gather`` a copy of the rows a shard needs.
 * generic — per neighbour column, each shard takes its neighbours' CURRENT
   rows from their shards and merges them, bit-identical to
   ``gossip_round_generic`` including counts.
-* the dense frontier — per-shard frontier steps (``frontier_shard.cu``)
-  between boundary exchanges, the shards' counts summed and compacted
-  (``compact_counts.cu``) into the next step's ids array.
+* the frontier — per-shard frontier steps (``frontier_shard.cu``) between
+  boundary exchanges, the shards' counts summed and compacted
+  (``compact_counts.cu``) into the next step's ids array; the packed
+  family also as m-round windows (``frontier_shard_window.cu``, its stats
+  folded by ``compact_counts.cu``).
+* the packed ``fast_forward`` window — m rounds per exchange of m-row
+  slabs, a window join per shard in plain PyTorch (XLA code in the
+  reference).
 
 Every merge runs the kernels on CUDA tensors and their plain versions on
 CPU tensors. A round returns a new ``ShardedTable`` whose shards may be the
@@ -32,20 +39,35 @@ old ones updated in place.
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..ops.merge import TableState, lean_fields, merge_lean, merge_tables
-from ..ops.packed import compact_counts, frontier_loop
-from ..ops.ring_kernel import frontier_shard_round, frontier_tile_n
+from ..ops.packed import (
+    _shift_line,
+    _window_chain,
+    compact_counts,
+    compact_counts_window,
+    frontier_loop,
+    frontier_shard_round_packed,
+    frontier_shard_window,
+    merge_packed_torch,
+    packed_beats,
+    reconcile_packed,
+)
+from ..ops.ring_kernel import _PLAIN_BLOCK_ELEMS, _lexmax, frontier_shard_round, frontier_tile_n
 from .gossip import lean_round_applies
 from .mesh import Mesh, ShardedTable
 
 # rounds one boundary exchange buys the fused frontier (the reference's
 # HALO_FUSE: the 8-row boundary snapshots)
 HALO_FUSE = 8
+
+# merge(shard, fields) -> (merged shard, count): a shard's merge with rows
+# of its merged fields (every field, or a lean shard's four value keys)
+Merge = Callable[[object, Sequence[torch.Tensor]], Tuple[object, torch.Tensor]]
 
 
 def _parts(table: ShardedTable, lean: bool) -> List[Tuple[torch.Tensor, ...]]:
@@ -82,24 +104,28 @@ def _zero_count(mesh: Mesh) -> torch.Tensor:
     return torch.zeros((), dtype=torch.int32, device=mesh[0])
 
 
-def _merge(a, b: Sequence[torch.Tensor], mode: str, lean: bool):
-    """(merged shard, count): the lean merge in place into ``a``'s value
-    keys, or the full merge into a new table."""
+def _dense_merge(mode: str, lean: bool) -> Merge:
+    """The dense layout's merge: the lean merge in place into the shard's
+    value keys, or the full merge into a new table."""
     if lean:
-        return a, merge_lean(lean_fields(a), b)
-    return merge_tables(a, TableState(*b), mode)
+        return lambda a, b: (a, merge_lean(lean_fields(a), b))
+    return lambda a, b: merge_tables(a, TableState(*b), mode)
 
 
-def ring_round_shardmap(
-    table: ShardedTable, mode: str = "reference", wrap: bool = True, lean: bool = False
-) -> Tuple[ShardedTable, torch.Tensor]:
-    """One ring (wrap) or chain round: each shard merges its rows shifted
-    by one with the exchanged boundary row filling the gap, up then down,
-    from the pre-round rows. ``lean`` merges the four value keys. Where
-    the frontier stripes the slots this is the per-shard frontier step at
-    m = 1 over every stripe, in place; otherwise each shard merges shifted
-    copies. Returns (table, changed) with the count summed on mesh[0]."""
-    parts = _parts(table, lean)
+def _packed_merge(a, b: Sequence[torch.Tensor]):
+    """The packed family's merge into a new table of ``a``'s layout."""
+    return merge_packed_torch(a, type(a)(*b))
+
+
+def _ring_exchange(table: ShardedTable, parts, wrap: bool, shard_step: Callable,
+                   merge: Merge) -> Tuple[ShardedTable, torch.Tensor]:
+    """One ring (wrap) or chain round of the shards' merged fields
+    ``parts``: each shard merges its rows shifted by one with the exchanged
+    boundary row filling the gap, up then down, from the pre-round rows.
+    Where the frontier stripes the slots this is ``shard_step(fields, top,
+    bottom, ids, tile_n)``, the per-shard frontier step at m = 1 over every
+    stripe, in place; otherwise each shard merges shifted copies. Returns
+    (table, changed) with the count summed on mesh[0]."""
     tops, bottoms = boundary_rows(parts, 1, wrap, table.mesh)
     total = _zero_count(table.mesh)
     tile_n = frontier_tile_n(table.shape[1])
@@ -108,18 +134,45 @@ def ring_round_shardmap(
         for f, top, bottom, dev in zip(parts, tops, bottoms, table.mesh):
             ids = torch.arange(t_total + 2, dtype=torch.int32, device=dev)
             ids[t_total] = t_total
-            counts = frontier_shard_round(f, top, bottom, ids, tile_n, mode, 1)
+            counts = shard_step(f, top, bottom, ids, tile_n)
             total = total + counts.sum(dtype=torch.int32).to(table.mesh[0])
         return table, total
     shards = []
     for shard, f, top, bottom in zip(table.shards, parts, tops, bottoms):
         up = [torch.cat([t, x[:-1]]) for x, t in zip(f, top)]
         down = [torch.cat([x[1:], bo]) for x, bo in zip(f, bottom)]
-        shard, c1 = _merge(shard, up, mode, lean)
-        shard, c2 = _merge(shard, down, mode, lean)
+        shard, c1 = merge(shard, up)
+        shard, c2 = merge(shard, down)
         shards.append(shard)
         total = total + (c1 + c2).to(table.mesh[0])
     return ShardedTable(shards, table.mesh), total
+
+
+def ring_round_shardmap(
+    table: ShardedTable, mode: str = "reference", wrap: bool = True, lean: bool = False
+) -> Tuple[ShardedTable, torch.Tensor]:
+    """One ring (wrap) or chain round of a dense sharded table (see
+    ``_ring_exchange``); ``lean`` merges the four value keys. Returns
+    (table, changed)."""
+    return _ring_exchange(
+        table, _parts(table, lean), wrap,
+        lambda f, top, bottom, ids, tile_n: frontier_shard_round(
+            f, top, bottom, ids, tile_n, mode, 1),
+        _dense_merge(mode, lean),
+    )
+
+
+def ring_round_shardmap_packed(table: ShardedTable, wrap: bool = True):
+    """One ring (wrap) or chain round of a packed-family sharded table (see
+    ``_ring_exchange``): the per-shard step is ``frontier_shard_round_packed``
+    at m = 1 (the port of ``_frontier_halo_kernel_counts``). Bit-identical
+    to the unsharded round, count included. Returns (table, changed)."""
+    return _ring_exchange(
+        table, _parts(table, False), wrap,
+        lambda f, top, bottom, ids, tile_n: frontier_shard_round_packed(
+            f, top, bottom, ids, tile_n, 1),
+        _packed_merge,
+    )
 
 
 def _global_roll(parts, s: int, mesh: Mesh) -> List[List[torch.Tensor]]:
@@ -143,67 +196,74 @@ def _global_roll(parts, s: int, mesh: Mesh) -> List[List[torch.Tensor]]:
     return out
 
 
-def mesh_round_shardmap(
-    table: ShardedTable, mode: str = "reference", lean: bool = False
-) -> Tuple[ShardedTable, torch.Tensor]:
-    """One full-mesh round by recursive doubling over global rolls:
-    bit-identical to ``gossip_round_mesh`` (``lean`` as its lean join, the
-    reconcile of a lean sim). Each step takes every shard's rolled rows
-    before it merges any."""
+def _mesh_doubling(table: ShardedTable, lean: bool, merge: Merge):
+    """Recursive doubling over global rolls of the shards' merged fields;
+    each step takes every shard's rolled rows before it merges any."""
     p = table.shape[0]
     total = _zero_count(table.mesh)
     for k in range(max(1, (p - 1).bit_length())):
         rolled = _global_roll(_parts(table, lean), 1 << k, table.mesh)
         shards = []
         for shard, rows in zip(table.shards, rolled):
-            shard, c = _merge(shard, rows, mode, lean)
+            shard, c = merge(shard, rows)
             shards.append(shard)
             total = total + c.to(table.mesh[0])
         table = ShardedTable(shards, table.mesh)
     return table, total
 
 
-def _row_max(rows: TableState, mode: str) -> TableState:
-    """The lexmax of [r, N] rows as one row, keeping the earliest row on
-    equal keys (the reference's sequential row-by-row merge): pairwise
-    halving, the lower rows always the first operand."""
-    while rows.cls.shape[0] > 1:
-        r = rows.cls.shape[0]
+def mesh_round_shardmap(
+    table: ShardedTable, mode: str = "reference", lean: bool = False
+) -> Tuple[ShardedTable, torch.Tensor]:
+    """One full-mesh round of a dense sharded table by recursive doubling:
+    bit-identical to ``gossip_round_mesh`` (``lean`` as its lean join, the
+    reconcile of a lean sim)."""
+    return _mesh_doubling(table, lean, _dense_merge(mode, lean))
+
+
+def mesh_round_shardmap_packed(table: ShardedTable):
+    """One full-mesh round of a packed-family sharded table by recursive
+    doubling: bit-identical to ``gossip_round_mesh_packed``, count
+    included."""
+    return _mesh_doubling(table, False, _packed_merge)
+
+
+def _row_max(rows, merge: Merge):
+    """The lexmax of [r, N] rows (a table) as one row, keeping the earliest
+    row on equal keys (the reference's sequential row-by-row merge; in the
+    packed family equal keys are equal entries): pairwise halving, the
+    lower rows always the first operand."""
+    ctor = type(rows)
+    while rows[0].shape[0] > 1:
+        r = rows[0].shape[0]
         half = r // 2
-        merged, _ = merge_tables(
-            TableState(*(f[0:2 * half:2].contiguous() for f in rows)),
-            TableState(*(f[1:2 * half:2].contiguous() for f in rows)), mode,
-        )
+        merged, _ = merge(ctor(*(f[0:2 * half:2].contiguous() for f in rows)),
+                          [f[1:2 * half:2].contiguous() for f in rows])
         if r % 2:
-            merged = TableState(*(torch.cat([m, f[r - 1:]]) for m, f in zip(merged, rows)))
+            merged = ctor(*(torch.cat([m, f[r - 1:]]) for m, f in zip(merged, rows)))
         rows = merged
     return rows
 
 
-def star_round_shardmap(
-    table: ShardedTable, mode: str = "reference", hub: int = 0
-) -> Tuple[ShardedTable, torch.Tensor]:
+def _star_exchange(table: ShardedTable, hub: int, merge: Merge):
     """One star round: every row merges the hub's pre-round row, and the
     hub becomes the lattice max of all rows (each shard's max, then across
     shards on the hub's device). Values are the unsharded generic round's;
     the count is the strict-improvement count against the pre-round hub
     (zero iff the unsharded count is zero)."""
     b = table.rows
+    ctor = type(table.shards[0])
     hub_dev, hub_row = divmod(hub, b)
-    hub_shard = table.shards[hub_dev]
     hub_device = table.mesh[hub_dev]
-    hub_old = TableState(*(f[hub_row:hub_row + 1].clone() for f in hub_shard))
-    maxima = [
-        TableState(*(f.to(hub_device) for f in _row_max(s, mode)))
-        for s in table.shards
-    ]
-    gmax = _row_max(TableState(*(torch.cat(fs) for fs in zip(*maxima))), mode)
-    new_hub, c_hub = merge_tables(hub_old, gmax, mode)
+    hub_old = ctor(*(f[hub_row:hub_row + 1].clone() for f in table.shards[hub_dev]))
+    maxima = [ctor(*(f.to(hub_device) for f in _row_max(s, merge))) for s in table.shards]
+    gmax = _row_max(ctor(*(torch.cat(fs) for fs in zip(*maxima))), merge)
+    new_hub, c_hub = merge(hub_old, gmax)
     total = c_hub.to(table.mesh[0])
     shards = []
     for shard, dev in zip(table.shards, table.mesh):
         bcast = [f.to(dev).expand(b, f.shape[1]).contiguous() for f in hub_old]
-        merged, c = merge_tables(shard, TableState(*bcast), mode)
+        merged, c = merge(shard, bcast)
         shards.append(merged)
         total = total + c.to(table.mesh[0])
     for f, h in zip(shards[hub_dev], new_hub):
@@ -211,13 +271,24 @@ def star_round_shardmap(
     return ShardedTable(shards, table.mesh), total
 
 
-def generic_round_shardmap(
-    table: ShardedTable, neighbors: np.ndarray, mode: str = "reference"
+def star_round_shardmap(
+    table: ShardedTable, mode: str = "reference", hub: int = 0
 ) -> Tuple[ShardedTable, torch.Tensor]:
+    """One star round of a dense sharded table (see ``_star_exchange``)."""
+    return _star_exchange(table, hub, _dense_merge(mode, False))
+
+
+def star_round_shardmap_packed(table: ShardedTable, hub: int = 0):
+    """One star round of a packed-family sharded table (see
+    ``_star_exchange``)."""
+    return _star_exchange(table, hub, _packed_merge)
+
+
+def _generic_exchange(table: ShardedTable, neighbors: np.ndarray, merge: Merge):
     """One round over an arbitrary adjacency ([P, max_deg], -1 padding):
     per neighbour column every shard takes its peers' neighbours' current
     rows from their shards (padding masked to all-zero rows, which never
-    win), then merges them; bit-identical to ``gossip_round_generic``
+    win), then merges them; bit-identical to the unsharded generic round
     including counts."""
     b = table.rows
     total = _zero_count(table.mesh)
@@ -230,11 +301,25 @@ def generic_round_shardmap(
             gathered.append([torch.where(valid, f, torch.zeros_like(f)) for f in rows])
         shards = []
         for shard, rows in zip(table.shards, gathered):
-            shard, c = merge_tables(shard, TableState(*rows), mode)
+            shard, c = merge(shard, rows)
             shards.append(shard)
             total = total + c.to(table.mesh[0])
         table = ShardedTable(shards, table.mesh)
     return table, total
+
+
+def generic_round_shardmap(
+    table: ShardedTable, neighbors: np.ndarray, mode: str = "reference"
+) -> Tuple[ShardedTable, torch.Tensor]:
+    """One generic round of a dense sharded table (``gossip_round_generic``'s
+    bits and count; see ``_generic_exchange``)."""
+    return _generic_exchange(table, neighbors, _dense_merge(mode, False))
+
+
+def generic_round_shardmap_packed(table: ShardedTable, neighbors: np.ndarray):
+    """One generic round of a packed-family sharded table
+    (``gossip_round_generic_packed``'s bits and count)."""
+    return _generic_exchange(table, np.asarray(neighbors), _packed_merge)
 
 
 def shardmap_round(
@@ -252,13 +337,25 @@ def shardmap_round(
     return generic_round_shardmap(table, topology.neighbors, mode)
 
 
+def shardmap_round_packed(table: ShardedTable, topology) -> Tuple[ShardedTable, torch.Tensor]:
+    """The packed twin of ``shardmap_round`` (the reference's
+    ``shardmap_round_packed``)."""
+    if topology.kind in ("ring", "chain"):
+        return ring_round_shardmap_packed(table, wrap=topology.kind == "ring")
+    if topology.kind == "mesh":
+        return mesh_round_shardmap_packed(table)
+    if topology.name == "star":
+        return star_round_shardmap_packed(table, hub=int(np.argmax(topology.degree())))
+    return generic_round_shardmap_packed(table, topology.neighbors)
+
+
 def data_mesh_round(
     table: ShardedTable, topology, mode: str = "reference", lean: bool = False
 ) -> Tuple[ShardedTable, torch.Tensor]:
-    """One round of a data mesh (a sharded sim without shard_map), with the
-    bits and counts of the unsharded round the reference's sharded jit
-    computes: the lean round where ``lean_round_applies``, the generic
-    gather round for a star."""
+    """One round of a dense data mesh (a sharded sim without shard_map),
+    with the bits and counts of the unsharded round the reference's
+    sharded jit computes: the lean round where ``lean_round_applies``, the
+    generic gather round for a star."""
     p, n = table.shape
     if topology.kind in ("ring", "chain"):
         return ring_round_shardmap(
@@ -270,35 +367,155 @@ def data_mesh_round(
     return generic_round_shardmap(table, topology.neighbors, mode)
 
 
-def gossip_frontier_shardmap_dense(
-    table: ShardedTable, dirty: torch.Tensor, wrap: bool, mode: str, lean: bool,
-    max_rounds: int, fuse: int = 1, tile_n: int = 0,
-) -> Tuple[ShardedTable, int, int]:
-    """Dense frontier convergence over a mesh (ring/chain), in place: per
-    step the boundary rows are exchanged (1 row each way, ``fuse`` rows for
-    a fused step), every shard runs its frontier step on the active stripes,
-    and the shards' counts, summed on mesh[0], compact into the next ids
-    array. ``fuse`` > 1 runs that many rounds per exchange (at most the
-    rows of a shard); the classic round count is rebuilt exactly by the
-    shared fused loop. Lean sims exchange and merge the four value keys;
-    writer, ctr and tick stay untouched. ``dirty`` is a bool [t_total]
-    seed on mesh[0]. Returns (table, classic rounds, last_changed)."""
+def ring_window_shardmap_packed(table: ShardedTable, wrap: bool, m: int):
+    """``m`` ring (wrap) or chain rounds of a packed-family sharded table
+    per ONE exchange of m-row slabs (the reference's
+    ``ring_window_shardmap_packed``): each shard joins its extended column
+    [m slab | b rows | m slab] to radius m - 1 (``_window_chain``'s
+    doubling steps, line shifts: rows from past the column's ends are
+    zero) and runs the last round classically, in place, on column blocks
+    (columns are independent), which bounds the temporaries. The slabs are
+    exactly m deep, so the shard's rows are exact; a chain's zeroed end
+    slabs are its absent neighbours. Bit-identical to m classic rounds;
+    returns (table, the round-m residual of the shards' own rows, summed
+    on mesh[0]). Needs 1 <= m <= the rows of a shard."""
+    if not 1 <= m <= table.rows:
+        raise ValueError(f"a window of {m} rounds needs 1 <= m <= {table.rows} rows per shard")
+    parts = _parts(table, False)
+    tops, bottoms = boundary_rows(parts, m, wrap, table.mesh)
+    steps = _window_chain(m - 1)
+
+    def shifted(vals, s):
+        return [_shift_line(v, s, 0) for v in vals]
+
+    total = torch.zeros((), dtype=torch.int64, device=table.mesh[0])
+    for f, top, bottom in zip(parts, tops, bottoms):
+        b, n = f[0].shape
+        width = max(1, _PLAIN_BLOCK_ELEMS // (b + 2 * m))
+        count = torch.zeros((), dtype=torch.int64, device=f[0].device)
+        for c0 in range(0, n, width):
+            cols = slice(c0, c0 + width)
+            vals = [torch.cat([t[:, cols], x[:, cols], bo[:, cols]])
+                    for x, t, bo in zip(f, top, bottom)]
+            for s in steps:
+                vals, _ = _lexmax(vals, shifted(vals, s), packed_beats)
+                vals, _ = _lexmax(vals, shifted(vals, -s), packed_beats)
+            # the classic last round (its down neighbour read from m1, as
+            # the reference's: the same values and counts as the pre-round
+            # rows give)
+            m1, gt1 = _lexmax(vals, shifted(vals, 1), packed_beats)
+            m2, gt2 = _lexmax(m1, shifted(m1, -1), packed_beats)
+            count += gt1[m:m + b].sum() + gt2[m:m + b].sum()
+            for x, v in zip(f, m2):
+                x[:, cols] = v[m:m + b]
+        total = total + count.to(table.mesh[0])
+    return table, total.to(torch.int32)
+
+
+def _frontier_shardmap(
+    table: ShardedTable, parts, dirty: torch.Tensor, wrap: bool, max_rounds: int,
+    depth: int, tile_n: int, counts_step: Callable, window_step: Optional[Callable] = None,
+):
+    """Frontier convergence over a mesh, shared by the layouts: per step the
+    boundary rows are exchanged (m rows each way for an m-round step),
+    every shard runs its step on the active stripes of its merged fields
+    ``parts``, in place, and the shards' results, agreed on mesh[0], fold
+    into the next ids array. ``counts_step(fields, tops, bottoms, ids,
+    tile_n, m)`` gives per-round counts, summed over the shards and
+    compacted (``compact_counts``); with ``window_step`` (same arguments)
+    a ``depth``-round step gives window stats instead, row 0 summed and
+    row 1 maxed over the shards, folded by ``compact_counts_window``. The
+    single-round tail of a fused loop runs ``counts_step``. Returns
+    (classic rounds, last_changed)."""
     mesh = table.mesh
-    tile_n = tile_n or frontier_tile_n(table.shape[1])
     t_total = table.shape[1] // tile_n
-    if fuse > table.rows:
-        raise ValueError(f"{fuse} fused rounds need {fuse} rows per shard, got {table.rows}")
+    if depth > table.rows:
+        raise ValueError(f"{depth} fused rounds need {depth} rows per shard, got {table.rows}")
 
     def step(m: int):
         def run(parts, ids):
             tops, bottoms = boundary_rows(parts, m, wrap, mesh)
+            work = zip(parts, tops, bottoms, mesh)
+            if window_step is not None and m > 1:
+                agreed = torch.zeros((2, t_total), dtype=torch.int32, device=mesh[0])
+                for f, top, bottom, dev in work:
+                    stats = window_step(f, top, bottom, ids.to(dev), tile_n, m).to(mesh[0])
+                    agreed[0] += stats[0]
+                    agreed[1] = torch.maximum(agreed[1], stats[1])
+                return parts, compact_counts_window(agreed, m)
             total = torch.zeros((m, t_total), dtype=torch.int32, device=mesh[0])
-            for f, top, bottom, dev in zip(parts, tops, bottoms, mesh):
-                counts = frontier_shard_round(f, top, bottom, ids.to(dev), tile_n, mode, m)
-                total = total + counts.to(mesh[0])
+            for f, top, bottom, dev in work:
+                total = total + counts_step(f, top, bottom, ids.to(dev), tile_n, m).to(mesh[0])
             return parts, compact_counts(total)
         return run
 
-    _, rounds, last_changed = frontier_loop(_parts(table, lean), dirty, t_total, max_rounds,
-                                            fuse, step)
+    _, rounds, last_changed = frontier_loop(parts, dirty, t_total, max_rounds, depth, step)
+    return rounds, last_changed
+
+
+def gossip_frontier_shardmap_dense(
+    table: ShardedTable, dirty: torch.Tensor, wrap: bool, mode: str, lean: bool,
+    max_rounds: int, fuse: int = 1, tile_n: int = 0,
+) -> Tuple[ShardedTable, int, int]:
+    """Dense frontier convergence over a mesh (ring/chain), in place (see
+    ``_frontier_shardmap``): ``fuse`` > 1 runs that many rounds per
+    exchange (at most the rows of a shard); the classic round count is
+    rebuilt exactly by the shared fused loop. Lean sims exchange and merge
+    the four value keys; writer, ctr and tick stay untouched. ``dirty`` is
+    a bool [t_total] seed on mesh[0]. Returns (table, classic rounds,
+    last_changed)."""
+    tile_n = tile_n or frontier_tile_n(table.shape[1])
+    rounds, last_changed = _frontier_shardmap(
+        table, _parts(table, lean), dirty, wrap, max_rounds, fuse, tile_n,
+        lambda f, top, bottom, ids, tile, m: frontier_shard_round(
+            f, top, bottom, ids, tile, mode, m),
+    )
     return table, rounds, last_changed
+
+
+def gossip_frontier_shardmap_packed(
+    table: ShardedTable, dirty: torch.Tensor, wrap: bool, max_rounds: int, fuse: int = 1,
+    window_fuse: int = 0, tile_n: int = 0,
+) -> Tuple[ShardedTable, int, int]:
+    """Packed-family frontier convergence over a mesh (ring/chain), in
+    place (see ``_frontier_shardmap``), in one of three modes, all with the
+    classic loop's final state, round count and cutoff residual:
+
+    * ``fuse`` = 1: one round per exchange of one boundary row,
+      ``frontier_shard_round_packed`` at m = 1 (#22) and ``compact_counts``;
+    * ``fuse`` = HALO_FUSE: 8 rounds per exchange of 8 rows (#23) and the
+      fused compaction, the tail at m = 1;
+    * ``window_fuse`` = m > 1: m rounds per exchange of m-row slabs,
+      ``frontier_shard_window`` (#25) and ``compact_counts_window`` (#26),
+      the tail at m = 1. Row 0 of the stats counts changed entries, so a
+      window step's changed total is not the classic per-round count.
+
+    ``window_fuse`` and ``fuse`` > 1 exclude each other; either is at most
+    the rows of a shard. ``dirty`` is a bool [t_total] seed on mesh[0].
+    Returns (table, classic rounds, last_changed)."""
+    if window_fuse > 1 and fuse > 1:
+        raise ValueError("window_fuse and fuse > 1 exclude each other")
+    tile_n = tile_n or frontier_tile_n(table.shape[1])
+    rounds, last_changed = _frontier_shardmap(
+        table, _parts(table, False), dirty, wrap, max_rounds, max(fuse, window_fuse), tile_n,
+        frontier_shard_round_packed, frontier_shard_window if window_fuse > 1 else None,
+    )
+    return table, rounds, last_changed
+
+
+def reconcile_shardmap_packed(table: ShardedTable) -> ShardedTable:
+    """Direct reconcile of a packed-family sharded table, in place: every
+    shard's rows become its columns' join (``reconcile_packed``), the
+    shards' row 0 are joined on mesh[0] by the same function, and the join
+    is written back to every row of every shard."""
+    for shard in table.shards:
+        reconcile_packed(shard)
+    ctor = type(table.shards[0])
+    joined = reconcile_packed(ctor(*(
+        torch.cat([s[f][0:1].to(table.mesh[0]) for s in table.shards])
+        for f in range(len(table.shards[0]))
+    )))
+    for shard, dev in zip(table.shards, table.mesh):
+        for f, j in zip(shard, joined):
+            f.copy_(j[0:1].to(dev).expand_as(f))
+    return table

@@ -22,7 +22,11 @@ Phases, in order; any failure raises and exits nonzero:
    at 256 x 2^18 per shard (reference, lww, lean; m = 1, 8; random and
    zeroed boundary rows); the count compaction on random, all-zero and
    all-dirty counts; small lean and sharded sims on the card against the
-   CPU;
+   CPU; the packed family's per-shard kernels at nf = 3, 2, 1 (the ring
+   step m = 1, the fused step m = 8, the window m = 3, 15, 63; random and
+   zeroed boundary rows; small, ragged and one 256 x 2^20 shard, timed)
+   and the window fold on random, all-zero and all-at-m stats; small
+   packed, rank and rank1 sims on 4 shards on the card against the CPU;
 4. dense main path: a dense ring PeerNetworkSim at P x N (default
    1024 x 2^18): put_bulk + scalar puts, step, run_until_converged,
    tables_equal, the converged row against an independent numpy lexmax,
@@ -54,11 +58,22 @@ Phases, in order; any failure raises and exits nonzero:
    an unsharded twin given the same ops: run_until_converged on the
    dense-frontier-spmd route (m = 8), all 7 fields, rounds and residuals
    bit-identical; a cutoff converge (fused step + single-round tail),
-   reconcile and reads; the lww pair also step(1) and converged().
+   reconcile and reads; the lww pair also step(1) and converged();
+9. the packed family on a mesh: 4 shards of P x N (default 1024 x 2^20)
+   on the one card, each sim against an unsharded twin given the same
+   ops. Packed (12.9 GB + the twin): step(1) (the per-shard apply and ring
+   round), run_until_converged on packed-frontier-spmd (windows of 63
+   rounds per exchange) against packed-frontier-local, a 2^16 batch cut
+   off at 70 rounds (one window and a 7-round tail), converged(),
+   reconcile and reads. Rank1 (4.3 GB): a converge on the window route, a
+   restored copy converged by gossip_frontier_shardmap_packed with
+   fuse=HALO_FUSE, and fast_forward(480) (the spmd route) against
+   step(480) on the twin, with its windowed logical merges/s.
 
 Every kernel's launch count over the phase that drives its path (4 for
 the dense kernels, 5 and 6 for the packed-family ones, 7 for the lean
-ones, 8 for the sharded ones) must be > 0. The last two lines are a JSON
+ones, 8 for the sharded ones, 9 for the packed family's mesh kernels)
+must be > 0. The last two lines are a JSON
 object describing the kernels and the contract line
 {"ok": true, "device": {...}}. Imports nothing of JAX."""
 
@@ -122,6 +137,18 @@ KERNELS = {
     "compact_counts fused": (
         "bullet_tpu_torch/csrc/compact_counts.cu", "bullet_tpu/ops/packed.py:2681",
     ),
+    "frontier_shard packed": (
+        "bullet_tpu_torch/csrc/frontier_shard.cu", "bullet_tpu/ops/packed.py:1560",
+    ),
+    "frontier_shard packed fused": (
+        "bullet_tpu_torch/csrc/frontier_shard.cu", "bullet_tpu/ops/packed.py:2585",
+    ),
+    "frontier_shard_window": (
+        "bullet_tpu_torch/csrc/frontier_shard_window.cu", "bullet_tpu/ops/packed.py:2808",
+    ),
+    "compact_counts window": (
+        "bullet_tpu_torch/csrc/compact_counts.cu", "bullet_tpu/ops/packed.py:2900",
+    ),
 }
 DENSE_KERNELS = ("merge", "ring_round", "frontier_round_dense")
 # the packed-family kernels: phase 5 drives them at nf = 3, phase 6 at nf = 1
@@ -133,7 +160,12 @@ PACKED_KERNELS = ("apply_packed", "packed_round", "reconcile_packed", "frontier_
 LEAN_KERNELS = ("ring_round_lean", "frontier_round_dense", "merge")
 SHARD_KERNELS = ("frontier_shard", "frontier_shard fused", "compact_counts",
                  "compact_counts fused")
-# phase 8's mesh: this many shards, all on the one card
+# phase 9 drives the packed family's per-shard kernels: the packed sim the
+# ring round (m = 1), the window and its fold; the rank1 copy the fused
+# frontier (m = 8)
+MESH_PACKED_KERNELS = ("frontier_shard packed", "frontier_shard packed fused",
+                       "frontier_shard_window", "compact_counts window")
+# phases 8 and 9's mesh: this many shards, all on the one card
 SHARDS = 4
 
 # the card's peaks, from the published H100 SXM figures: HBM3 bandwidth and
@@ -1079,6 +1111,175 @@ def check_small_lean_and_sharded_sims(dev):
         "lean/lww, spmd and data mesh): card == CPU")
 
 
+# ------------------------------------------- phase 3, the packed mesh kernels
+
+
+def shard_bound(nf: int, b: int, s: int, n: int, joins: int):
+    """Bound of a per-shard step on a shard of b x n with s boundary rows
+    each way: one read and one write of the shard's rows and one read of
+    the 2 s boundary rows, nf x 4 bytes an entry; ``joins`` merges of
+    (nf + 1) compares and nf selects over the extended column."""
+    return bound(4 * nf * (2 * b + 2 * s) * n, joins * (2 * nf + 1) * (b + 2 * s) * n)
+
+
+def window_joins(m: int) -> int:
+    """Joins of the reference's distance chain to radius m: two per
+    doubling step s = min(m - r, r + 1) (the least work that computes the
+    window step; the kernel runs m classic rounds instead)."""
+    r = steps = 0
+    while r < m:
+        r += min(m - r, r + 1)
+        steps += 1
+    return 2 * steps
+
+
+def check_frontier_shard_packed(dev, shard_shape, errs, times, nf):
+    """The packed family's per-shard kernels against their plain versions:
+    #22 (m = 1) and #23 (m = 8) with s = m boundary rows, #25 (the window,
+    m = 3, 15 and 63 on m-row slabs), on random boundary rows (a ring, or
+    a chain's inner shard) and zeroed ones (a chain's end shard), all and
+    sparse stripes, small and ragged shards; then one shard of the phase 9
+    mesh (256 x 2^20 by default), timed. Rows, counts and stats exact."""
+    from bullet_tpu_torch.ops import packed as pk
+    from bullet_tpu_torch.ops.ring_kernel import frontier_tile_n, frontier_shard_round_torch
+
+    rng = np.random.default_rng(23 + nf)
+
+    def slabs(s, n, zero):
+        if zero:
+            return [torch.zeros((s, n), dtype=torch.int32, device=dev) for _ in range(nf)]
+        return list(random_family(nf, int(rng.integers(1 << 30)), s, n, dev))
+
+    def pair(base, m, window, zero_top, zero_bottom, dirty, what):
+        n = base[0].shape[1]
+        tile = frontier_tile_n(n)
+        tops, bottoms = slabs(m, n, zero_top), slabs(m, n, zero_bottom)
+        got, want = clone(base), clone(base)
+        ids = _ids(dirty, m, dev)
+        copies = ([t.clone() for t in tops], [t.clone() for t in bottoms])
+        if window:
+            name = "frontier_shard_window"
+            c_got = pk.frontier_shard_window(got, *copies, ids, tile, m)
+            c_want, ms = timed_once(lambda: pk.frontier_shard_window_torch(
+                want, tops, bottoms, ids, tile, m))
+        else:
+            name = "frontier_shard packed" if m == 1 else "frontier_shard packed fused"
+            c_got = pk.frontier_shard_round_packed(got, *copies, ids, tile, m)
+            c_want, ms = timed_once(lambda: frontier_shard_round_torch(
+                want, tops, bottoms, ids, tile, pk.packed_beats, m))
+        _pair(name, errs, (*got, c_got), (*want, c_want), f"nf={nf} {what}")
+        return ms
+
+    for b, n in ((8, 64), (8, 1024), (37, 512), (256, 4096)):
+        base = random_family(nf, 800 + b, b, n, dev)
+        t_total = n // frontier_tile_n(n)
+        for m, window in ((1, False), (8, False), (3, True), (15, True), (63, True)):
+            for zero_top, zero_bottom in ((False, False), (True, False), (False, True)):
+                for dirty in (np.ones(t_total, bool), rng.random(t_total) < 0.4):
+                    pair(base, m, window, zero_top, zero_bottom, dirty,
+                         f"{b}x{n} m={m} window={window} zero={zero_top},{zero_bottom}")
+        del base
+    b, n = shard_shape
+    tile = frontier_tile_n(n)
+    t_total = n // tile
+    base = random_family(nf, 83, b, n, dev)
+    every = np.ones(t_total, bool)
+    plain = {}
+    for m, window in ((1, False), (8, False), (63, True)):
+        plain[m] = pair(base, m, window, False, m == 8, every, f"{b}x{n} m={m}")
+    tops, bottoms = slabs(63, n, False), slabs(63, n, False)
+    for m, name, window in ((1, "frontier_shard packed", False),
+                            (8, "frontier_shard packed fused", False),
+                            (63, "frontier_shard_window", True)):
+        ids = _ids(every, m, dev)
+        top, bottom = [t[-m:].contiguous() for t in tops], [t[:m].contiguous() for t in bottoms]
+        if window:
+            ms = time_ms(lambda: pk.frontier_shard_window(base, top, bottom, ids, tile, m), 2)
+            joins = window_joins(m)
+        else:
+            ms = time_ms(lambda: pk.frontier_shard_round_packed(base, top, bottom, ids, tile, m), 3)
+            joins = 2 * m
+        times[tag(name, nf)] = (ms, plain[m], shard_bound(nf, b, m, n, joins))
+        log(f"  {name} [{LAYOUT_OF[nf]}] {b}x{n} per shard, m={m}, all {t_total} stripes: "
+            f"kernel {ms:.3f} ms, plain {plain[m]:.3f} ms per call, bound "
+            f"{times[tag(name, nf)][2][0]:.3f} ms; bit-identical (random and zeroed boundary "
+            "rows, all and sparse stripes, small and ragged shards)")
+    del base, tops, bottoms
+
+
+def check_compact_counts_window(dev, t_main: int, errs, times):
+    """The window fold against its plain version on random stats, all-zero
+    ones and all-at-m ones (row 0 sums wrap like int32), t_total in {1, 7,
+    8192} and the main path's, m = 15 and 63; cells past the count are
+    unspecified."""
+    from bullet_tpu_torch.ops.packed import compact_counts_window, compact_counts_window_torch
+
+    rng = np.random.default_rng(29)
+    plain = None
+    for t_total in (1, 7, 8192, t_main):
+        for m in (15, 63):
+            for what, rows in (
+                ("random", (rng.integers(-5, 1 << 20, t_total), rng.integers(0, m + 1, t_total))),
+                ("zero", (np.zeros(t_total), np.zeros(t_total))),
+                ("at m", (rng.integers(1, 1 << 30, t_total), np.full(t_total, m))),
+            ):
+                stats = torch.from_numpy(np.stack(rows).astype(np.int32)).to(dev)
+                got = compact_counts_window(stats, m)
+                want, ms = timed_once(lambda: compact_counts_window_torch(stats, m))
+                k = int(want[t_total])
+                _pair("compact_counts window", errs, (got[:k], got[t_total:]),
+                      (want[:k], want[t_total:]), f"t_total={t_total} m={m} {what}")
+                if t_total == t_main and m == 63 and what == "random":
+                    plain = ms
+    stats = torch.from_numpy(np.stack((rng.integers(0, 9, t_main), rng.integers(0, 64, t_main)))
+                             .astype(np.int32)).to(dev)
+    ms = time_ms(lambda: compact_counts_window(stats, 63), 20)
+    row = (ms, plain, bound(8 * t_main + 4 * (t_main + 3), 3 * t_main))
+    times["compact_counts window"] = times[tag("compact_counts window", 1)] = row
+    log(f"  compact_counts window t_total={t_main}, m=63: kernel {ms:.4f} ms, plain "
+        f"{plain:.4f} ms per call, bound {row[2][0]:.2g} ms (launch-bound); bit-identical")
+
+
+def check_small_packed_mesh_sims(dev):
+    """Packed, rank and rank1 sims on 4 shards of 16 rows on the card (the
+    window route at m = 15) against 4 virtual shards on the CPU (the plain
+    single-round route), spmd and data mesh, ring and chain: every field,
+    residuals, rounds, fast_forward and reads."""
+    from bullet_tpu_torch import PeerNetworkSim
+    from bullet_tpu_torch.convert import table_to_numpy
+
+    for layout, spmd, topology in itertools.product(
+            ("packed", "rank", "rank1"), (True, False), ("ring", "chain")):
+        sims = [PeerNetworkSim(64, capacity=4096, topology=topology, layout=layout, device=d,
+                               mesh_devices=[d] * 4, use_shard_map=spmd, use_kernels=True)
+                for d in (dev, "cpu")]
+        rng = np.random.default_rng(9)
+        peers = rng.integers(0, 64, 3000)
+        paths = [f"s/{i}" for i in rng.integers(0, 3000, 3000)]
+        vals = rng.integers(-20, 20, 3000)
+        results = []
+        for sim in sims:
+            sim.put_bulk(peers, paths, vals)
+            sim.put(3, "s/str", "pear")
+            sim.put(60, "s/str", "apple")
+            r1 = sim.step(2)
+            f1 = sim.fast_forward(9)
+            r2 = sim.run_until_converged()
+            sim.put(9, "s/late", 4)
+            r3 = sim.run_until_converged(max_rounds=20)
+            sim.put(33, "s/later", 5)
+            sim.reconcile()
+            results.append((r1, f1, r2, r3, sim.last_residual, sim.converged(),
+                            sim.tables_equal(), sim.get(5, "s"), sim._convergence_strategy()[0]))
+        a, b = (table_to_numpy(s.table) for s in sims)
+        e = max(int(np.abs(x.astype(np.int64) - y).max()) for x, y in zip(a, b))
+        if results[0] != results[1] or e:
+            raise AssertionError(f"small {layout} mesh sim spmd={spmd} {topology}: {results}, "
+                                 f"max_abs_err {e}")
+    log("  small packed, rank and rank1 mesh sims (64 x 4096, 4 shards on the card; ring/chain, "
+        "spmd and data mesh, fast_forward included): card == CPU")
+
+
 # ------------------------------------------------------------------ phase 4
 
 
@@ -1706,6 +1907,174 @@ def sharded_main_path(args, dev, window=wall_window):
     return launches
 
 
+# ------------------------------------------------------------------ phase 9
+
+
+def sharded_packed_path(args, dev, window=wall_window, card=""):
+    """Phase 9: ``SHARDS`` shards of the north-star table (P x N, default
+    1024 x 2^20) on the one card, packed (12 B/entry) and rank1 (4 B/entry),
+    each held against an unsharded twin. Returns (packed launches, rank1
+    launches, windowed logical merges/s of the rank1 fast_forward)."""
+    from bullet_tpu_torch import PeerNetworkSim, _build
+    from bullet_tpu_torch.parallel.shardmap_gossip import (
+        HALO_FUSE,
+        gossip_frontier_shardmap_packed,
+    )
+
+    p, n = args.peers, args.packed_capacity
+    secs: dict = {}
+    mesh = [dev] * SHARDS
+    n_leaf = n - 256
+    rng = np.random.default_rng(args.seed + 5)
+
+    def build(layout, sharded):
+        kw = dict(mesh_devices=mesh, use_shard_map=True) if sharded else {}
+        return PeerNetworkSim(p, capacity=n, topology="ring", layout=layout, device=dev, **kw)
+
+    def load(sims, peers, leaves, vals):
+        """The same puts into every sim (so their interners and rank
+        indexes agree); returns each sim's slot of every leaf."""
+        slots = {}
+        for s in sims:
+            slots[s] = s.host.intern_batch([f"k/{i}" for i in range(n_leaf)])
+            s.put_bulk(peers, slots[s][leaves], vals)
+            s.put(5, "s/name", "alice")
+            s.put(p - 1, "s/name", "bob")
+            s.put(p // 2, "s/obj", {"a": 1, "b": "x"})
+        return slots
+
+    def equal(what, sim, twin, got, want):
+        if got != want or not sharded_equal(sim.table, twin.table):
+            raise AssertionError(f"phase 9 {what}: {got} against the twin's {want}")
+
+    # packed: the window route against the unsharded frontier
+    sim, twin = build("packed", True), build("packed", False)
+    peers = rng.integers(0, p, args.packed_ops).astype(np.int32)
+    leaves = rng.integers(0, n_leaf, args.packed_ops)
+    vals = rng.integers(-500, 500, args.packed_ops)
+    slots = load((sim, twin), peers, leaves, vals)
+    batches = [(leaves, vals)]
+    routes = (sim._convergence_strategy()[0], twin._convergence_strategy()[0])
+    if routes != ("packed-frontier-spmd", "packed-frontier-local"):
+        raise AssertionError(f"phase 9 packed routes {routes}")
+    _build.reset_launches()
+    with window("mesh packed step(1)", secs):
+        r_sim = sim.step(1)
+    with window("twin packed step(1)", secs):
+        r_twin = twin.step(1)
+    equal("packed step(1)", sim, twin, r_sim, r_twin)
+    with window("mesh packed run_until_converged", secs):
+        rounds = sim.run_until_converged()
+    with window("twin packed run_until_converged", secs):
+        twin_rounds = twin.run_until_converged()
+    equal("packed converge", sim, twin, (rounds, sim.last_residual),
+          (twin_rounds, twin.last_residual))
+    if (sim.last_residual != 0 or not _build.LAUNCHES["frontier_shard_window"]
+            or not _build.LAUNCHES["compact_counts window"]):
+        raise AssertionError("phase 9 packed: not converged on the window route")
+    steps = _build.LAUNCHES["compact_counts window"]
+    n_written = check_leaf_values(sim, batches, slots[sim], rng, "phase 9 packed")
+    log(f"  packed ({SHARDS} shards of {p // SHARDS} x {n} on one card, {12 * p * n / 1e9:.1f} GB"
+        " + the twin): "
+        f"step(1) residual {r_sim} in {secs['mesh packed step(1)']:.3f} s (twin "
+        f"{secs['twin packed step(1)']:.3f} s); run_until_converged [{routes[0]}] {rounds} "
+        f"rounds in {secs['mesh packed run_until_converged']:.3f} s, {steps} window steps "
+        f"(twin [{routes[1]}] {secs['twin packed run_until_converged']:.3f} s); every field, "
+        f"rounds and residual == the twin; {n_written} leaves == numpy per-leaf max")
+    # a hot-range batch cut off at 70 rounds: one window of 63, a tail of 7
+    more = 1 << 16
+    leaves2 = rng.integers(0, min(n_leaf, 1 << 16), more)
+    peers2, vals2 = rng.integers(0, p, more).astype(np.int32), rng.integers(-600, 600, more)
+    cut = []
+    for s, who in ((sim, "mesh"), (twin, "twin")):
+        s.put_bulk(peers2, slots[s][leaves2], vals2)
+        with window(f"{who} packed cutoff converge", secs):
+            cut.append((s.run_until_converged(max_rounds=70), s.last_residual))
+    equal("packed cutoff", sim, twin, cut[0], cut[1])
+    with window("mesh packed converged()", secs):
+        done = sim.converged()
+    equal("packed converged()", sim, twin, done, twin.converged())
+    for s, who in ((sim, "mesh"), (twin, "twin")):
+        s.put(7, "s/name", "carol")
+        with window(f"{who} packed reconcile", secs):
+            s.reconcile()
+    equal("packed reconcile", sim, twin, sim.converged(), True)
+    sample = [f"k/{i}" for i in rng.integers(0, n_leaf, 64)] + ["s/name", "nope"]
+    read_peers = rng.integers(0, p, len(sample))
+    if (sim.get_bulk(read_peers, sample) != twin.get_bulk(read_peers, sample)
+            or sim.get(3, "s") != twin.get(3, "s") or sim.get(0, "s/name") != "carol"):
+        raise AssertionError("phase 9 packed reads differ from the twin")
+    log(f"  packed cutoff at 70 rounds (apply 2^16 first): residual {cut[0][1]} in "
+        f"{secs['mesh packed cutoff converge']:.3f} s (twin "
+        f"{secs['twin packed cutoff converge']:.3f} s); converged() {done} in {secs['mesh packed converged()']:.3f} s; reconcile "
+        f"{secs['mesh packed reconcile']:.3f} s (twin {secs['twin packed reconcile']:.3f} s); "
+        "tables and reads == the twin")
+    packed_launches = dict(_build.LAUNCHES)
+    log(f"  launches (packed): {packed_launches}")
+    del sim, twin
+    torch.cuda.empty_cache()
+
+    # rank1: the window route, the fused (HALO_FUSE) route on a restored
+    # copy, and the spmd fast_forward against step on the twin
+    sim, copy, twin = build("rank1", True), build("rank1", True), build("rank1", False)
+    peers = rng.integers(0, p, args.rank1_ops).astype(np.int32)
+    leaves = rng.integers(0, n_leaf, args.rank1_ops)
+    vals = rng.integers(-500, 500, args.rank1_ops)
+    slots = load((sim, copy, twin), peers, leaves, vals)
+    _build.reset_launches()
+    with window("mesh rank1 step(1)", secs):
+        residual = sim.step(1)
+    snap = sim.snapshot()
+    for s in (copy, twin):
+        s.restore(snap)
+    with window("mesh rank1 run_until_converged", secs):
+        rounds = sim.run_until_converged()
+    with window("twin rank1 run_until_converged", secs):
+        twin_rounds = twin.run_until_converged()
+    route = sim._convergence_strategy()[0]
+    equal("rank1 converge", sim, twin, (route, rounds, sim.last_residual),
+          ("packed-frontier-spmd", twin_rounds, 0))
+    t_total = n // copy._frontier_tile()
+    with window("mesh rank1 fused converge", secs):
+        _, fused_rounds, fused_last = gossip_frontier_shardmap_packed(
+            copy.table, torch.ones(t_total, dtype=torch.bool, device=dev), True,
+            2 * copy.topology.diameter + 2, fuse=HALO_FUSE, tile_n=copy._frontier_tile())
+    equal("rank1 fused converge", copy, twin, (fused_rounds, fused_last), (twin_rounds, 0))
+    check_leaf_values(sim, [(leaves, vals)], slots[sim], rng, "phase 9 rank1")
+    log(f"  rank1 ({SHARDS} shards of {p // SHARDS} x {n}, {4 * p * n / 1e9:.1f} GB): step(1) "
+        f"residual {residual}; "
+        f"run_until_converged [{route}] {rounds} rounds in "
+        f"{secs['mesh rank1 run_until_converged']:.3f} s (twin "
+        f"{secs['twin rank1 run_until_converged']:.3f} s); a restored copy converged by "
+        f"gossip_frontier_shardmap_packed(fuse={HALO_FUSE}) in "
+        f"{secs['mesh rank1 fused converge']:.3f} s; both == the twin")
+    # fast_forward(480) from the step(1) state: the spmd window route
+    for s in (copy, twin):
+        s.restore(snap)
+    del snap, sim
+    depth = min(480, p // 2 - 1)
+    ff_route = copy._fast_forward_route()
+    with window("mesh rank1 fast_forward(k)", secs):
+        r_ff = copy.fast_forward(depth)
+    with window("twin rank1 step(k)", secs):
+        r_step = twin.step(depth)
+    equal(f"rank1 fast_forward({depth}) [{ff_route}]", copy, twin, (ff_route, r_ff),
+          ("spmd", r_step))
+    ff = secs["mesh rank1 fast_forward(k)"]
+    rate = 2 * p * n * depth / ff
+    log(f"  rank1 fast_forward({depth}) [spmd]: {ff:.4f} s == step({depth}) on the twin "
+        f"{secs['twin rank1 step(k)']:.3f} s (tables identical, residual {r_ff}); windowed "
+        f"logical merges/s (2 x {p} x {n} x {depth} / s): {rate:.6g} on {card}")
+    rank1_launches = dict(_build.LAUNCHES)
+    log(f"  launches (rank1): {rank1_launches}")
+    del copy, twin
+    torch.cuda.empty_cache()
+    missing = [k for k in MESH_PACKED_KERNELS if packed_launches[k] + rank1_launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"phase 9 never launched: {missing}")
+    return packed_launches, rank1_launches, rate
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1774,6 +2143,16 @@ def main() -> int:
     check_compact_counts(dev, args.capacity // frontier_tile_n(args.capacity), errs, times)
     check_small_lean_and_sharded_sims(dev)
     torch.cuda.empty_cache()
+    # the packed family's per-shard kernels at every field count, on one
+    # shard of phase 9's mesh
+    for nf in (3, 2, 1):
+        check_frontier_shard_packed(dev, (args.peers // SHARDS, args.packed_capacity), errs,
+                                    times, nf)
+        torch.cuda.empty_cache()
+    check_compact_counts_window(dev, args.packed_capacity // frontier_tile_n(args.packed_capacity),
+                                errs, times)
+    check_small_packed_mesh_sims(dev)
+    torch.cuda.empty_cache()
 
     log(f"phase 4: dense main path, ring {args.peers} x {args.capacity}")
     launches = main_path(args, dev)
@@ -1790,12 +2169,19 @@ def main() -> int:
     log(f"phase 8: sharded dense path, {SHARDS} shards on one card, ring "
         f"{args.peers} x {args.capacity}")
     shard_launches = sharded_main_path(args, dev)
+    torch.cuda.empty_cache()
+    log(f"phase 9: the packed family on a mesh, {SHARDS} shards on one card, ring "
+        f"{args.peers} x {args.packed_capacity}")
+    mesh_packed, mesh_rank1, _ = sharded_packed_path(args, dev, card=smi)
 
     # one row per kernel at the layout its main path drives (dense: phase
     # 4, packed: phase 5), one per packed-family kernel at rank1 (phase 6),
     # the lean kernels (phase 7; the merge and the dense frontier at
-    # nf = 4) and the sharded ones (phase 8); the rank (nf = 2) times and
-    # the packed frontier's m = 1 times are in the log above
+    # nf = 4), the sharded ones (phase 8) and the packed family's mesh
+    # kernels at packed and rank1 (phase 9; its packed sim never takes the
+    # fused frontier, the rank1 copy does); the rank (nf = 2) times, the
+    # packed frontier's m = 1 times and the fused mesh frontier's at
+    # nf = 3 are in the log above
     rows = [(name, name, launches[name]) for name in (*DENSE_KERNELS, *PACKED_KERNELS)]
     rows += [(tag(name, 1), name, rank1_launches[name]) for name in PACKED_KERNELS]
     rows += [("ring_round_lean", "ring_round_lean", lean_launches["ring_round_lean"]),
@@ -1803,6 +2189,9 @@ def main() -> int:
               lean_launches["frontier_round_dense"]),
              ("merge lean", "merge", lean_launches["merge"])]
     rows += [(name, name, shard_launches[name]) for name in SHARD_KERNELS]
+    rows += [(name, name, mesh_packed[name]) for name in MESH_PACKED_KERNELS
+             if name != "frontier_shard packed fused"]
+    rows += [(tag(name, 1), name, mesh_rank1[name]) for name in MESH_PACKED_KERNELS]
     kernels = []
     for row, name, count in rows:
         src, rep = KERNELS[name]

@@ -209,11 +209,20 @@ def test_converged_does_not_advance_and_peer_cursor():
     {"layout": "rank1", "mesh_devices": ["cpu", "cpu"]},
 ])
 def test_unported_options_raise(kwargs):
-    """The packed family on a mesh is not ported yet (lean gossip and the
-    dense layout on a mesh are: tests/test_torch_lean.py,
-    tests/test_torch_shard_sim.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PeerNetworkSim(8, device="cpu", **kwargs)
+    """The option sets that raised while the packed family on a mesh was
+    unported now build a sharded sim of the layout, which converges (its
+    parity with the reference: tests/test_torch_shard_packed_sim.py)."""
+    from bullet_tpu_torch.parallel.mesh import ShardedTable
+
+    sim = PeerNetworkSim(8, device="cpu", **kwargs)
+    shards = kwargs["mesh_devices"]
+    assert isinstance(sim.table, ShardedTable)
+    assert len(sim.table.shards) == (shards if isinstance(shards, int) else len(shards))
+    assert type(sim.table.shards[0]).__name__ == {
+        "packed": "PackedTable", "rank": "RankTable", "rank1": "Rank1Table"}[kwargs["layout"]]
+    sim.put(1, "a/b", 7)
+    sim.run_until_converged()
+    assert sim.tables_equal() and sim.get(6, "a/b") == 7
 
 
 def test_plain_routes_refused_on_cuda():

@@ -1,0 +1,477 @@
+"""The port's packed family on a device mesh against the reference on its
+8-device CPU mesh (the counterpart of tests/test_window_frontier_spmd.py
+and the packed half of tests/test_shardmap_gossip.py), at nf = 3
+(packed), 2 (rank) and 1 (rank1): the route predicates; the per-shard
+frontier step (#22 at m = 1 against the reference's Pallas kernel in
+interpret mode, #23 at m = 8 against its XLA trapezoid rounds and, for
+rank1, its Pallas kernel); the window step (#25: the plain version
+against the reference's kernel in interpret mode at m = 3 and 5, and
+against its distance chain and classic rounds at m = 15 and 63; the CUDA
+kernel's design, m sweeps of the extended column with first-change
+marks, modelled on the same inputs); the window fold (#26); the ring,
+chain, mesh, star and generic exchanges; the spmd fast_forward window;
+gossip_frontier_shardmap_packed in all three modes (cutoffs, a sparse
+seed). Tolerance: exact (int32 fields, counts, stats, ids, rounds and
+residuals)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.sharding import NamedSharding, PartitionSpec
+
+from bullet_tpu.ops import packed as ref_pk
+from bullet_tpu.ops.rank import Rank1Table as JaxRank1, RankTable as JaxRank
+from bullet_tpu.parallel import mesh as ref_mesh
+from bullet_tpu.parallel import shardmap_gossip as ref_sg
+from bullet_tpu.parallel import topology as jax_topo
+from bullet_tpu_torch.convert import sharded_from_numpy, table_to_numpy
+from bullet_tpu_torch.ops import packed as pk
+from bullet_tpu_torch.ops.ring_kernel import _round_masks, frontier_tile_n
+from bullet_tpu_torch.parallel import shardmap_gossip as sg
+from bullet_tpu_torch.parallel import topology as port_topo
+
+torch.set_num_threads(2)
+
+needs_devices = pytest.mark.skipif(jax.device_count() < 8, reason="needs 8 virtual devices")
+LAYOUT = {3: "packed", 2: "rank", 1: "rank1"}
+JAX_TYPE = {3: ref_pk.PackedTable, 2: JaxRank, 1: JaxRank1}
+
+
+def family(nf, p, n, seed, absent=0.0):
+    """nf fields with many ties. Packed: negative keys, and absent (cls 0)
+    entries with nonzero keys unless ``absent`` > 0, which makes that share
+    of entries all-zero (a sim's absent entries); rank: cv a function of
+    the rank, as in a sim."""
+    rng = np.random.default_rng(seed)
+    if nf == 3:
+        cls = rng.integers(0, 4, (p, n))
+        vid = rng.integers(0, 5, (p, n))
+        fields = [rng.integers(-3, 3, (p, n)), rng.integers(-3, 3, (p, n)), (cls << 28) | vid]
+    else:
+        rank = rng.integers(0, 6, (p, n))
+        fields = [rank, np.where(rank > 0, (1 << 28) | rank, 0)][:nf]
+    gone = rng.random((p, n)) < absent
+    return [np.where(gone, 0, f).astype(np.int32) for f in fields]
+
+
+def T(xs):
+    return [torch.from_numpy(np.array(x, dtype=np.int32)) for x in xs]
+
+
+def J(nf, xs):
+    return JAX_TYPE[nf](*(jnp.asarray(x) for x in xs))
+
+
+def jax_sharded(nf, fields, k=8):
+    mesh = ref_mesh.make_mesh(k)
+    sharding = NamedSharding(mesh, PartitionSpec(ref_mesh.PEER_AXIS, None))
+    return JAX_TYPE[nf](*(jax.device_put(jnp.asarray(f), sharding) for f in fields)), mesh
+
+
+def sharded(nf, fields, k=8):
+    return sharded_from_numpy(fields, ("cpu",) * k, LAYOUT[nf])
+
+
+def assert_equal(port, ref, what=""):
+    port = table_to_numpy(port) if not isinstance(port, (list, tuple)) else port
+    for a, b in zip(port, ref):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b), what)
+
+
+def all_ids(t_total, m):
+    ids = torch.zeros(t_total + (3 if m > 1 else 2), dtype=torch.int32)
+    ids[:t_total] = torch.arange(t_total)
+    ids[t_total] = t_total
+    return ids
+
+
+def boundary(nf, s, n, seed, zero):
+    return [np.zeros((s, n), np.int32)] * nf if zero else family(nf, s, n, seed)
+
+
+# ------------------------------------------------------------ predicates
+
+
+@pytest.mark.parametrize("nf", [3, 2, 1])
+def test_route_predicates_match_reference(nf):
+    """frontier_available_sharded == frontier_tile_n_sharded > 0, and
+    window_frontier_depth == window_frontier_params' m, on every shape
+    class: uneven splits, shards under 8 rows or not 8-aligned, n not a
+    multiple of 128, and every depth boundary."""
+    for p, n, k in ((64, 512, 8), (64, 512, 4), (60, 512, 4), (32, 512, 8), (96, 512, 8),
+                    (64, 500, 8), (64, 384, 8), (1024, 1 << 20, 4), (128, 256, 1), (8, 128, 1),
+                    (0, 128, 1), (64, 512, 0)):
+        want = ref_pk.frontier_tile_n_sharded(p, n, k) > 0
+        assert pk.frontier_available_sharded(p, n, k) == want
+    for b in (0, 4, 8, 12, 14, 15, 16, 24, 31, 32, 40, 63, 64, 100, 128, 256, 1024):
+        for n in (100, 128, 384, 4096, 1 << 20):
+            assert pk.window_frontier_depth(b, n) == ref_pk.window_frontier_params(nf, b, n)[0]
+
+
+# ------------------------------------------- per-shard frontier (#22, #23)
+
+
+@pytest.mark.parametrize("nf", [3, 2, 1])
+@pytest.mark.parametrize("zero", ["none", "top", "bottom"])
+def test_frontier_shard_m1_matches_reference_kernel(nf, zero):
+    """#22: one shard of [8, 512] with 8-row boundary pads (zeroed: a
+    chain's end); the reference's kernel reads row 7 of its tops and row 0
+    of its bottoms, the port takes that one row; its one stripe's count is
+    the sum of the port's two."""
+    b, n = 8, 512
+    f = family(nf, b, n, 10 + nf)
+    tops, bottoms = boundary(nf, 8, n, 20, zero == "top"), boundary(nf, 8, n, 21, zero == "bottom")
+    ids = np.array([0, 1, 1], np.int32)
+    want, c_want = ref_pk.frontier_shard_round_packed(
+        J(nf, f), J(nf, tops), J(nf, bottoms), jnp.asarray(ids), True)
+    tile = frontier_tile_n(n)
+    got = T(f)
+    counts = pk.frontier_shard_round_packed(got, T([x[-1:] for x in tops]),
+                                            T([x[:1] for x in bottoms]), all_ids(n // tile, 1),
+                                            tile)
+    assert_equal(got, want)
+    assert int(counts.sum()) == int(np.asarray(c_want).sum())
+    assert counts.shape == (1, n // tile)
+
+
+def _trapezoid_twin(nf, f, tops, bottoms, m):
+    """The reference's XLA body of #23: m rounds of _merge_ext_round on the
+    extended column [tops | shard | bottoms] (8 rows each way)."""
+    ext = [jnp.concatenate([jnp.asarray(t), jnp.asarray(x), jnp.asarray(bo)])
+           for x, t, bo in zip(f, tops, bottoms)]
+    counts = []
+    b = f[0].shape[0]
+    for _ in range(m):
+        ext, c = ref_pk._merge_ext_round(ext, True, b, b, 0)
+        counts.append(int(c))
+    return [np.asarray(e[8:8 + b]) for e in ext], counts
+
+
+@pytest.mark.parametrize("nf", [3, 2, 1])
+@pytest.mark.parametrize("zero", ["none", "top", "bottom"])
+def test_frontier_shard_m8_matches_reference_twin(nf, zero):
+    """#23: eight rounds per exchange of 8 boundary rows against the
+    reference's trapezoid rounds (XLA), per-round counts summed over the
+    port's stripes; rank1 also against the reference's Pallas kernel in
+    interpret mode."""
+    b, n = 16, 512
+    f = family(nf, b, n, 30 + nf, absent=0.5)
+    tops = boundary(nf, 8, n, 31, zero == "top")
+    bottoms = boundary(nf, 8, n, 32, zero == "bottom")
+    want, c_want = _trapezoid_twin(nf, f, tops, bottoms, 8)
+    tile = frontier_tile_n(n)
+    ids = all_ids(n // tile, 8)
+    plain = T(f)
+    c_plain = pk.frontier_shard_round_torch(plain, T(tops), T(bottoms), ids, tile,
+                                            pk.packed_beats, 8)
+    got = T(f)
+    counts = pk.frontier_shard_round_packed(got, T(tops), T(bottoms), ids, tile, 8)
+    for table, c in ((plain, c_plain), (got, counts)):
+        assert_equal(table, want)
+        assert c.sum(1).tolist() == c_want
+    if nf == 1 and zero == "none":
+        ids = np.array([0, 1, 1, 0], np.int32)
+        kernel, c_kernel = ref_pk.frontier_shard_multiround_packed(
+            J(nf, f), J(nf, tops), J(nf, bottoms), jnp.asarray(ids), True)
+        assert_equal(got, kernel)
+        assert np.asarray(c_kernel)[:, 0].tolist() == c_want
+
+
+def test_frontier_shard_packed_skips_inactive_stripes():
+    b, n = 8, 1024
+    f = T(family(3, b, n, 1))
+    before = [x.clone() for x in f]
+    rows = T(family(3, 8, n, 2))
+    flags = np.array([False, True, False, True])
+    ids = torch.zeros(7, dtype=torch.int32)
+    ids[:2] = torch.tensor([1, 3])
+    ids[4] = 2
+    counts = pk.frontier_shard_round_packed(f, rows, rows, ids, 256, 8)
+    assert counts.shape == (8, 4) and not counts[:, ~torch.from_numpy(flags)].any()
+    for a, o in zip(f, before):
+        assert torch.equal(a[:, :256], o[:, :256]) and torch.equal(a[:, 512:768], o[:, 512:768])
+
+
+# ---------------------------------------------------- window step (#25)
+
+
+def _kernel_model(nf, f, tops, bottoms, tile, m):
+    """The CUDA kernel's algorithm on the CPU: m classic rounds of the
+    extended column as a ring (the in-place sweeps), each entry of the
+    shard marked on its first change, each stripe's last changed round."""
+    b, n = f[0].shape
+    ext = [torch.cat([t, x, bo]) for x, t, bo in zip(T(f), T(tops), T(bottoms))]
+    marks = torch.zeros((b, n), dtype=torch.bool)
+    last = torch.zeros(n // tile, dtype=torch.int32)
+    for k in range(1, m + 1):
+        ext, gt1, gt2 = _round_masks(ext, True, pk.packed_beats)
+        changed = (gt1 | gt2)[m:m + b]
+        marks |= changed
+        last = torch.where(changed.reshape(b, -1, tile).any(2).any(0), k, last)
+    stats = torch.stack([marks.reshape(b, -1, tile).sum((0, 2)).to(torch.int32), last])
+    return [e[m:m + b] for e in ext], stats
+
+
+@pytest.mark.parametrize("nf", [3, 2, 1])
+@pytest.mark.parametrize("m", [3, 5])
+@pytest.mark.parametrize("zero", ["none", "top"])
+def test_frontier_shard_window_matches_reference_kernel(nf, m, zero):
+    """#25 at small m: the plain version against the reference's kernel in
+    interpret mode (tile 256: one stripe each), block and stats; the
+    kernel's sweep design on the same inputs."""
+    b, n = 8, 512
+    f = family(nf, b, n, 40 + m + nf, absent=0.3)
+    tops, bottoms = boundary(nf, m, n, 41, zero == "top"), boundary(nf, m, n, 42, False)
+    ids = np.array([0, 1, 2, 0, 0], np.int32)
+    want, st_want = ref_pk.frontier_shard_window_packed(
+        J(nf, f), J(nf, tops), J(nf, bottoms), jnp.asarray(ids), m, 256, True)
+    got = T(f)
+    stats = pk.frontier_shard_window(got, T(tops), T(bottoms), all_ids(2, m), 256, m)
+    assert_equal(got, want)
+    np.testing.assert_array_equal(stats.numpy(), np.asarray(st_want))
+    model, st_model = _kernel_model(nf, f, tops, bottoms, 256, m)
+    assert_equal(model, want)
+    np.testing.assert_array_equal(st_model.numpy(), np.asarray(st_want))
+
+
+@pytest.mark.parametrize("nf", [3, 2, 1])
+@pytest.mark.parametrize("m,zero", [(15, "none"), (63, "bottom"), (63, "none")])
+def test_frontier_shard_window_deep_matches_classic_rounds(nf, m, zero):
+    """#25 at the card's depths: the plain version against the reference's
+    distance chain (XLA) on the extended column and against m classic
+    rounds (the kernel's design), block and stats, sparse and dense
+    stripes."""
+    b, n = 64, 512
+    f = family(nf, b, n, 50 + nf)
+    tops, bottoms = boundary(nf, m, n, 52, False), boundary(nf, m, n, 53, zero == "bottom")
+    # stripe 0 settled (all zero), stripe 1 one source at row 32, the rest
+    # dense
+    for x in (*f, *tops, *bottoms):
+        x[:, :256] = 0
+    for x in f:
+        x[32, 128:256] = x[33, 256:384]
+    ext = [jnp.concatenate([jnp.asarray(t), jnp.asarray(x), jnp.asarray(bo)])
+           for x, t, bo in zip(f, tops, bottoms)]
+    ext, dist = ref_pk._window_dist_chain(ext, jnp.zeros_like(ext[0]), m)
+    want = [np.asarray(e[m:m + b]) for e in ext]
+    changed = np.asarray(ref_pk._lex_gt_packed(ref_pk.table_keys(tuple(want)),
+                                               ref_pk.table_keys(tuple(map(jnp.asarray, f)))))
+    tile = 128
+    last = np.where(changed, np.asarray(dist)[m:m + b], 0)
+    st_want = np.stack([changed.reshape(b, -1, tile).sum((0, 2)),
+                        last.reshape(b, -1, tile).max((0, 2))])
+    got = T(f)
+    stats = pk.frontier_shard_window(got, T(tops), T(bottoms), all_ids(n // tile, m), tile, m)
+    assert_equal(got, want)
+    np.testing.assert_array_equal(stats.numpy(), st_want)
+    model, st_model = _kernel_model(nf, f, tops, bottoms, tile, m)
+    assert_equal(model, want)
+    np.testing.assert_array_equal(st_model.numpy(), st_want)
+    assert st_want[1, 0] == 0 and st_want[1, 1] == min(32, m)
+
+
+def test_frontier_shard_window_skips_inactive_stripes_and_checks_slabs():
+    b, n, m = 16, 512, 5
+    f = T(family(2, b, n, 3))
+    before = [x.clone() for x in f]
+    slab = T(family(2, m, n, 4))
+    ids = torch.tensor([2, 0, 0, 0, 1, 0, 0], dtype=torch.int32)
+    stats = pk.frontier_shard_window(f, slab, slab, ids, 128, m)
+    assert not stats[:, [0, 1, 3]].any() and stats[0, 2] > 0
+    for a, o in zip(f, before):
+        assert torch.equal(a[:, :256], o[:, :256]) and torch.equal(a[:, 384:], o[:, 384:])
+    with pytest.raises(ValueError, match="slabs"):
+        pk.frontier_shard_window(f, T(family(2, 8, n, 4)), T(family(2, 8, n, 4)), ids, 128, m)
+
+
+# --------------------------------------------------------- window fold (#26)
+
+
+@pytest.mark.parametrize("t_total", [1, 7, 64])
+@pytest.mark.parametrize("m", [5, 63])
+@pytest.mark.parametrize("kind", ["random", "zero", "at_m"])
+def test_compact_counts_window_matches_reference(t_total, m, kind):
+    rng = np.random.default_rng(t_total + m)
+    rows = {
+        "random": (rng.integers(-5, 1 << 30, t_total), rng.integers(0, m + 1, t_total)),
+        "zero": (np.zeros(t_total), np.zeros(t_total)),
+        "at_m": (rng.integers(1, 1 << 30, t_total), np.full(t_total, m)),  # sums wrap
+    }[kind]
+    stats = np.stack(rows).astype(np.int32)
+    want = np.asarray(ref_pk.compact_counts_window_packed(jnp.asarray(stats), m, interpret=True))
+    for fn in (pk.compact_counts_window, pk.compact_counts_window_torch):
+        got = fn(torch.from_numpy(stats), m).numpy()
+        k = int(want[t_total])
+        np.testing.assert_array_equal(got[:k], want[:k])  # past the count: unspecified
+        np.testing.assert_array_equal(got[t_total:], want[t_total:])
+
+
+# ------------------------------------------------------- exchange rounds
+
+
+@needs_devices
+@pytest.mark.parametrize("nf", [3, 2, 1])
+@pytest.mark.parametrize("wrap", [True, False])
+@pytest.mark.parametrize("n", [128, 100])  # the per-shard frontier; shifted copies
+def test_ring_round_packed_matches_reference(nf, wrap, n):
+    t = family(nf, 16, n, nf + wrap)
+    tbl, mesh = jax_sharded(nf, t)
+    want, c_want = ref_sg.ring_round_shardmap_packed(tbl, mesh, wrap)
+    got, c_got = sg.ring_round_shardmap_packed(sharded(nf, t), wrap)
+    assert_equal(got, want)
+    assert int(c_got) == int(c_want)
+    kind = "ring" if wrap else "chain"
+    got, c_got = pk.gossip_round_packed(sharded(nf, t), getattr(port_topo, kind)(16))
+    assert_equal(got, want)
+    assert int(c_got) == int(c_want)
+
+
+@needs_devices
+@pytest.mark.parametrize("nf", [3, 2, 1])
+def test_mesh_star_generic_packed_match_reference(nf):
+    t = family(nf, 24, 128, 60 + nf)
+    tbl, mesh = jax_sharded(nf, t)
+    want, c_want = ref_sg.mesh_round_shardmap_packed(tbl, mesh)
+    got, c_got = sg.mesh_round_shardmap_packed(sharded(nf, t))
+    assert_equal(got, want)
+    assert int(c_got) == int(c_want)
+    for hub in (0, 13):
+        want, c_want = ref_sg.star_round_shardmap_packed(tbl, mesh, hub=hub)
+        got, c_got = sg.star_round_shardmap_packed(sharded(nf, t), hub)
+        assert_equal(got, want)
+        assert int(c_got) == int(c_want)
+    nb = np.asarray(jax_topo.random_graph(24, 3, seed=nf).neighbors)
+    want, c_want = ref_sg.generic_round_shardmap_packed(tbl, jnp.asarray(nb), mesh)
+    got, c_got = sg.generic_round_shardmap_packed(sharded(nf, t), nb)
+    assert_equal(got, want)
+    assert int(c_got) == int(c_want)
+
+
+@needs_devices
+@pytest.mark.parametrize("nf", [3, 2, 1])
+@pytest.mark.parametrize("wrap", [True, False])
+def test_ring_window_shardmap_packed_matches_reference(nf, wrap):
+    """The spmd fast_forward window: m rounds per exchange of m-row slabs
+    (m up to the 8 rows of a shard), state and round-m residual."""
+    t = family(nf, 64, 256, 70 + nf, absent=0.7)
+    tbl, mesh = jax_sharded(nf, t)
+    for m in (1, 3, 8):
+        want, c_want = ref_sg.ring_window_shardmap_packed(tbl, mesh, wrap, m)
+        got, c_got = sg.ring_window_shardmap_packed(sharded(nf, t), wrap, m)
+        assert_equal(got, want, f"m={m}")
+        assert int(c_got) == int(c_want)
+    with pytest.raises(ValueError):
+        sg.ring_window_shardmap_packed(sharded(nf, t), wrap, 9)
+
+
+# ------------------------------------------------ the sharded frontier
+
+
+def classic(nf, fields, wrap, max_rounds):
+    """The reference's unsharded classic loop: (fields, rounds, residual)."""
+    kind = "ring" if wrap else "chain"
+    p = fields[0].shape[0]
+    nb = jnp.asarray(getattr(jax_topo, kind)(p).neighbors)
+    got, r, c = ref_pk.gossip_until_converged_packed(J(nf, fields), nb, kind, max_rounds)
+    return [np.asarray(x) for x in got], int(r), int(c)
+
+
+@pytest.fixture(scope="module")
+def spmd_reference():
+    """The reference's gossip_frontier_shardmap_packed in interpret mode on
+    its 8-device mesh, single-round and window m = 3, packed ring and chain,
+    cut off at 11 rounds: {(wrap, window): (table, rounds, last_changed)}."""
+    out = {}
+    t = family(3, 64, 256, 80, absent=0.9)
+    for wrap in (True, False):
+        for window in (0, 3):
+            tbl, mesh = jax_sharded(3, t)
+            got, r, c = ref_sg.gossip_frontier_shardmap_packed(
+                tbl, jnp.ones(2 if window else 1, bool), mesh, wrap, 11, interpret=True,
+                window_fuse=window,
+                window_tile=128 if window else 0)
+            out[wrap, window] = ([np.asarray(f) for f in got], int(r), int(c))
+    return t, out
+
+
+MODES = [dict(fuse=1), dict(fuse=sg.HALO_FUSE), dict(window_fuse=3), dict(window_fuse=8)]
+
+
+@needs_devices
+@pytest.mark.parametrize("wrap", [True, False])
+def test_frontier_shardmap_packed_matches_reference_loops(spmd_reference, wrap):
+    """The reference's spmd loops (single-round and window) cut off at 11
+    rounds: every mode of the port lands on their state, rounds and
+    residual."""
+    t, ref = spmd_reference
+    for window in (0, 3):
+        want, r_want, c_want = ref[wrap, window]
+        for mode in MODES:
+            table = sharded(3, t)
+            got, r_got, c_got = sg.gossip_frontier_shardmap_packed(
+                table, torch.ones(1, dtype=torch.bool), wrap, 11, **mode)
+            assert_equal(got, want, str(mode))
+            assert (r_got, c_got) == (r_want, c_want), mode
+
+
+@needs_devices
+@pytest.mark.parametrize("nf", [3, 2, 1])
+@pytest.mark.parametrize("wrap", [True, False])
+@pytest.mark.parametrize("max_rounds", [1, 3, 7, 11, 14, 66])
+def test_frontier_shardmap_packed_matches_classic_loop(nf, wrap, max_rounds):
+    """8 shards of 8 rows, every mode against the unsharded classic loop:
+    converging (66 > P + 1) or cut off anywhere (inside a fused step, in
+    the tail), state, classic rounds and last-round residual."""
+    t = family(nf, 64, 512, 90 + nf, absent=0.9)
+    want, r_want, c_want = classic(nf, t, wrap, max_rounds)
+    tile = frontier_tile_n(512)
+    for mode in MODES:
+        got, r_got, c_got = sg.gossip_frontier_shardmap_packed(
+            sharded(nf, t), torch.ones(512 // tile, dtype=torch.bool), wrap, max_rounds, **mode)
+        assert_equal(got, want, str(mode))
+        assert (r_got, c_got) == (r_want, c_want), mode
+
+
+@needs_devices
+@pytest.mark.parametrize("mode", MODES)
+def test_frontier_shardmap_packed_sparse_seed_and_empty(mode):
+    """From a converged table, one changed entry and its one seeded stripe
+    land on the classic loop from the whole table; an empty seed runs
+    nothing."""
+    p, n = 64, 512
+    tile = frontier_tile_n(n)
+    base, _, _ = classic(3, family(3, p, n, 83, absent=0.95), True, p + 2)
+    upd = [np.array(f) for f in base]
+    upd[2][3, tile + 9] = (2 << 28) | 77
+    upd[0][3, tile + 9] = 10**9
+    want, r_want, _ = classic(3, upd, True, p + 2)
+    dirty = torch.zeros(n // tile, dtype=torch.bool)
+    dirty[1] = True
+    got, rounds, changed = sg.gossip_frontier_shardmap_packed(sharded(3, upd), dirty, True,
+                                                             p + 2, **mode)
+    assert_equal(got, want)
+    assert (rounds, changed) == (r_want, 0)
+    got, rounds, changed = sg.gossip_frontier_shardmap_packed(
+        sharded(3, upd), torch.zeros(n // tile, dtype=torch.bool), True, p + 2, **mode)
+    assert (rounds, changed) == (0, 0)
+    assert_equal(got, upd)
+
+
+def test_frontier_shardmap_packed_rejects_bad_depths():
+    table = sharded(1, family(1, 64, 256, 1))
+    seed = torch.ones(1, dtype=torch.bool)
+    with pytest.raises(ValueError, match="exclude"):
+        sg.gossip_frontier_shardmap_packed(table, seed, True, 9, fuse=8, window_fuse=5)
+    with pytest.raises(ValueError, match="rows per shard"):
+        sg.gossip_frontier_shardmap_packed(table, seed, True, 99, window_fuse=15)
+
+
+@needs_devices
+def test_reconcile_shardmap_packed_matches_reference():
+    for nf in (3, 2, 1):
+        t = family(nf, 64, 200, 5 + nf)
+        want = ref_pk.reconcile_packed_xla(J(nf, t))
+        got = sg.reconcile_shardmap_packed(sharded(nf, t))
+        assert_equal(got, want)

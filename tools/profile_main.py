@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Trace the device over the main paths of chip_smoke.py (its phases 4
-to 8: the dense, the packed, the rank1 and the lean ring, and the sharded
-dense ring).
+to 9: the dense, the packed, the rank1 and the lean ring, the sharded
+dense ring and the sharded packed and rank1 rings).
 
     python3 tools/profile_main.py [--seed S] [--peers P] [--capacity N] [--ops K]
                                   [--packed-capacity N] [--packed-ops K]
@@ -103,6 +103,8 @@ def main() -> int:
     chip_smoke.lean_main_path(args, dev, window=traced_window)
     torch.cuda.empty_cache()
     chip_smoke.sharded_main_path(args, dev, window=traced_window)
+    torch.cuda.empty_cache()
+    chip_smoke.sharded_packed_path(args, dev, window=traced_window, card=card)
     if not any(EVENTS.values()):
         raise RuntimeError(f"the profiler recorded no device activity: {EVENTS}")
     return 0
