@@ -77,7 +77,7 @@ _SIGNATURES = {
         ctypes.c_int, ctypes.c_int, ctypes.c_int, _P,
     ),
     "bt_frontier_shard_window": (
-        _P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+        _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, _P,
     ),
     "bt_apply_packed": (

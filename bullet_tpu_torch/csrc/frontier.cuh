@@ -2,8 +2,8 @@
 // place, on the active slot stripes only, then the next round's ids array.
 // frontier_dense.cu and frontier_packed.cu instantiate it for their entry
 // types (lexmax.cuh). Also the ordered compaction (compact_counts.cu) and
-// the extended-column sweep of the per-shard steps on a device mesh
-// (frontier_shard.cu, frontier_shard_window.cu).
+// the extended-column sweep of the per-shard step on a device mesh
+// (frontier_shard.cu).
 //
 // ids layout (as the reference's ops/packed.py frontier loops use it):
 //   [0, count)    active stripe ids, ascending
@@ -12,16 +12,24 @@
 //   [t_total+2]   max over stripes of the last round that changed it (m > 1)
 //
 // Design: block j owns stripe ids[j]; thread c of the block owns column c
-// of that stripe and runs m in-place column sweeps (bt::sweep_column) back
-// to back. Columns are independent under ring gossip, so no block-wide sync
-// is needed between rounds. The grid is t_total blocks; blocks with
-// j >= ids[t_total] exit at once, so the host never reads the count to size
-// the grid. The TPU appended ids in its sequential grid order; CUDA blocks
-// run in no order, so the round kernel writes each stripe's changed count
-// and last-changed round to scratch, and a second single-block kernel
-// compacts the surviving stripes (last == m) in ascending order with a
-// block prefix scan and writes the count, the changed total (wrapping mod
-// 2^32 like an int32 sum) and max(last).
+// of that stripe (lane = column, so a warp reads 32 consecutive int32 of a
+// row per field). Columns are independent under ring gossip, so no
+// block-wide sync is needed between rounds. The grid is t_total blocks;
+// blocks with j >= ids[t_total] exit at once, so the host never reads the
+// count to size the grid. The TPU appended ids in its sequential grid
+// order; CUDA blocks run in no order, so the round kernel writes each
+// stripe's changed count and last-changed round to scratch, and a second
+// single-block kernel compacts the surviving stripes (last == m) in
+// ascending order with a block prefix scan and writes the count, the
+// changed total (wrapping mod 2^32 like an int32 sum) and max(last).
+//
+// m = 1 is one in-place sweep (bt::sweep_column). m = kPipeDepth (the
+// wrappers' STRIPE_FUSE, the only fused depth the frontier loops send) is
+// one pipelined pass (frontier_pipe_kernel): stage k of the thread runs
+// round k one row behind stage k - 1, so the column is read once and
+// written once whatever m; the stripe (3 MB packed, 7 MB dense at
+// P = 1024) no longer has to survive in L2 across m sweeps. Any other m
+// runs m sweeps back to back.
 #pragma once
 
 #include "lexmax.cuh"
@@ -31,6 +39,8 @@ namespace bt {
 // widest stripe a block takes (one thread per column); the wrappers'
 // FRONTIER_TILE_MAX
 constexpr int kMaxTile = 256;
+// the fused depth of the pipelined pass: the wrappers' STRIPE_FUSE
+constexpr int kPipeDepth = 8;
 
 template <typename E>
 __global__ void __launch_bounds__(kMaxTile)
@@ -47,6 +57,295 @@ __global__ void __launch_bounds__(kMaxTile)
       const unsigned c = sweep_column<E>(t, col, p, n, wrap != 0);
       total += c;
       if (c) last = k;
+    }
+  }
+  total = block_sum(total);
+  last = block_max(last);
+  if (threadIdx.x == 0) {
+    stripe_changed[j] = total;
+    stripe_last[j] = last;
+  }
+}
+
+// The pipelined pass compares every value three times (as a stage's
+// `down`, `cur` and `up`), so it holds values in an order-preserving
+// encoding whose compare is cheapest. A one-word key (rank, rank1) is the
+// entry itself. A longer key is held as unsigned words, most significant
+// first, and b beats a iff a - b borrows: one subtract with borrow a word
+// (borrow_gt), against a chain of compares and branches.
+template <typename E>
+struct PipeKey {
+  __device__ __forceinline__ static void encode(int32_t (&)[E::NF]) {}
+  __device__ __forceinline__ static void decode(int32_t (&)[E::NF]) {}
+  __device__ __forceinline__ static bool gt(const int32_t (&b)[E::NF],
+                                            const int32_t (&a)[E::NF]) {
+    return E::gt(b, a);
+  }
+};
+
+// b > a as unsigned numbers of 3, 4 or 6 words, most significant first:
+// the borrow out of a - b
+__device__ __forceinline__ bool borrow_gt(int32_t b0, int32_t b1, int32_t b2, int32_t a0,
+                                          int32_t a1, int32_t a2) {
+  uint32_t borrow;
+  asm("{\n\t.reg .u32 t;\n\t"
+      "sub.cc.u32 t, %1, %2;\n\t"
+      "subc.cc.u32 t, %3, %4;\n\t"
+      "subc.cc.u32 t, %5, %6;\n\t"
+      "subc.u32 %0, 0, 0;\n\t}"
+      : "=r"(borrow)
+      : "r"(a2), "r"(b2), "r"(a1), "r"(b1), "r"(a0), "r"(b0));
+  return borrow != 0;
+}
+
+__device__ __forceinline__ bool borrow_gt(int32_t b0, int32_t b1, int32_t b2, int32_t b3,
+                                          int32_t a0, int32_t a1, int32_t a2, int32_t a3) {
+  uint32_t borrow;
+  asm("{\n\t.reg .u32 t;\n\t"
+      "sub.cc.u32 t, %1, %2;\n\t"
+      "subc.cc.u32 t, %3, %4;\n\t"
+      "subc.cc.u32 t, %5, %6;\n\t"
+      "subc.cc.u32 t, %7, %8;\n\t"
+      "subc.u32 %0, 0, 0;\n\t}"
+      : "=r"(borrow)
+      : "r"(a3), "r"(b3), "r"(a2), "r"(b2), "r"(a1), "r"(b1), "r"(a0), "r"(b0));
+  return borrow != 0;
+}
+
+__device__ __forceinline__ bool borrow_gt(int32_t b0, int32_t b1, int32_t b2, int32_t b3,
+                                          int32_t b4, int32_t b5, int32_t a0, int32_t a1,
+                                          int32_t a2, int32_t a3, int32_t a4, int32_t a5) {
+  uint32_t borrow;
+  asm("{\n\t.reg .u32 t;\n\t"
+      "sub.cc.u32 t, %1, %2;\n\t"
+      "subc.cc.u32 t, %3, %4;\n\t"
+      "subc.cc.u32 t, %5, %6;\n\t"
+      "subc.cc.u32 t, %7, %8;\n\t"
+      "subc.cc.u32 t, %9, %10;\n\t"
+      "subc.cc.u32 t, %11, %12;\n\t"
+      "subc.u32 %0, 0, 0;\n\t}"
+      : "=r"(borrow)
+      : "r"(a5), "r"(b5), "r"(a4), "r"(b4), "r"(a3), "r"(b3), "r"(a2), "r"(b2), "r"(a1),
+        "r"(b1), "r"(a0), "r"(b0));
+  return borrow != 0;
+}
+
+// Packed (khi, klo, cv) is keyed (cls, khi, klo, vid): 4 + 32 + 32 + 28 =
+// 96 bits, held as three words w0 w1 w2 = cls' khi' klo' vid, the signed
+// fields biased (cls ^ 8 on its 4 bits, khi and klo ^ 2^31) so that the
+// unsigned order is the signed one.
+template <>
+struct PipeKey<PackedEntry> {
+  __device__ __forceinline__ static void encode(int32_t (&v)[3]) {
+    const uint32_t cls = ((uint32_t)v[2] >> kCvShift) ^ 8u;
+    const uint32_t hi = (uint32_t)v[0] ^ 0x80000000u, lo = (uint32_t)v[1] ^ 0x80000000u;
+    v[0] = (int32_t)__funnelshift_r(hi, cls, 4);
+    v[1] = (int32_t)__funnelshift_r(lo, hi, 4);
+    v[2] = (int32_t)((lo << kCvShift) | ((uint32_t)v[2] & 0x0fffffffu));
+  }
+  __device__ __forceinline__ static void decode(int32_t (&v)[3]) {
+    const uint32_t w0 = v[0], w1 = v[1], w2 = v[2];
+    v[0] = (int32_t)(__funnelshift_l(w1, w0, 4) ^ 0x80000000u);
+    v[1] = (int32_t)(__funnelshift_l(w2, w1, 4) ^ 0x80000000u);
+    v[2] = (int32_t)((((w0 >> kCvShift) ^ 8u) << kCvShift) | (w2 & 0x0fffffffu));
+  }
+  __device__ __forceinline__ static bool gt(const int32_t (&b)[3], const int32_t (&a)[3]) {
+    return borrow_gt(b[0], b[1], b[2], a[0], a[1], a[2]);
+  }
+};
+
+// Dense (7 fields, 6 of them keyed; tick carried) and lean (4 keyed): the
+// key words biased by 2^31.
+template <bool LWW>
+struct PipeKey<DenseEntry<LWW>> {
+  __device__ __forceinline__ static void encode(int32_t (&v)[7]) {
+#pragma unroll
+    for (int f = 0; f < 6; ++f) v[f] ^= INT32_MIN;
+  }
+  __device__ __forceinline__ static void decode(int32_t (&v)[7]) { encode(v); }
+  __device__ __forceinline__ static bool gt(const int32_t (&b)[7], const int32_t (&a)[7]) {
+    if (LWW) {
+      return borrow_gt(b[5], b[0], b[1], b[2], b[3], b[4], a[5], a[0], a[1], a[2], a[3], a[4]);
+    }
+    return borrow_gt(b[0], b[1], b[2], b[3], b[4], b[5], a[0], a[1], a[2], a[3], a[4], a[5]);
+  }
+};
+
+template <>
+struct PipeKey<LeanEntry> {
+  __device__ __forceinline__ static void encode(int32_t (&v)[4]) {
+#pragma unroll
+    for (int f = 0; f < 4; ++f) v[f] ^= INT32_MIN;
+  }
+  __device__ __forceinline__ static void decode(int32_t (&v)[4]) { encode(v); }
+  __device__ __forceinline__ static bool gt(const int32_t (&b)[4], const int32_t (&a)[4]) {
+    return borrow_gt(b[0], b[1], b[2], b[3], a[0], a[1], a[2], a[3]);
+  }
+};
+
+// Input e of the pipelined pass over the extended sequence of p + 2 M rows,
+// real row (e - M) mod p, encoded (PipeKey): a ring reads rows p - M..p - 1
+// (mod p) before any store and, for e >= p + M, its original rows 0..M - 1
+// (mod p) from the thread's copy in shared memory (saved[(r * NF + f) *
+// blockDim.x + tid]), since the pass has overwritten them by then; a chain
+// takes the all-zero entry outside [M, p + M).
+template <typename E, int M>
+__device__ __forceinline__ void pipe_input(int32_t (&v)[E::NF], const Fields<E::NF>& t,
+                                           int32_t* saved, int e, int p, int64_t n,
+                                           int64_t col, bool wrap) {
+  constexpr int NF = E::NF;
+  const int r = e - M;
+  if (!wrap) {
+    if (r < 0 || r >= p) {
+      zero_entry(v);
+    } else {
+      load_entry(v, t, (int64_t)r * n + col);
+    }
+    PipeKey<E>::encode(v);
+    return;
+  }
+  if (r >= p) {
+#pragma unroll
+    for (int f = 0; f < NF; ++f) v[f] = saved[((r % p) * NF + f) * blockDim.x + threadIdx.x];
+    return;
+  }
+  const int real = r < 0 ? ((r % p) + p) % p : r;
+  load_entry(v, t, (int64_t)real * n + col);
+  PipeKey<E>::encode(v);
+  if (r >= 0 && r < M) {
+#pragma unroll
+    for (int f = 0; f < NF; ++f) saved[(r * NF + f) * blockDim.x + threadIdx.x] = v[f];
+  }
+}
+
+// Step e of the pipelined pass, R = e mod 3. h[k] holds stage k's last
+// three inputs in rotation: in_e(k) in slot e mod 3, so at step e slot
+// R + 1 holds in_{e-2} (its pre-round `up`) and slot R + 2 in_{e-1}
+// (`cur`), all mod 3; stage k writes its output straight into slot R of
+// stage k + 1, whose old value in_{e-3} is dead, so no value ever moves
+// between registers. cnt[k] counts stage k's wins in the central copy.
+// EDGE = false is a step e in [2 M, p + M], where every stage's row lies in
+// the central copy and input e + 1 exists: no row test at all.
+template <typename E, int M, int R, bool EDGE>
+__device__ __forceinline__ void pipe_step(int32_t (&h)[M][3][E::NF], int32_t (&next)[E::NF],
+                                          unsigned (&cnt)[M], const int32_t (&zero)[E::NF],
+                                          const Fields<E::NF>& t, int32_t* saved, int e, int p,
+                                          int64_t n, int64_t col, bool ring) {
+  constexpr int NF = E::NF;
+  using K = PipeKey<E>;
+  copy_entry(h[0][R], next);
+  if (!EDGE || e + 1 < p + 2 * M) pipe_input<E, M>(next, t, saved, e + 1, p, n, col, ring);
+  int32_t out[NF];
+#pragma unroll
+  for (int k = 0; k < M; ++k) {  // stage k + 1 emits y_{k+1}[e - k - 1]
+    const int row = e - k - 1;
+    const int32_t(&up)[NF] = h[k][(R + 1) % 3];
+    const int32_t(&cur)[NF] = h[k][(R + 2) % 3];
+    const int32_t(&down)[NF] = h[k][R];
+    int32_t v[NF];
+    const bool g1 = K::gt(up, cur);
+#pragma unroll
+    for (int f = 0; f < NF; ++f) v[f] = g1 ? up[f] : cur[f];
+    const bool g2 = K::gt(down, v);
+#pragma unroll
+    for (int f = 0; f < NF; ++f) v[f] = g2 ? down[f] : v[f];
+    if (!EDGE || (row >= M && row < p + M)) {
+      cnt[k] += (unsigned)g1 + (unsigned)g2;
+    } else if (!ring) {
+      copy_entry(v, zero);
+    }
+    if (k + 1 < M) {
+      copy_entry(h[k + 1][R], v);
+    } else {
+      copy_entry(out, v);
+    }
+  }
+  if (!EDGE || e >= 2 * M) {
+    K::decode(out);
+    store_entry(t, (int64_t)(e - 2 * M) * n + col, out);
+  }
+}
+
+// Steps [e, end) of the pipelined pass, each with its rotation slot e mod 3
+// as a template argument: single steps up to a multiple of 3, then the
+// unrolled body, then at most two single steps.
+template <typename E, int M, bool EDGE>
+__device__ __forceinline__ void pipe_steps(int32_t (&h)[M][3][E::NF], int32_t (&next)[E::NF],
+                                           unsigned (&cnt)[M], const int32_t (&zero)[E::NF],
+                                           const Fields<E::NF>& t, int32_t* saved, int e,
+                                           int end, int p, int64_t n, int64_t col, bool ring) {
+  for (; e < end && e % 3 != 0; ++e) {
+    if (e % 3 == 1) {
+      pipe_step<E, M, 1, EDGE>(h, next, cnt, zero, t, saved, e, p, n, col, ring);
+    } else {
+      pipe_step<E, M, 2, EDGE>(h, next, cnt, zero, t, saved, e, p, n, col, ring);
+    }
+  }
+  for (; e + 3 <= end; e += 3) {
+    pipe_step<E, M, 0, EDGE>(h, next, cnt, zero, t, saved, e, p, n, col, ring);
+    pipe_step<E, M, 1, EDGE>(h, next, cnt, zero, t, saved, e + 1, p, n, col, ring);
+    pipe_step<E, M, 2, EDGE>(h, next, cnt, zero, t, saved, e + 2, p, n, col, ring);
+  }
+  if (e < end) pipe_step<E, M, 0, EDGE>(h, next, cnt, zero, t, saved, e, p, n, col, ring);
+  if (e + 1 < end) {
+    pipe_step<E, M, 1, EDGE>(h, next, cnt, zero, t, saved, e + 1, p, n, col, ring);
+  }
+}
+
+// M rounds in one pass per column. Step e reads input e (y_0[e]); stage k
+// (1..M) holds round k - 1's outputs y_{k-1}[e - k - 1] and y_{k-1}[e - k]
+// (its pre-round `up` and `cur`), receives y_{k-1}[e - k + 1] from stage
+// k - 1 as `down`, and emits y_k[e - k] to stage k + 1. Stage M's output
+// row e - M is real row e - 2 M, stored for e in [2 M, p + 2 M): each row is
+// read once and written once, after stage M. On a ring, y_k[j] is exact
+// for j in [k, p + 2 M - k) (the trapezoid), which holds the central copy
+// j in [M, p + M) at every stage; rows outside it are garbage that never
+// reaches it. On a chain the rows outside the central copy are the
+// constant all-zero neighbours: stage 1 reads zeros there and every stage
+// writes zeros there, which are still compared, as in sweep_column. Only
+// the central copy counts: stripe_changed sums gt(up) + gt(down) over
+// rounds and rows (an entry can count twice, wrapping mod 2^32), and
+// stripe_last is the last round with a nonzero count, exactly as m classic
+// sweeps count them. The steps run unrolled by 3, the period of the
+// history's rotation (pipe_step), those in [2 M, p + M] without any row
+// test. Dynamic shared memory: M x NF x blockDim.x int32 for the ring's
+// saved rows.
+template <typename E, int M>
+__global__ void __launch_bounds__(kMaxTile)
+    frontier_pipe_kernel(Fields<E::NF> t, const int32_t* ids, int p, int64_t n, int tile_n,
+                         int t_total, int wrap, unsigned* stripe_changed,
+                         int32_t* stripe_last) {
+  constexpr int NF = E::NF;
+  extern __shared__ int32_t saved[];
+  const int j = blockIdx.x;
+  if (j >= ids[t_total]) return;  // uniform across the block
+  const int64_t col = (int64_t)ids[j] * tile_n + threadIdx.x;
+  const bool ring = wrap != 0;
+  unsigned total = 0;
+  int last = 0;
+  if (threadIdx.x < tile_n && col < n) {
+    int32_t zero[NF];
+    zero_entry(zero);
+    PipeKey<E>::encode(zero);
+    int32_t h[M][3][NF];
+    unsigned cnt[M];
+#pragma unroll
+    for (int k = 0; k < M; ++k) {
+      cnt[k] = 0;
+#pragma unroll
+      for (int s = 0; s < 3; ++s) copy_entry(h[k][s], zero);
+    }
+    const int len = p + 2 * M;
+    int32_t next[NF];
+    pipe_input<E, M>(next, t, saved, 0, p, n, col, ring);
+    const int head = min(2 * M, len), body = max(head, p + M + 1);
+    pipe_steps<E, M, true>(h, next, cnt, zero, t, saved, 0, head, p, n, col, ring);
+    pipe_steps<E, M, false>(h, next, cnt, zero, t, saved, head, body, p, n, col, ring);
+    pipe_steps<E, M, true>(h, next, cnt, zero, t, saved, body, len, p, n, col, ring);
+#pragma unroll
+    for (int k = 0; k < M; ++k) {
+      total += cnt[k];
+      if (cnt[k]) last = k + 1;
     }
   }
   total = block_sum(total);
@@ -133,7 +432,7 @@ __device__ __forceinline__ void ordered_compact(int count, int t_total, int m,
   }
 }
 
-// One shard's extended column (frontier_shard.cu, frontier_shard_window.cu):
+// One shard's extended column (frontier_shard.cu):
 // s rows of top, b rows of mid, s rows of bot, every segment row-major with
 // row stride n.
 template <int NF>
@@ -232,7 +531,17 @@ cudaError_t launch_frontier_round(void* const* fields, const void* ids, void* id
   auto* in = static_cast<const int32_t*>(ids);
   auto* sc = static_cast<unsigned*>(stripe_changed);
   auto* sl = static_cast<int32_t*>(stripe_last);
-  if (t_total > 0) {
+  if (t_total > 0 && m == kPipeDepth) {
+    auto* kernel = frontier_pipe_kernel<E, kPipeDepth>;
+    const int smem = kPipeDepth * E::NF * tile_n * (int)sizeof(int32_t);
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<t_total, tile_n, smem, s>>>(fields_of<E::NF>(fields), in, p, n, tile_n, t_total,
+                                         wrap, sc, sl);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  } else if (t_total > 0) {
     frontier_round_kernel<E><<<t_total, tile_n, 0, s>>>(
         fields_of<E::NF>(fields), in, p, n, tile_n, t_total, m, wrap, sc, sl);
     cudaError_t err = cudaGetLastError();

@@ -5,12 +5,11 @@
 // Replaces: bullet_tpu/ops/ring_kernel.py::_frontier_fullp_kernel_dense
 // (nf = 7 full metadata and nf = 4 lean, m = 1 and m > 1).
 //
-// Bound on the H100: device memory. A fused step reads and writes each
-// entry of an active stripe once per round (8 x nf bytes per entry per
-// round: 56 full, 32 lean); a settled stripe costs nothing. The
-// P x tile_n x nf x 4 byte stripe of a block (7 MB at P = 1024,
-// tile_n = 256, nf = 7) is re-read from L2 in later fused rounds while it
-// stays resident.
+// Bound on the H100: device memory. A step reads and writes each entry of
+// an active stripe once (8 x nf bytes per entry: 56 full, 32 lean),
+// whatever m: m = 8 is one pipelined pass that keeps the last two rows of
+// every round in registers (frontier.cuh, frontier_pipe_kernel; 112 int32
+// of history at nf = 7); a settled stripe costs nothing.
 #include "frontier.cuh"
 
 namespace {

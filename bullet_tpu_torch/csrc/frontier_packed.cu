@@ -9,11 +9,11 @@
 // also computes what the peer-tile variants ::_frontier_halo_kernel_packed
 // and ::_frontier_halo_multiround_kernel_packed compute, for any P.
 //
-// Bound on the H100: device memory. A fused step reads and writes each
-// entry of an active stripe once per round (2 x NF x 4 bytes per entry per
-// round); a settled stripe costs nothing. A block's stripe is
-// P x tile_n x NF x 4 bytes (3 MB at P = 1024, tile_n = 256, NF = 3),
-// re-read from L2 in later fused rounds while it stays resident.
+// Bound on the H100: device memory. A step reads and writes each entry of
+// an active stripe once (2 x NF x 4 bytes per entry), whatever m: m = 8 is
+// one pipelined pass that keeps the last two rows of every round in
+// registers (frontier.cuh, frontier_pipe_kernel); a settled stripe costs
+// nothing.
 #include "frontier.cuh"
 
 namespace {

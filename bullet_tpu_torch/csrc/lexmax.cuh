@@ -3,7 +3,8 @@
 // ring/chain round runs, and block reductions.
 //
 // An entry type E gives the field count E::NF and E::gt(b, a), "b beats a
-// strictly", comparing SIGNED int32 keys:
+// strictly", comparing SIGNED int32 keys (the packed family also E::eq(b,
+// a), "equal keys"):
 //   DenseEntry<false>: fields (cls, khi, klo, vid, writer, ctr, tick), the
 //     TableState order, keyed (cls, khi, klo, vid, writer, ctr) (reference);
 //   DenseEntry<true>:  the same fields keyed (ctr, cls, khi, klo, vid,
@@ -74,6 +75,11 @@ struct PackedEntry {
     if (b[1] != a[1]) return b[1] > a[1];
     return b[2] > a[2];
   }
+  // equal keys (cls, khi, klo, vid): the three fields equal
+  __device__ __forceinline__ static bool eq(const int32_t (&b)[NF],
+                                            const int32_t (&a)[NF]) {
+    return b[0] == a[0] && b[1] == a[1] && b[2] == a[2];
+  }
   // a live op: cls (the top bits of cv) > 0
   __device__ __forceinline__ static bool present(const int32_t (&v)[NF]) {
     return (v[2] >> kCvShift) > 0;
@@ -86,6 +92,11 @@ struct RankEntry {
                                             const int32_t (&a)[NF]) {
     return b[0] > a[0];
   }
+  // equal keys: the rank alone
+  __device__ __forceinline__ static bool eq(const int32_t (&b)[NF],
+                                            const int32_t (&a)[NF]) {
+    return b[0] == a[0];
+  }
   __device__ __forceinline__ static bool present(const int32_t (&v)[NF]) {
     return (v[1] >> kCvShift) > 0;
   }
@@ -96,6 +107,10 @@ struct Rank1Entry {
   __device__ __forceinline__ static bool gt(const int32_t (&b)[NF],
                                             const int32_t (&a)[NF]) {
     return b[0] > a[0];
+  }
+  __device__ __forceinline__ static bool eq(const int32_t (&b)[NF],
+                                            const int32_t (&a)[NF]) {
+    return b[0] == a[0];
   }
   __device__ __forceinline__ static bool present(const int32_t (&v)[NF]) {
     return v[0] > 0;

@@ -843,13 +843,13 @@ def frontier_shard_window(fields, tops, bottoms, ids: torch.Tensor, tile_n: int,
                           m: int) -> torch.Tensor:
     """One per-shard window step of ``m`` rounds on a packed-family shard
     (see ``frontier_shard_window_torch``): the CUDA kernel
-    (``csrc/frontier_shard_window.cu``: m in-place sweeps of the extended
-    column, a per-call bitmask marking each entry's first change) for CUDA
+    (``csrc/frontier_shard_window.cu``: the distance chain on a tile of the
+    extended column in shared memory, read and written once) for CUDA
     tensors, the plain version for CPU tensors. ``tops`` and ``bottoms``
-    are the neighbour shards' [m, N] slabs, per-call scratch that the
-    kernel overwrites. Returns the int32 [2, t_total] window stats; the
-    caller sums row 0 and maxes row 1 over the shards and folds them
-    (``compact_counts_window``)."""
+    are the neighbour shards' [m, N] slabs, taken before any shard's step;
+    the kernel only reads them. Returns the int32 [2, t_total] window
+    stats; the caller sums row 0 and maxes row 1 over the shards and folds
+    them (``compact_counts_window``)."""
     nf = len(fields)
     if nf not in (1, 2, 3):
         raise ValueError(f"frontier_shard_window takes 1, 2 or 3 fields, got {nf}")
@@ -858,12 +858,9 @@ def frontier_shard_window(fields, tops, bottoms, ids: torch.Tensor, tile_n: int,
         raise ValueError(f"a window of {m} rounds takes {m}-row slabs, got {tops[0].shape[0]}")
     if fields[0].device.type == "cpu":
         return frontier_shard_window_torch(fields, tops, bottoms, ids, tile_n, m)
-    b, n = fields[0].shape
-    device = fields[0].device
-    stats = torch.zeros((2, n // tile_n), dtype=torch.int32, device=device)
-    marks = torch.zeros(((b + 31) // 32, n), dtype=torch.int32, device=device)
-    launch_shard_step("frontier_shard_window", fields, tops, bottoms, ids, tile_n,
-                      (stats, marks), nf)
+    stats = torch.zeros((2, fields[0].shape[1] // tile_n), dtype=torch.int32,
+                        device=fields[0].device)
+    launch_shard_step("frontier_shard_window", fields, tops, bottoms, ids, tile_n, (stats,), nf)
     _build.LAUNCHES["frontier_shard_window"] += 1
     return stats
 

@@ -15,16 +15,20 @@ Phases, in order; any failure raises and exits nonzero:
    small and ragged shapes, at P = 4096 (where the TPU took its peer-tile
    kernels) and at the main-path shapes, with times per call there; the
    packed-family kernels at each field count (packed, rank, rank1), the
-   window join also at rank1 8192 x 2^18 (the TPU's halo-window shape);
-   then small dense, packed, rank and rank1 sims on the card against the
-   same sims on the CPU; the lean round, the lean frontier (m = 1, 8) and
+   window join also at rank1 8192 x 2^18 (the TPU's halo-window shape),
+   the frontiers (dense, lean, packed family) at m = 1 and 8 on rings and
+   chains of P in {1, 2, 3, 17, 64, 1000, 4096}, with stripes that settle
+   inside a fused step and leave the frontier, the whole ids array
+   compared; then small dense, packed, rank and rank1 sims on the card
+   against the same sims on the CPU; the lean round, the lean frontier and
    the lean merge at 1024 x 2^20 and ragged shapes; the per-shard frontier
    at 256 x 2^18 per shard (reference, lww, lean; m = 1, 8; random and
    zeroed boundary rows); the count compaction on random, all-zero and
    all-dirty counts; small lean and sharded sims on the card against the
    CPU; the packed family's per-shard kernels at nf = 3, 2, 1 (the ring
    step m = 1, the fused step m = 8, the window m = 3, 15, 63; random and
-   zeroed boundary rows; small, ragged and one 256 x 2^20 shard, timed)
+   zeroed boundary rows; small, ragged, 1024 x 4096 (the window's row
+   tiles) and one 256 x 2^20 shard, timed)
    and the window fold on random, all-zero and all-at-m stats; small
    packed, rank and rank1 sims on 4 shards on the card against the CPU;
 4. dense main path: a dense ring PeerNetworkSim at P x N (default
@@ -337,6 +341,31 @@ def _ids(dirty: np.ndarray, m: int, dev) -> torch.Tensor:
     return ids
 
 
+# P of the frontier checks (ring and chain, m = 1 and 8): tiny rings where
+# the pipelined pass's 2 m extension rows are copies of rows taken mod P,
+# 17 (P > 2 m), and the big-P shapes
+FRONTIER_PS = (1, 2, 3, 17, 64, 1000, 4096)
+FRONTIER_WIDTH = {1: 64, 2: 64, 3: 96, 17: 96, 64: 2048, 1000: 512, 4096: 256}
+# an entry that beats every random one of its layout, by field count (7
+# dense, 4 lean keys, 3 packed, 2 rank, 1 rank1)
+TOP = {7: (9,) * 7, 4: (9,) * 4, 3: (9, 9, (5 << 28) | 9), 2: (100, (1 << 28) | 100),
+       1: (100,)}
+
+
+def settling(table, tile: int, nf: int):
+    """A copy of ``table`` whose even stripes hold TOP outside rows 5..9:
+    they settle in round 3 of a fused step (row 7 last), so their last
+    changed round is below 8 and they leave the frontier; the odd stripes
+    keep changing (P >= 17)."""
+    out = clone(table)
+    n = out[0].shape[1]
+    for s0 in range(0, n, 2 * tile):
+        for f, v in zip(out[:nf], TOP[nf]):
+            f[:5, s0:s0 + tile] = v
+            f[10:, s0:s0 + tile] = v
+    return out
+
+
 def _frontier_pair(table, ids, tile, wrap, mode, m):
     from bullet_tpu_torch.ops.ring_kernel import (
         frontier_round_dense,
@@ -364,20 +393,22 @@ def check_frontier(dev, main_shape, errs, times):
     )
 
     rng = np.random.default_rng(7)
-    for p, n in ((1, 64), (3, 96), (64, 2048), (1000, 512)):
+    for p in FRONTIER_PS:
+        n = FRONTIER_WIDTH[p]
         tile = frontier_tile_n(n)
         t_total = n // tile
         table = random_table(200 + p, p, n, dev)
-        for m in (1, 8):
-            for dirty in (np.ones(t_total, bool), rng.random(t_total) < 0.4):
-                for wrap in (True, False):
-                    for mode in ("reference", "lww"):
-                        e = _frontier_pair(table, _ids(dirty, m, dev), tile, wrap, mode, m)
-                        errs["frontier_round_dense"] = max(errs["frontier_round_dense"], e)
-                        if e:
-                            raise AssertionError(
-                                f"frontier p={p} n={n} m={m} wrap={wrap} {mode}: "
-                                f"max_abs_err {e}")
+        cases = [(table, m, dirty) for m in (1, 8)
+                 for dirty in (np.ones(t_total, bool), rng.random(t_total) < 0.4)]
+        if p >= 17:
+            cases.append((settling(table, tile, 7), 8, np.ones(t_total, bool)))
+        for (base, m, dirty), wrap, mode in itertools.product(
+                cases, (True, False), ("reference", "lww")):
+            e = _frontier_pair(base, _ids(dirty, m, dev), tile, wrap, mode, m)
+            errs["frontier_round_dense"] = max(errs["frontier_round_dense"], e)
+            if e:
+                raise AssertionError(
+                    f"frontier p={p} n={n} m={m} wrap={wrap} {mode}: max_abs_err {e}")
     p, n = main_shape
     tile = frontier_tile_n(n)
     t_total = n // tile
@@ -670,7 +701,8 @@ def check_frontier_packed(dev, main_shape, errs, times, nf):
         return count, ms
 
     rng = np.random.default_rng(9 + nf)
-    for p, n in ((1, 64), (3, 96), (64, 2048), (1000, 512), (4096, 256)):
+    for p in FRONTIER_PS:
+        n = FRONTIER_WIDTH[p]
         tile = pk.frontier_tile_n(n)
         t_total = n // tile
         base = random_family(nf, 600 + p, p, n, dev)
@@ -679,6 +711,14 @@ def check_frontier_packed(dev, main_shape, errs, times, nf):
                 for wrap in (True, False):
                     pair(clone(base), clone(base), _ids(dirty, m, dev), tile, wrap, m,
                          f"{p}x{n} m={m} wrap={wrap} dirty={int(dirty.sum())}/{t_total}")
+        if p >= 17:
+            calm = settling(base, tile, nf)
+            for wrap in (True, False):
+                left = pair(clone(calm), clone(calm), _ids(np.ones(t_total, bool), 8, dev), tile,
+                            wrap, 8, f"{p}x{n} m=8 wrap={wrap} settling")[0]
+                if left > t_total // 2:
+                    raise AssertionError(f"frontier_round_packed nf={nf} {p}x{n}: {left} of "
+                                         f"{t_total} stripes kept, the settled ones among them")
         del base
     # the main shape, all stripes and then a sparse frontier: more than the
     # 1024 stripes the compaction block scans at a time, so its multi-chunk
@@ -896,15 +936,18 @@ def check_frontier_lean(dev, lean_shape, errs, times):
         return ms
 
     rng = np.random.default_rng(13)
-    for p, n in ((1, 64), (3, 96), (64, 2048), (1000, 512)):
+    for p in FRONTIER_PS:
+        n = FRONTIER_WIDTH[p]
         tile = frontier_tile_n(n)
         t_total = n // tile
         base = random_table(210 + p, p, n, dev)
-        for m in (1, 8):
-            for dirty in (np.ones(t_total, bool), rng.random(t_total) < 0.4):
-                for wrap in (True, False):
-                    pair(clone(base), clone(base), _ids(dirty, m, dev), tile, wrap, m,
-                         f"{p}x{n} m={m} wrap={wrap}")
+        cases = [(base, m, dirty) for m in (1, 8)
+                 for dirty in (np.ones(t_total, bool), rng.random(t_total) < 0.4)]
+        if p >= 17:
+            cases.append((settling(base, tile, 4), 8, np.ones(t_total, bool)))
+        for (table, m, dirty), wrap in itertools.product(cases, (True, False)):
+            pair(clone(table), clone(table), _ids(dirty, m, dev), tile, wrap, m,
+                 f"{p}x{n} m={m} wrap={wrap}")
     p, n = lean_shape
     tile = frontier_tile_n(n)
     t_total = n // tile
@@ -1125,7 +1168,7 @@ def shard_bound(nf: int, b: int, s: int, n: int, joins: int):
 def window_joins(m: int) -> int:
     """Joins of the reference's distance chain to radius m: two per
     doubling step s = min(m - r, r + 1) (the least work that computes the
-    window step; the kernel runs m classic rounds instead)."""
+    window step, and the kernel's)."""
     r = steps = 0
     while r < m:
         r += min(m - r, r + 1)
@@ -1138,8 +1181,11 @@ def check_frontier_shard_packed(dev, shard_shape, errs, times, nf):
     #22 (m = 1) and #23 (m = 8) with s = m boundary rows, #25 (the window,
     m = 3, 15 and 63 on m-row slabs), on random boundary rows (a ring, or
     a chain's inner shard) and zeroed ones (a chain's end shard), all and
-    sparse stripes, small and ragged shards; then one shard of the phase 9
-    mesh (256 x 2^20 by default), timed. Rows, counts and stats exact."""
+    sparse stripes, small and ragged shards, a stripe split over blocks of
+    the window (16 columns each) and a shard of 1024 rows, more than the
+    window kernel's shared-memory tile holds at nf = 3 (its row tiles and
+    their carried halos); then one shard of the phase 9 mesh (256 x 2^20 by
+    default), timed. Rows, counts and stats exact."""
     from bullet_tpu_torch.ops import packed as pk
     from bullet_tpu_torch.ops.ring_kernel import frontier_tile_n, frontier_shard_round_torch
 
@@ -1170,7 +1216,7 @@ def check_frontier_shard_packed(dev, shard_shape, errs, times, nf):
         _pair(name, errs, (*got, c_got), (*want, c_want), f"nf={nf} {what}")
         return ms
 
-    for b, n in ((8, 64), (8, 1024), (37, 512), (256, 4096)):
+    for b, n in ((8, 64), (8, 1024), (37, 512), (256, 4096), (1024, 4096)):
         base = random_family(nf, 800 + b, b, n, dev)
         t_total = n // frontier_tile_n(n)
         for m, window in ((1, False), (8, False), (3, True), (15, True), (63, True)):

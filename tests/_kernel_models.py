@@ -1,0 +1,270 @@
+"""CPU models of the port's two fused frontier kernels, step by step as the
+CUDA kernels schedule their work, for the tests to hold against the
+reference (the kernels themselves run only on the card):
+
+- ``frontier_pipe_model``: ``frontier_pipe_kernel`` of
+  ``bullet_tpu_torch/csrc/frontier.cuh``, the pipelined m-round pass of
+  the compacting frontier step (#19, #16 and #8 at m = 8), with the
+  order-preserving key encodings it holds values in (``PipeKey``);
+- ``shard_window_model``: ``frontier_shard_window.cu`` (#25), the distance
+  chain on shared-memory row tiles with carried halos and the atomic stats
+  reduction.
+
+Every model vectorises over columns (a column is a CUDA thread, or a lane
+of a block, and columns never interact) and follows the kernel's order of
+reads, stores and reductions."""
+
+import torch
+
+from bullet_tpu_torch.ops import packed as pk
+
+# frontier_shard_window.cu's constants
+WINDOW_COLS = 16
+FLAG = 1 << 30
+DIST_MASK = FLAG - 1
+FILL = 1 << 24
+# cudaDevAttrMaxSharedMemoryPerBlockOptin on an H100
+H100_SMEM_OPTIN = 232448
+
+
+MASK32 = 0xFFFFFFFF
+BIAS = 0x80000000
+
+
+def _u32(x):
+    """int32 bits as their unsigned value (int64)."""
+    return x.to(torch.int64) & MASK32
+
+
+def _s32(x):
+    """Unsigned values (int64) back to int32 bits."""
+    return (x - ((x >> 31) << 32)).to(torch.int32)
+
+
+class PipeKey:
+    """frontier.cuh's PipeKey<E> for a layout ("packed", "rank", "rank1",
+    "reference" and "lww" for the 7 dense fields, "lean"): the words the
+    pipelined pass holds an entry in, field by field as int64. A one-word
+    key (rank, rank1) is the entry itself, compared signed. Longer keys are
+    unsigned words, ``gt`` the borrow out of a - b over the key words
+    (least significant first, as the subtract chain runs): the dense and
+    lean key words biased by 2^31, the packed key (cls, khi, klo, vid),
+    96 bits, repacked into three words with cls ^ 8 and khi, klo ^ 2^31."""
+
+    ORDER = {"packed": (0, 1, 2), "reference": (0, 1, 2, 3, 4, 5),
+             "lww": (5, 0, 1, 2, 3, 4), "lean": (0, 1, 2, 3)}
+
+    def __init__(self, layout):
+        self.layout = layout
+
+    def encode(self, fields):
+        if self.layout in ("rank", "rank1"):
+            return [f.to(torch.int64) for f in fields]
+        if self.layout == "packed":
+            khi, klo, cv = map(_u32, fields)
+            cls, hi, lo = (cv >> 28) ^ 8, khi ^ BIAS, klo ^ BIAS
+            return [(cls << 28) | (hi >> 4), ((hi << 28) & MASK32) | (lo >> 4),
+                    ((lo << 28) & MASK32) | (cv & 0x0FFFFFFF)]
+        keyed = len(self.ORDER[self.layout])
+        return [_u32(f) ^ (BIAS if i < keyed else 0) for i, f in enumerate(fields)]
+
+    def decode(self, words):
+        if self.layout in ("rank", "rank1"):
+            return [w.to(torch.int32) for w in words]
+        if self.layout == "packed":
+            w0, w1, w2 = words
+            hi = ((w0 << 4) & MASK32) | (w1 >> 28)
+            lo = ((w1 << 4) & MASK32) | (w2 >> 28)
+            return [_s32(hi ^ BIAS), _s32(lo ^ BIAS),
+                    _s32((((w0 >> 28) ^ 8) << 28) | (w2 & 0x0FFFFFFF))]
+        keyed = len(self.ORDER[self.layout])
+        return [_s32(w ^ (BIAS if i < keyed else 0)) for i, w in enumerate(words)]
+
+    def gt(self, b, a):
+        if self.layout in ("rank", "rank1"):
+            return b[0] > a[0]
+        borrow = torch.zeros_like(a[0])
+        for i in reversed(self.ORDER[self.layout]):
+            borrow = (a[i] - b[i] - borrow < 0).to(torch.int64)
+        return borrow.bool()
+
+
+def frontier_pipe_model(fields, ids, tile, wrap, key, depth):
+    """One compacting frontier step of ``depth`` rounds as the pipelined
+    pass runs it, in place on ``fields``: per column, step e of the
+    extended sequence (p + 2 depth rows, real row (e - depth) mod p) reads
+    input e in ``key``'s encoding (a ring's rows 0..depth - 1 from the
+    encoded copy saved when first read, since the pass has overwritten
+    them; a chain's encoded zero rows outside the central copy), stage k
+    emits round k at row e - k from its two kept rows and stage k - 1's
+    output, compared by ``key.gt``, only the central copy counts (a chain's
+    rows outside it forced to zero), and stage depth's output is decoded
+    and stored at real row e - 2 depth. Returns the next ids array (the
+    compaction of frontier.cuh: last == depth kept in ascending order, the
+    count, the changed total wrapping like int32, the max last round). The
+    kernel's rotation of each stage's history through three register slots
+    moves the same values, and its steps in [2 depth, p + depth] skip the
+    row tests, which hold there; the model keeps both plain."""
+    p, n = fields[0].shape
+    t_total = n // tile
+    count = int(ids[t_total])
+    out = torch.zeros(t_total + (3 if depth > 1 else 2), dtype=torch.int32)
+    if count == 0:
+        return out
+    stripes = ids[:count].to(torch.int64)
+    cols = (stripes[:, None] * tile + torch.arange(tile)).reshape(-1)
+    table = [f[:, cols].clone() for f in fields]
+    zero = key.encode([torch.zeros(cols.numel(), dtype=torch.int32) for _ in fields])
+    saved = {}
+
+    def read(e):
+        r = e - depth
+        if not wrap:
+            return key.encode([t[r] for t in table]) if 0 <= r < p else zero
+        if r >= p:
+            return saved[r % p]
+        row = key.encode([t[r % p] for t in table])
+        if 0 <= r < depth:
+            saved[r] = row
+        return row
+
+    up = [zero] * depth
+    cur = [zero] * depth
+    total = torch.zeros(cols.numel(), dtype=torch.int64)
+    rounds = torch.zeros(cols.numel(), dtype=torch.int64)
+    length = p + 2 * depth
+    nxt = read(0)
+    for e in range(length):
+        inp = nxt
+        if e + 1 < length:
+            nxt = read(e + 1)
+        for k in range(depth):
+            row = e - k - 1
+            g1 = key.gt(up[k], cur[k])
+            v = [torch.where(g1, a, b) for a, b in zip(up[k], cur[k])]
+            g2 = key.gt(inp, v)
+            v = [torch.where(g2, a, b) for a, b in zip(inp, v)]
+            if depth <= row < p + depth:
+                c = g1.to(torch.int64) + g2.to(torch.int64)
+                total += c
+                rounds |= (c > 0).to(torch.int64) << k
+            elif not wrap:
+                v = zero
+            up[k], cur[k] = cur[k], inp
+            inp = v
+        if e >= 2 * depth:
+            for t, x in zip(table, key.decode(inp)):
+                t[e - 2 * depth] = x
+    for f, t in zip(fields, table):
+        f[:, cols] = t
+    changed = total.reshape(count, tile).sum(1)
+    ored = torch.zeros(count, dtype=torch.int64)
+    for k in range(depth):
+        ored |= ((rounds.reshape(count, tile) >> k) & 1).amax(1) << k
+    last = torch.tensor([int(x).bit_length() for x in ored])
+    keep = stripes[last == depth]
+    out[: keep.numel()] = keep.to(torch.int32)
+    out[t_total] = keep.numel()
+    out[t_total + 1] = pk._wrap_int32(int(changed.sum()))
+    if depth > 1:
+        out[t_total + 2] = int(last.max())
+    return out
+
+
+def window_tile_rows(nf, b, m, optin=H100_SMEM_OPTIN):
+    """The row tile h_max that frontier_shard_window.cu's host code picks:
+    the whole extended column when two (nf + 1)-plane buffers of it fit the
+    shared memory (less 1 KB for the block reductions), else as many rows
+    as fit beside the 2 m-row carry."""
+    budget = optin - 1024
+    length = b + 2 * m
+    row_bytes = 2 * (nf + 1) * WINDOW_COLS * 4
+    h_max = min(length, budget // row_bytes)
+    if h_max < length:
+        h_max = (budget - nf * 2 * m * WINDOW_COLS * 4) // row_bytes
+    return h_max
+
+
+def _window_join(vals, word, shift, s):
+    """One join of the kernel's chain on a tile: row r takes the candidate
+    at r - shift (the all-zero entry at distance FILL when shifted out): a
+    strict win its values and distance + s with the changed flag, equal
+    keys the smaller distance."""
+    cand = [pk._shift_line(v, shift, 0) for v in vals]
+    cand_d = pk._shift_line(word & DIST_MASK, shift, FILL - s) + s
+    gt = pk.packed_beats(cand, vals)
+    eq = pk._keys_eq(pk.table_keys(cand), pk.table_keys(vals))
+    kept = torch.where(eq, torch.minimum(word & DIST_MASK, cand_d) | (word & FLAG), word)
+    return ([torch.where(gt, c, v) for c, v in zip(cand, vals)],
+            torch.where(gt, cand_d | FLAG, kept))
+
+
+def shard_window_model(fields, tops, bottoms, ids, tile, m, h_max, order=None,
+                       carry_halos=True):
+    """One per-shard window step as frontier_shard_window.cu runs it, in
+    place on ``fields``: blocks of WINDOW_COLS columns of the active
+    stripes, each walking row tiles of at most ``h_max`` extended rows.
+    A tile loads the rows past its carry from the live tensors (so a row
+    an earlier tile wrote would be read wrong: the carry must prevent
+    that), copies the pre-call values of its last 2 m rows to the carry
+    when another tile follows, runs the chain's joins, writes its h rows
+    between the m-row margins back and folds their changed flags and
+    distances. Each block's sum and max go into the zeroed stats with an
+    add and a max, in the block order ``order`` (a permutation of the
+    blocks; reversed by default). ``carry_halos=False`` loads every tile
+    whole from the live tensors instead: the race the carry prevents.
+    Returns the [2, t_total] stats."""
+    b, n = fields[0].shape
+    t_total = n // tile
+    stats = torch.zeros((2, t_total), dtype=torch.int32)
+    count = int(ids[t_total])
+    if count == 0:
+        return stats
+    length = b + 2 * m
+    inner = h_max - 2 * m
+    assert inner >= 1, "a tile must hold more than its two margins"
+    stripes = ids[:count].to(torch.int64)
+    cols = (stripes[:, None] * tile + torch.arange(tile)).reshape(-1)
+
+    def load(x0, x1):
+        parts = []
+        for seg, lo, hi in ((tops, 0, m), (fields, m, m + b), (bottoms, m + b, length)):
+            a, z = max(x0, lo), min(x1, hi)
+            if a < z:
+                parts.append([f[a - lo:z - lo][:, cols] for f in seg])
+        return [torch.cat([p[i] for p in parts]) for i in range(len(fields))]
+
+    changed = torch.zeros(cols.numel(), dtype=torch.int64)
+    last = torch.zeros(cols.numel(), dtype=torch.int64)
+    carry = None
+    base = 0
+    while base < b:
+        rows = min(h_max, length - base)
+        kept = 2 * m if base > 0 and carry_halos else 0
+        fresh = load(base + kept, base + rows)
+        vals = [torch.cat([c, f]) for c, f in zip(carry, fresh)] if kept else fresh
+        word = torch.zeros_like(vals[0])
+        carry = [v[inner:inner + 2 * m].clone() for v in vals] if base + inner < b else None
+        reach = 0
+        while reach < m:
+            s = min(m - reach, reach + 1)
+            for shift in (s, -s):
+                vals, word = _window_join(vals, word, shift, s)
+            reach += s
+        h = min(inner, b - base)
+        for f, v in zip(fields, vals):
+            f[base:base + h, cols] = v[m:m + h]
+        w = word[m:m + h].to(torch.int64)
+        flag = (w & FLAG) != 0
+        changed += flag.sum(0)
+        last = torch.maximum(last, torch.where(flag, w & DIST_MASK, 0).amax(0))
+        base += inner
+    blocks = cols.numel() // WINDOW_COLS
+    per_block = (changed.reshape(blocks, WINDOW_COLS).sum(1),
+                 last.reshape(blocks, WINDOW_COLS).amax(1))
+    stripe_of = stripes.repeat_interleave(tile // WINDOW_COLS)
+    for j in (order if order is not None else range(blocks - 1, -1, -1)):
+        s = int(stripe_of[j])
+        stats[0, s] += int(per_block[0][j])
+        stats[1, s] = max(int(stats[1, s]), int(per_block[1][j]))
+    return stats

@@ -19,10 +19,13 @@ from bullet_tpu.ops.apply import OpBatch
 from bullet_tpu.ops.merge import TableState as JaxTable
 from bullet_tpu.ops.merge import merge_tables_xla
 from bullet_tpu.parallel import topology as jax_topo
+from bullet_tpu.ops.rank import Rank1Table as JaxRank1, RankTable as JaxRank
 from bullet_tpu.parallel.gossip import gossip_round_chain, gossip_round_mesh, gossip_round_ring
 from bullet_tpu_torch.convert import packed_from_numpy, packed_to_numpy, table_from_numpy
 from bullet_tpu_torch.ops import packed as pk
 from bullet_tpu_torch.parallel import topology as topo
+
+from _kernel_models import PipeKey, frontier_pipe_model
 
 torch.set_num_threads(2)
 
@@ -59,6 +62,21 @@ def tie_np(p, n, seed):
 
 def jt(fields):
     return jpk.PackedTable(*(jnp.asarray(f) for f in fields))
+
+
+def jfam(fields):
+    """A reference table of the packed family, by field count."""
+    return {3: jpk.PackedTable, 2: JaxRank, 1: JaxRank1}[len(fields)](
+        *(jnp.asarray(f) for f in fields))
+
+
+def family_np(nf, p, n, seed):
+    """Packed-family fields with many ties: packed as ``tie_np``; rank and
+    rank1 ranks in [0, 6), 0 absent, cv a function of the rank."""
+    if nf == 3:
+        return tie_np(p, n, seed)
+    rank = np.random.default_rng(seed).integers(0, 6, (p, n)).astype(np.int32)
+    return [rank, np.where(rank > 0, (1 << 28) | rank, 0).astype(np.int32)][:nf]
 
 
 def pt(fields):
@@ -417,6 +435,11 @@ def test_frontier_round_matches_pallas_interpret(m, wrap, dirty):
             jt(f), jnp.asarray(ids.numpy()), wrap, m, True)
     got, ids_got = pk.frontier_round_packed(pt(f), ids, tile, wrap, m)
     _check_step(got, ids_got, want, ids_want, t_total)
+    if m > 1:
+        # the pipelined pass's schedule at depth m
+        model = pt(f)
+        ids_model = frontier_pipe_model(model, ids, tile, wrap, PipeKey("packed"), m)
+        _check_step(model, ids_model, want, ids_want, t_total)
 
 
 def _frontier_xla_twin(f, ids, tile, wrap, m):
@@ -429,7 +452,7 @@ def _frontier_xla_twin(f, ids, tile, wrap, m):
     keep, changed, max_last = [], 0, 0
     for s in ids[:count].tolist():
         cols = slice(s * tile, (s + 1) * tile)
-        sub, last = jt([a[:, cols] for a in out]), 0
+        sub, last = jfam([a[:, cols] for a in out]), 0
         for k in range(1, m + 1):
             sub, c = xla(sub)
             changed += int(c)
@@ -538,3 +561,66 @@ def test_frontier_fused_round_parity():
         pt(f), torch.zeros(t_total, dtype=torch.bool), True, p + 2, fuse=5)
     assert (r, c) == (0, 0)
     assert_same(got, f)
+
+
+# an entry of each packed-family layout that beats every ``family_np`` one
+TOP = {3: (9, 9, (5 << 28) | 9), 2: (100, (1 << 28) | 100), 1: (100,)}
+FAMILY = {3: "packed", 2: "rank", 1: "rank1"}
+# int32 values at the edges of every word the packed key encoding splits:
+# the sign bit, the low 4 bits that cross into the next word, cls's range
+EDGES = np.array([-(1 << 31), -(1 << 31) + 15, -(1 << 28) - 1, -(1 << 28), -17, -16, -1, 0,
+                  1, 15, 16, (1 << 28) - 1, 1 << 28, (1 << 31) - 16, (1 << 31) - 1],
+                 dtype=np.int64).astype(np.int32)
+
+
+@pytest.mark.parametrize("nf", [3, 2, 1])
+def test_pipe_key_preserves_order(nf):
+    """The pipelined pass's key encoding (frontier.cuh PipeKey) of each
+    packed-family layout: decode inverts encode, and the encoded compare
+    (for packed, the borrow of a 96-bit subtract over the repacked words)
+    agrees with the port's order on every pair of entries drawn from the
+    edge values, where ties on the leading words are common."""
+    rng = np.random.default_rng(40 + nf)
+    key = PipeKey(FAMILY[nf])
+    k = 4096
+    f = [torch.from_numpy(rng.choice(EDGES, k)) for _ in range(nf)]
+    g = [torch.from_numpy(rng.choice(EDGES, k)) for _ in range(nf)]
+    for x, y in zip(key.decode(key.encode(f)), f):
+        assert torch.equal(x, y)
+    assert torch.equal(key.gt(key.encode(g), key.encode(f)), pk.packed_beats(g, f))
+    assert torch.equal(key.gt(key.encode(f), key.encode(g)), pk.packed_beats(f, g))
+    assert not key.gt(key.encode(f), key.encode(f)).any()
+
+
+@pytest.mark.parametrize("nf", [3, 2, 1])
+@pytest.mark.parametrize("p", [1, 2, 3, 17, 64])
+@pytest.mark.parametrize("wrap", [True, False])
+def test_frontier_pipe_model_matches_xla_twin(nf, p, wrap):
+    """#19 / #16 at m = 8 as the card runs it: the pipelined pass
+    (frontier_pipe_kernel's schedule, with its p + 2 m extension and the
+    ring's saved rows) against eight XLA rounds per stripe, rows and the
+    whole ids array (ids, count, changed total, max last); the plain
+    version too. Tiny rings (p <= 2 m) take every extension row mod p.
+    Where p >= 17, stripe 0 settles in round 3 and leaves the frontier;
+    stripe 2 is not in it."""
+    n, tile, m = 512, 128, 8
+    t_total = n // tile
+    f = family_np(nf, p, n, 70 + 3 * p + nf)
+    if p >= 17:
+        for x, v in zip(f, TOP[nf]):
+            x[:5, :tile] = v
+            x[10:, :tile] = v
+    ids = _ids(np.array([True, True, False, True]), m)
+    want, ids_want = _frontier_xla_twin(f, ids.numpy(), tile, wrap, m)
+    model = [torch.from_numpy(x.copy()) for x in f]
+    ids_model = frontier_pipe_model(model, ids, tile, wrap, PipeKey(FAMILY[nf]), m)
+    plain = [torch.from_numpy(x.copy()) for x in f]
+    _, ids_plain = pk.frontier_round_packed(plain, ids, tile, wrap, m)
+    count = int(ids_want[t_total])
+    for got, ids_got in ((model, ids_model), (plain, ids_plain)):
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a.numpy(), b)
+        np.testing.assert_array_equal(ids_got.numpy()[:count], ids_want[:count])
+        np.testing.assert_array_equal(ids_got.numpy()[t_total:], ids_want[t_total:])
+    if p >= 17:
+        assert 0 not in ids_want[:count].tolist()

@@ -23,6 +23,7 @@ from bullet_tpu.parallel.gossip import (
 from bullet_tpu_torch.convert import table_from_numpy, table_to_numpy
 from bullet_tpu_torch.ops.packed import frontier_ids_compact
 from bullet_tpu_torch.ops.ring_kernel import (
+    beats_of,
     frontier_round_dense,
     frontier_round_dense_torch,
     frontier_tile_n,
@@ -30,6 +31,8 @@ from bullet_tpu_torch.ops.ring_kernel import (
     ring_round,
     ring_round_torch,
 )
+
+from _kernel_models import PipeKey, frontier_pipe_model
 
 torch.set_num_threads(2)
 
@@ -133,6 +136,21 @@ def test_frontier_round_matches_pallas_interpret(m, wrap, mode, dirty):
         False, True, m=m,
     )
     _check_frontier(t, ids, tile, wrap, mode, m, want, np.asarray(ids_want))
+    if m > 1:
+        # the pipelined pass's schedule at depth m
+        _check_pipe_model(t, ids, tile, wrap, mode, m, want, np.asarray(ids_want))
+
+
+def _check_pipe_model(t, ids, tile, wrap, mode, m, want, ids_want, nf=7):
+    t_total = len(ids) - (3 if m > 1 else 2)
+    count = int(ids_want[t_total])
+    got = [torch.from_numpy(f.copy()) for f in t[:nf]]
+    ids_got = frontier_pipe_model(got, torch.from_numpy(ids.copy()), tile, wrap,
+                                  PipeKey("lean" if nf == 4 else mode), m).numpy()
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    np.testing.assert_array_equal(ids_got[:count], ids_want[:count])
+    np.testing.assert_array_equal(ids_got[t_total:], ids_want[t_total:])
 
 
 def _frontier_xla_twin(t, ids, tile, wrap, mode, m):
@@ -259,3 +277,58 @@ def test_gossip_frontier_dense_nothing_dirty():
     )
     assert (rounds, changed) == (0, 0)
     assert_tables_equal(got, before)
+
+
+@pytest.mark.parametrize("nf,mode", [(7, "reference"), (7, "lww"), (4, "reference")])
+@pytest.mark.parametrize("p", [1, 2, 3, 17, 64])
+@pytest.mark.parametrize("wrap", [True, False])
+def test_frontier_pipe_model_matches_xla_twin(nf, mode, p, wrap):
+    """#8 at m = 8 as the card runs it: the pipelined pass
+    (frontier_pipe_kernel's schedule) against eight XLA rounds per stripe,
+    rows and the whole ids array, at nf = 7 (reference and lww) and 4
+    (lean: the value keys, with writer, ctr and tick zero so the 7-field
+    XLA round merges as the lean one does); the plain version too. Where
+    p >= 17, stripe 0 settles in round 3 and leaves the frontier; stripe 2
+    is not in it."""
+    n, tile, m = 512, 128, 8
+    t_total = n // tile
+    t = fields(90 + 3 * p + nf, p, n)
+    if nf == 4:
+        t[4:] = [np.zeros((p, n), np.int32) for _ in range(3)]
+    if p >= 17:
+        for f in t[:nf]:
+            f[:5, :tile] = 9
+            f[10:, :tile] = 9
+    ids = _ids_array(np.array([True, True, False, True]), m)
+    want, ids_want = _frontier_xla_twin(t, ids, tile, wrap, mode, m)
+    _check_pipe_model(t, ids, tile, wrap, mode, m, want, ids_want, nf)
+    got, ids_got = frontier_round_dense(table_from_numpy(t, "cpu"), torch.from_numpy(ids.copy()),
+                                        tile, wrap, mode, m, lean=nf == 4)
+    assert_tables_equal(got, want)
+    count = int(ids_want[t_total])
+    np.testing.assert_array_equal(ids_got.numpy()[:count], ids_want[:count])
+    np.testing.assert_array_equal(ids_got.numpy()[t_total:], ids_want[t_total:])
+    if p >= 17:
+        assert 0 not in ids_want[:count].tolist()
+
+
+@pytest.mark.parametrize("nf,mode", [(7, "reference"), (7, "lww"), (4, "reference")])
+def test_pipe_key_preserves_order(nf, mode):
+    """The pipelined pass's key encoding (frontier.cuh PipeKey) of the
+    dense layouts: decode inverts encode (tick carried as is), and the
+    borrow of the subtract over the biased key words agrees with the port's
+    order on every pair of entries drawn from int32 edge values, where
+    ties on the leading words are common."""
+    rng = np.random.default_rng(nf + len(mode))
+    key = PipeKey("lean" if nf == 4 else mode)
+    edges = np.array([-(1 << 31), -(1 << 31) + 1, -1, 0, 1, (1 << 31) - 2, (1 << 31) - 1],
+                     dtype=np.int64).astype(np.int32)
+    k = 4096
+    f = [torch.from_numpy(rng.choice(edges, k)) for _ in range(nf)]
+    g = [torch.from_numpy(rng.choice(edges, k)) for _ in range(nf)]
+    beats = beats_of(nf, mode)
+    for x, y in zip(key.decode(key.encode(f)), f):
+        assert torch.equal(x, y)
+    assert torch.equal(key.gt(key.encode(g), key.encode(f)), beats(g, f))
+    assert torch.equal(key.gt(key.encode(f), key.encode(g)), beats(f, g))
+    assert not key.gt(key.encode(f), key.encode(f)).any()

@@ -1,5 +1,5 @@
 """The port is self-contained: no file of bullet_tpu_torch/, nor
-chip_smoke.py or tools/profile_main.py, imports the JAX package or JAX, or
+chip_smoke.py or a script in tools/, imports the JAX package or JAX, or
 finds the JAX package's files through ``bullet_tpu.__file__``; and the
 port's own copies of the framework-free modules (utils/encode, utils/paths,
 parallel/topology, the native host runtime) give the reference's results
@@ -28,7 +28,7 @@ FORBIDDEN = ("bullet_tpu", "jax", "jaxlib")
 
 def port_files():
     files = sorted((REPO / "bullet_tpu_torch").rglob("*.py"))
-    return files + [REPO / "chip_smoke.py", REPO / "tools" / "profile_main.py"]
+    return files + [REPO / "chip_smoke.py", *sorted((REPO / "tools").glob("*.py"))]
 
 
 def _forbidden(module: str) -> bool:

@@ -7,8 +7,9 @@ interpret mode, #23 at m = 8 against its XLA trapezoid rounds and, for
 rank1, its Pallas kernel); the window step (#25: the plain version
 against the reference's kernel in interpret mode at m = 3 and 5, and
 against its distance chain and classic rounds at m = 15 and 63; the CUDA
-kernel's design, m sweeps of the extended column with first-change
-marks, modelled on the same inputs); the window fold (#26); the ring,
+kernel's design, the distance chain on shared-memory row tiles with
+carried halos and an atomic stats reduction, modelled on the same inputs
+and on shards of up to 1024 rows); the window fold (#26); the ring,
 chain, mesh, star and generic exchanges; the spmd fast_forward window;
 gossip_frontier_shardmap_packed in all three modes (cutoffs, a sparse
 seed). Tolerance: exact (int32 fields, counts, stats, ids, rounds and
@@ -31,6 +32,8 @@ from bullet_tpu_torch.ops import packed as pk
 from bullet_tpu_torch.ops.ring_kernel import _round_masks, frontier_tile_n
 from bullet_tpu_torch.parallel import shardmap_gossip as sg
 from bullet_tpu_torch.parallel import topology as port_topo
+
+from _kernel_models import shard_window_model, window_tile_rows
 
 torch.set_num_threads(2)
 
@@ -197,10 +200,10 @@ def test_frontier_shard_packed_skips_inactive_stripes():
 # ---------------------------------------------------- window step (#25)
 
 
-def _kernel_model(nf, f, tops, bottoms, tile, m):
-    """The CUDA kernel's algorithm on the CPU: m classic rounds of the
-    extended column as a ring (the in-place sweeps), each entry of the
-    shard marked on its first change, each stripe's last changed round."""
+def _classic_rounds(nf, f, tops, bottoms, tile, m):
+    """What the window step computes, as m classic rounds of the extended
+    column as a ring: each entry of the shard marked on its first change,
+    each stripe's last changed round."""
     b, n = f[0].shape
     ext = [torch.cat([t, x, bo]) for x, t, bo in zip(T(f), T(tops), T(bottoms))]
     marks = torch.zeros((b, n), dtype=torch.bool)
@@ -212,6 +215,15 @@ def _kernel_model(nf, f, tops, bottoms, tile, m):
         last = torch.where(changed.reshape(b, -1, tile).any(2).any(0), k, last)
     stats = torch.stack([marks.reshape(b, -1, tile).sum((0, 2)).to(torch.int32), last])
     return [e[m:m + b] for e in ext], stats
+
+
+def _window_model(nf, f, tops, bottoms, ids, tile, m, h_max=None):
+    """frontier_shard_window.cu's schedule (tests/_kernel_models.py) at
+    the kernel's own row tile, or at ``h_max`` rows (more, smaller tiles)."""
+    got = T(f)
+    stats = shard_window_model(got, T(tops), T(bottoms), ids, tile, m,
+                               h_max or window_tile_rows(nf, f[0].shape[0], m))
+    return got, stats
 
 
 @pytest.mark.parametrize("nf", [3, 2, 1])
@@ -231,9 +243,14 @@ def test_frontier_shard_window_matches_reference_kernel(nf, m, zero):
     stats = pk.frontier_shard_window(got, T(tops), T(bottoms), all_ids(2, m), 256, m)
     assert_equal(got, want)
     np.testing.assert_array_equal(stats.numpy(), np.asarray(st_want))
-    model, st_model = _kernel_model(nf, f, tops, bottoms, 256, m)
+    model, st_model = _classic_rounds(nf, f, tops, bottoms, 256, m)
     assert_equal(model, want)
     np.testing.assert_array_equal(st_model.numpy(), np.asarray(st_want))
+    # the kernel's design: one tile, and tiles of 2 m + 2 rows
+    for h_max in (None, 2 * m + 2):
+        model, st_model = _window_model(nf, f, tops, bottoms, all_ids(2, m), 256, m, h_max)
+        assert_equal(model, want, f"h_max={h_max}")
+        np.testing.assert_array_equal(st_model.numpy(), np.asarray(st_want))
 
 
 @pytest.mark.parametrize("nf", [3, 2, 1])
@@ -266,10 +283,87 @@ def test_frontier_shard_window_deep_matches_classic_rounds(nf, m, zero):
     stats = pk.frontier_shard_window(got, T(tops), T(bottoms), all_ids(n // tile, m), tile, m)
     assert_equal(got, want)
     np.testing.assert_array_equal(stats.numpy(), st_want)
-    model, st_model = _kernel_model(nf, f, tops, bottoms, tile, m)
+    model, st_model = _classic_rounds(nf, f, tops, bottoms, tile, m)
     assert_equal(model, want)
     np.testing.assert_array_equal(st_model.numpy(), st_want)
+    for h_max in (None, 2 * m + 9):
+        model, st_model = _window_model(nf, f, tops, bottoms, all_ids(n // tile, m), tile, m,
+                                        h_max)
+        assert_equal(model, want, f"h_max={h_max}")
+        np.testing.assert_array_equal(st_model.numpy(), st_want)
     assert st_want[1, 0] == 0 and st_want[1, 1] == min(32, m)
+
+
+def _chain_want(f, tops, bottoms, m, tile, active):
+    """The reference's distance chain (XLA) on the extended column: the
+    shard's rows and the [2, t_total] window stats, the stripes outside
+    ``active`` left as they were with zero stats."""
+    b = f[0].shape[0]
+    ext = [jnp.concatenate([jnp.asarray(t), jnp.asarray(x), jnp.asarray(bo)])
+           for x, t, bo in zip(f, tops, bottoms)]
+    ext, dist = ref_pk._window_dist_chain(ext, jnp.zeros_like(ext[0]), m)
+    new = [np.asarray(e[m:m + b]) for e in ext]
+    changed = np.asarray(ref_pk._lex_gt_packed(ref_pk.table_keys(tuple(map(jnp.asarray, new))),
+                                               ref_pk.table_keys(tuple(map(jnp.asarray, f)))))
+    last = np.where(changed, np.asarray(dist)[m:m + b], 0)
+    on = np.repeat(active, tile)
+    want = [np.where(on, x, o) for x, o in zip(new, f)]
+    st = np.stack([changed.reshape(b, -1, tile).sum((0, 2)), last.reshape(b, -1, tile).max((0, 2))])
+    return want, np.where(active, st, 0)
+
+
+@pytest.mark.parametrize("nf", [3, 2, 1])
+@pytest.mark.parametrize("b,m,h_max,zero,dirty", [
+    (8, 63, None, "none", "all"), (8, 15, 33, "bottom", "sparse"),
+    (37, 15, None, "top", "all"), (37, 31, 70, "none", "sparse"),
+    (64, 63, None, "bottom", "sparse"), (64, 15, 31, "none", "all"),
+    (1024, 63, None, "none", "all"), (1024, 31, 100, "top", "sparse"),
+    (1024, 15, 500, "bottom", "all"),
+])
+def test_frontier_shard_window_kernel_model_matches_chain(nf, b, m, h_max, zero, dirty):
+    """#25 as the card runs it, against the reference's distance chain:
+    shards of 8 to 1024 rows, m up to 63, the kernel's own row tile (at
+    b = 1024 more than one at every nf) and smaller ones (down to a single
+    shard row a tile), each 64-wide stripe split over four 16-column
+    blocks whose stats meet in an add and a max, random and zeroed slabs,
+    all and sparse stripes; the plain version on the same inputs."""
+    n, tile = 256, 64
+    t_total = n // tile
+    f = family(nf, b, n, b + m + nf, absent=0.5)
+    tops = boundary(nf, m, n, 3 * m, zero == "top")
+    bottoms = boundary(nf, m, n, 3 * m + 1, zero == "bottom")
+    active = np.ones(t_total, bool) if dirty == "all" else np.array([False, True, True, False])
+    want, st_want = _chain_want(f, tops, bottoms, m, tile, active)
+    ids = torch.from_numpy(np.concatenate([np.flatnonzero(active), [0] * (t_total - active.sum()),
+                                           [active.sum(), 0, 0]]).astype(np.int32))
+    if h_max is None:
+        h_max = window_tile_rows(nf, b, m)
+        assert (h_max < b + 2 * m) == (b == 1024)
+    got, stats = _window_model(nf, f, tops, bottoms, ids, tile, m, h_max)
+    assert_equal(got, want)
+    np.testing.assert_array_equal(stats.numpy(), st_want)
+    plain = T(f)
+    stats = pk.frontier_shard_window(plain, T(tops), T(bottoms), ids, tile, m)
+    assert_equal(plain, want)
+    np.testing.assert_array_equal(stats.numpy(), st_want)
+
+
+def test_frontier_shard_window_model_needs_its_carry():
+    """The tiles' carried pre-call rows are what keeps them apart: loading
+    each tile whole from the shard instead reads the margin rows that the
+    tile before wrote, and the rows and stats go wrong."""
+    nf, b, m, n, tile = 3, 64, 15, 128, 64
+    f = family(nf, b, n, 7, absent=0.5)
+    tops, bottoms = boundary(nf, m, n, 8, False), boundary(nf, m, n, 9, False)
+    want, st_want = _chain_want(f, tops, bottoms, m, tile, np.ones(2, bool))
+    ids = all_ids(2, m)
+    for carry_halos in (True, False):
+        got = T(f)
+        stats = shard_window_model(got, T(tops), T(bottoms), ids, tile, m, 2 * m + 4,
+                                   carry_halos=carry_halos)
+        same = (all(np.array_equal(a.numpy(), w) for a, w in zip(got, want))
+                and np.array_equal(stats.numpy(), st_want))
+        assert same == carry_halos
 
 
 def test_frontier_shard_window_skips_inactive_stripes_and_checks_slabs():
