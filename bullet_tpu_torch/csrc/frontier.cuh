@@ -2,8 +2,8 @@
 // place, on the active slot stripes only, then the next round's ids array.
 // frontier_dense.cu and frontier_packed.cu instantiate it for their entry
 // types (lexmax.cuh). Also the ordered compaction (compact_counts.cu) and
-// the extended-column sweep of the per-shard step on a device mesh
-// (frontier_shard.cu).
+// the extended column of the per-shard step on a device mesh
+// (frontier_shard.cu: its sweep, and its pipelined pass on pipe_stages).
 //
 // ids layout (as the reference's ops/packed.py frontier loops use it):
 //   [0, count)    active stripe ids, ascending
@@ -218,27 +218,23 @@ __device__ __forceinline__ void pipe_input(int32_t (&v)[E::NF], const Fields<E::
   }
 }
 
-// Step e of the pipelined pass, R = e mod 3. h[k] holds stage k's last
-// three inputs in rotation: in_e(k) in slot e mod 3, so at step e slot
-// R + 1 holds in_{e-2} (its pre-round `up`) and slot R + 2 in_{e-1}
-// (`cur`), all mod 3; stage k writes its output straight into slot R of
+// The M stages of step e of a pipelined pass, R = e mod 3. h[k] holds
+// stage k's last three inputs in rotation: in_e(k) in slot e mod 3, so at
+// step e slot R + 1 holds in_{e-2} (its pre-round `up`) and slot R + 2
+// in_{e-1} (`cur`), all mod 3, and slot R the input just put there (stage
+// 0's: input e; stage k's: stage k - 1's output, `down`). Stage k + 1
+// emits round k + 1 at row e - k - 1 of the pass straight into slot R of
 // stage k + 1, whose old value in_{e-3} is dead, so no value ever moves
-// between registers. cnt[k] counts stage k's wins in the central copy.
-// EDGE = false is a step e in [2 M, p + M], where every stage's row lies in
-// the central copy and input e + 1 exists: no row test at all.
-template <typename E, int M, int R, bool EDGE>
-__device__ __forceinline__ void pipe_step(int32_t (&h)[M][3][E::NF], int32_t (&next)[E::NF],
-                                          unsigned (&cnt)[M], const int32_t (&zero)[E::NF],
-                                          const Fields<E::NF>& t, int32_t* saved, int e, int p,
-                                          int64_t n, int64_t col, bool ring) {
+// between registers; the last stage's output lands in out. edge(row, v)
+// says whether stage k + 1's output v at that row counts (cnt[k] += its
+// wins) and may rewrite v (a chain's zero rows).
+template <typename E, int M, int R, typename Edge>
+__device__ __forceinline__ void pipe_stages(int32_t (&h)[M][3][E::NF], unsigned (&cnt)[M],
+                                            int32_t (&out)[E::NF], int e, Edge edge) {
   constexpr int NF = E::NF;
   using K = PipeKey<E>;
-  copy_entry(h[0][R], next);
-  if (!EDGE || e + 1 < p + 2 * M) pipe_input<E, M>(next, t, saved, e + 1, p, n, col, ring);
-  int32_t out[NF];
 #pragma unroll
   for (int k = 0; k < M; ++k) {  // stage k + 1 emits y_{k+1}[e - k - 1]
-    const int row = e - k - 1;
     const int32_t(&up)[NF] = h[k][(R + 1) % 3];
     const int32_t(&cur)[NF] = h[k][(R + 2) % 3];
     const int32_t(&down)[NF] = h[k][R];
@@ -249,47 +245,77 @@ __device__ __forceinline__ void pipe_step(int32_t (&h)[M][3][E::NF], int32_t (&n
     const bool g2 = K::gt(down, v);
 #pragma unroll
     for (int f = 0; f < NF; ++f) v[f] = g2 ? down[f] : v[f];
-    if (!EDGE || (row >= M && row < p + M)) {
-      cnt[k] += (unsigned)g1 + (unsigned)g2;
-    } else if (!ring) {
-      copy_entry(v, zero);
-    }
+    if (edge(e - k - 1, v)) cnt[k] += (unsigned)g1 + (unsigned)g2;
     if (k + 1 < M) {
       copy_entry(h[k + 1][R], v);
     } else {
       copy_entry(out, v);
     }
   }
+}
+
+template <int R>
+struct Slot {
+  static constexpr int value = R;
+};
+
+// Steps [e, end) of a pipelined pass as step(Slot<e mod 3>(), e), each
+// step's rotation slot a compile-time constant: single steps up to a
+// multiple of 3, then the body unrolled by 3, then at most two single
+// steps.
+template <typename Step>
+__device__ __forceinline__ void rotated_steps(int e, int end, Step step) {
+  for (; e < end && e % 3 != 0; ++e) {
+    if (e % 3 == 1) {
+      step(Slot<1>(), e);
+    } else {
+      step(Slot<2>(), e);
+    }
+  }
+  for (; e + 3 <= end; e += 3) {
+    step(Slot<0>(), e);
+    step(Slot<1>(), e + 1);
+    step(Slot<2>(), e + 2);
+  }
+  if (e < end) step(Slot<0>(), e);
+  if (e + 1 < end) step(Slot<1>(), e + 1);
+}
+
+// Step e of the compacting frontier's pass (pipe_stages), R = e mod 3:
+// takes input e into stage 0's slot, reads input e + 1, runs the stages and
+// stores stage M's row. cnt[k] counts stage k's wins in the central copy.
+// EDGE = false is a step e in [2 M, p + M], where every stage's row lies in
+// the central copy and input e + 1 exists: no row test at all.
+template <typename E, int M, int R, bool EDGE>
+__device__ __forceinline__ void pipe_step(int32_t (&h)[M][3][E::NF], int32_t (&next)[E::NF],
+                                          unsigned (&cnt)[M], const int32_t (&zero)[E::NF],
+                                          const Fields<E::NF>& t, int32_t* saved, int e, int p,
+                                          int64_t n, int64_t col, bool ring) {
+  constexpr int NF = E::NF;
+  copy_entry(h[0][R], next);
+  if (!EDGE || e + 1 < p + 2 * M) pipe_input<E, M>(next, t, saved, e + 1, p, n, col, ring);
+  int32_t out[NF];
+  pipe_stages<E, M, R>(h, cnt, out, e, [&](int row, int32_t(&v)[NF]) {
+    if (!EDGE || (row >= M && row < p + M)) return true;
+    if (!ring) copy_entry(v, zero);
+    return false;
+  });
   if (!EDGE || e >= 2 * M) {
-    K::decode(out);
+    PipeKey<E>::decode(out);
     store_entry(t, (int64_t)(e - 2 * M) * n + col, out);
   }
 }
 
-// Steps [e, end) of the pipelined pass, each with its rotation slot e mod 3
-// as a template argument: single steps up to a multiple of 3, then the
-// unrolled body, then at most two single steps.
+// Steps [e, end) of the compacting frontier's pass (rotated_steps).
 template <typename E, int M, bool EDGE>
 __device__ __forceinline__ void pipe_steps(int32_t (&h)[M][3][E::NF], int32_t (&next)[E::NF],
                                            unsigned (&cnt)[M], const int32_t (&zero)[E::NF],
                                            const Fields<E::NF>& t, int32_t* saved, int e,
                                            int end, int p, int64_t n, int64_t col, bool ring) {
-  for (; e < end && e % 3 != 0; ++e) {
-    if (e % 3 == 1) {
-      pipe_step<E, M, 1, EDGE>(h, next, cnt, zero, t, saved, e, p, n, col, ring);
-    } else {
-      pipe_step<E, M, 2, EDGE>(h, next, cnt, zero, t, saved, e, p, n, col, ring);
-    }
-  }
-  for (; e + 3 <= end; e += 3) {
-    pipe_step<E, M, 0, EDGE>(h, next, cnt, zero, t, saved, e, p, n, col, ring);
-    pipe_step<E, M, 1, EDGE>(h, next, cnt, zero, t, saved, e + 1, p, n, col, ring);
-    pipe_step<E, M, 2, EDGE>(h, next, cnt, zero, t, saved, e + 2, p, n, col, ring);
-  }
-  if (e < end) pipe_step<E, M, 0, EDGE>(h, next, cnt, zero, t, saved, e, p, n, col, ring);
-  if (e + 1 < end) {
-    pipe_step<E, M, 1, EDGE>(h, next, cnt, zero, t, saved, e + 1, p, n, col, ring);
-  }
+  rotated_steps(e, end, [&](auto slot, int step) {
+    pipe_step<E, M, decltype(slot)::value, EDGE>(h, next, cnt, zero, t, saved, step, p, n,
+                                                 col, ring);
+  });
 }
 
 // M rounds in one pass per column. Step e reads input e (y_0[e]); stage k
@@ -307,7 +333,7 @@ __device__ __forceinline__ void pipe_steps(int32_t (&h)[M][3][E::NF], int32_t (&
 // rounds and rows (an entry can count twice, wrapping mod 2^32), and
 // stripe_last is the last round with a nonzero count, exactly as m classic
 // sweeps count them. The steps run unrolled by 3, the period of the
-// history's rotation (pipe_step), those in [2 M, p + M] without any row
+// history's rotation (pipe_stages), those in [2 M, p + M] without any row
 // test. Dynamic shared memory: M x NF x blockDim.x int32 for the ring's
 // saved rows.
 template <typename E, int M>
@@ -467,10 +493,13 @@ struct ExtColumn {
 // sweep_column). After round k the rows [k, 2 s + b - k) are exact (the
 // trapezoid of the reference's time tiling), so m <= s rounds leave the
 // shard's rows exact; garbage from the internal wrap never reaches them.
-// Calls on_row(r, wins) for every row r, wins being how many of its two
-// neighbours beat it in turn (0, 1 or 2; nonzero iff the row changed).
+// The boundary rows are stored only with store_halo (a round that a later
+// round of the same call reads back). Calls on_row(r, wins) for every row
+// r, wins being how many of its two neighbours beat it in turn (0, 1 or 2;
+// nonzero iff the row changed).
 template <typename E, typename OnRow>
-__device__ __forceinline__ void sweep_ext(const ExtColumn<E::NF>& c, OnRow on_row) {
+__device__ __forceinline__ void sweep_ext(const ExtColumn<E::NF>& c, bool store_halo,
+                                          OnRow on_row) {
   constexpr int NF = E::NF;
   const int len = 2 * c.s + c.b;
   int32_t row0[NF], up[NF], cur[NF], down[NF];
@@ -494,7 +523,7 @@ __device__ __forceinline__ void sweep_ext(const ExtColumn<E::NF>& c, OnRow on_ro
       copy_entry(m, down);
       ++wins;
     }
-    c.store(r, m);
+    if (store_halo || (r >= c.s && r < c.s + c.b)) c.store(r, m);
     on_row(r, wins);
     copy_entry(up, cur);
     copy_entry(cur, down);

@@ -737,8 +737,10 @@ def frontier_shard_round_packed(fields, tops, bottoms, ids: torch.Tensor, tile_n
     (see ``ring_kernel.frontier_shard_round_torch``, whose plain version it
     runs with ``packed_beats`` for CPU tensors): the CUDA kernel
     (``csrc/frontier_shard.cu``) for CUDA tensors. ``tops`` and ``bottoms``
-    hold the neighbour shards' s >= m boundary rows, per-call scratch that
-    the kernel overwrites. m = 1 is the port of the reference's
+    hold the neighbour shards' s >= m boundary rows; the kernel only reads
+    them at m = 1 and m = 8 (one pipelined pass), and uses them as scratch
+    at any other m, so no caller may depend on their contents after the
+    call. m = 1 is the port of the reference's
     ``_frontier_halo_kernel_counts`` (which reads one row of its 8-row
     pads), m = 8 of ``_frontier_shard_multiround_kernel_packed``. Returns
     the int32 [m, t_total] per-round, per-stripe counts of the shard's

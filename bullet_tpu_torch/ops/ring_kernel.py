@@ -440,9 +440,11 @@ def frontier_shard_round(
     """One per-shard frontier step (see ``frontier_shard_round_torch``) on
     a shard's seven fields or (lean) its four value keys: the CUDA kernel
     for CUDA tensors, the plain version for CPU tensors. ``tops`` and
-    ``bottoms`` are per-call scratch holding the neighbour shards'
-    boundary rows, taken before any shard's step (zeros at a chain's
-    ends); the kernel overwrites them. Returns the int32 [m, t_total]
+    ``bottoms`` hold the neighbour shards' boundary rows, taken before
+    any shard's step (zeros at a chain's ends). The kernel only reads
+    them at m = 1 and m = 8 (one pipelined pass), the depths the loops
+    send; another m uses them as scratch, so no caller may depend on
+    their contents after the call. Returns the int32 [m, t_total]
     counts; the caller sums them over the shards and compacts them
     (``ops.packed.compact_counts``)."""
     if mode not in ("reference", "lww"):

@@ -1008,10 +1008,14 @@ def _boundary(rng, s, n, dev, zero: bool):
 
 def check_frontier_shard(dev, shard_shape, errs, times):
     """The per-shard frontier against its plain version: reference, lww and
-    lean (nf = 4); m = 1 (one boundary row) and m = 8 (eight); random
-    boundary rows (a ring, or a chain's inner shard) and zeroed ones (a
-    chain's end shard) on either side; all and sparse stripes. Counts
-    [m, t_total] and rows exact; the shard shape timed for nf = 7."""
+    lean (nf = 4); m = 1 (the sweep), m = 8 (the pipelined pass) and
+    m = 3 (the m-sweep loop), each with s = m boundary rows and with
+    s = 11; random boundary rows (a ring, or a chain's inner shard) and
+    zeroed ones (a chain's end shard) on either side; all and sparse
+    stripes; shards of 1 and 3 rows (fewer than m: the pass has no
+    test-free body), 17 and more up to the main path's. Counts
+    [m, t_total] and rows exact, and at m = 1 and 8 the boundary rows as
+    they were; the shard shape timed for nf = 7 and 4."""
     from bullet_tpu_torch.ops.ring_kernel import (
         beats_of,
         frontier_shard_round,
@@ -1021,54 +1025,61 @@ def check_frontier_shard(dev, shard_shape, errs, times):
 
     rng = np.random.default_rng(17)
 
-    def pair(base, m, mode, lean, zero_top, zero_bottom, dirty, what):
+    def pair(base, m, s, mode, lean, zero_top, zero_bottom, dirty, what):
         b, n = base.cls.shape
         tile = frontier_tile_n(n)
         nf = 4 if lean else 7
-        tops = _boundary(rng, m, n, dev, zero_top)[:nf]
-        bottoms = _boundary(rng, m, n, dev, zero_bottom)[:nf]
+        tops = _boundary(rng, s, n, dev, zero_top)[:nf]
+        bottoms = _boundary(rng, s, n, dev, zero_bottom)[:nf]
         got, want = clone(base), clone(base)
         ids = _ids(dirty, m, dev)
-        c_got = frontier_shard_round(got[:nf], [t.clone() for t in tops],
-                                     [t.clone() for t in bottoms], ids, tile, mode, m)
+        copies = [t.clone() for t in tops], [t.clone() for t in bottoms]
+        c_got = frontier_shard_round(got[:nf], *copies, ids, tile, mode, m)
         c_want, ms = timed_once(lambda: frontier_shard_round_torch(
             want[:nf], tops, bottoms, ids, tile, beats_of(nf, mode), m))
         name = "frontier_shard" if m == 1 else "frontier_shard fused"
         _pair(name, errs, (*got, c_got), (*want, c_want), what)
+        if m in (1, 8):  # the boundary rows are read only
+            _pair(name, errs, (*copies[0], *copies[1]), (*tops, *bottoms), f"{what} boundary")
         return ms
 
-    for b, n in ((8, 64), (8, 1024), (37, 512), (256, 4096)):
+    for b, n in ((1, 64), (3, 512), (8, 64), (8, 1024), (17, 1024), (37, 512), (256, 4096)):
         base = random_table(400 + b, b, n, dev)
         t_total = n // frontier_tile_n(n)
-        for m in (1, 8):
+        for m, s in ((1, 1), (1, 11), (8, 8), (8, 11), (3, 3), (3, 11)):
             for mode, lean in (("reference", False), ("lww", False), ("reference", True)):
                 for zero_top, zero_bottom in ((False, False), (True, False), (False, True)):
                     for dirty in (np.ones(t_total, bool), rng.random(t_total) < 0.4):
-                        pair(base, m, mode, lean, zero_top, zero_bottom, dirty,
-                             f"{b}x{n} m={m} {mode} lean={lean} zero={zero_top},{zero_bottom}")
+                        pair(base, m, s, mode, lean, zero_top, zero_bottom, dirty,
+                             f"{b}x{n} m={m} s={s} {mode} lean={lean} "
+                             f"zero={zero_top},{zero_bottom}")
     b, n = shard_shape
     t_total = n // frontier_tile_n(n)
     base = random_table(41, b, n, dev)
     plain = {}
     for m in (1, 8):
         for mode, lean in (("reference", False), ("lww", False), ("reference", True)):
-            ms = pair(base, m, mode, lean, False, mode == "lww", np.ones(t_total, bool),
+            ms = pair(base, m, m, mode, lean, False, mode == "lww", np.ones(t_total, bool),
                       f"{b}x{n} m={m} {mode} lean={lean}")
-            plain.setdefault(m, ms)
+            plain.setdefault((m, lean), ms)
     tops = _boundary(rng, 8, n, dev, False)
     bottoms = _boundary(rng, 8, n, dev, False)
-    for m, name in ((1, "frontier_shard"), (8, "frontier_shard fused")):
+    for m, lean, name in ((1, False, "frontier_shard"), (8, False, "frontier_shard fused"),
+                          (8, True, "frontier_shard fused lean")):
+        nf = 4 if lean else 7
         ids = _ids(np.ones(t_total, bool), m, dev)
-        ms = time_ms(lambda: frontier_shard_round(base, [t[:m] for t in tops],
-                                                  [t[:m] for t in bottoms], ids,
+        ms = time_ms(lambda: frontier_shard_round(base[:nf], [t[:m] for t in tops[:nf]],
+                                                  [t[:m] for t in bottoms[:nf]], ids,
                                                   frontier_tile_n(n), "reference", m), 3)
         # whatever m: one read and one write of the shard's rows and one
-        # read of the 2 m boundary rows (which the kernel happens to use as
-        # scratch); m rounds of compares over the extended column
-        times[name] = (ms, plain[m], bound(56 * (b + m) * n, m * 38 * (b + 2 * m) * n))
-        log(f"  {name} {b}x{n} per shard, m={m}, all {t_total} stripes: kernel {ms:.3f} ms, "
-            f"plain {plain[m]:.3f} ms per call; bit-identical (reference, lww, lean; random "
-            "and zeroed boundary rows)")
+        # read of the 2 m boundary rows; m rounds of two joins (the key
+        # compares and the selects) over the extended column
+        ops = m * (38 if nf == 7 else 18) * (b + 2 * m) * n
+        times[name] = (ms, plain[m, lean], bound(8 * nf * (b + m) * n, ops))
+        log(f"  {name} {b}x{n} per shard, m={m}, nf={nf}, all {t_total} stripes: kernel "
+            f"{ms:.3f} ms, plain {plain[m, lean]:.3f} ms per call, bound "
+            f"{times[name][2][0]:.3f} ms; bit-identical (reference, lww, lean; random and "
+            "zeroed boundary rows)")
     del base
 
 
@@ -1178,14 +1189,17 @@ def window_joins(m: int) -> int:
 
 def check_frontier_shard_packed(dev, shard_shape, errs, times, nf):
     """The packed family's per-shard kernels against their plain versions:
-    #22 (m = 1) and #23 (m = 8) with s = m boundary rows, #25 (the window,
-    m = 3, 15 and 63 on m-row slabs), on random boundary rows (a ring, or
-    a chain's inner shard) and zeroed ones (a chain's end shard), all and
-    sparse stripes, small and ragged shards, a stripe split over blocks of
-    the window (16 columns each) and a shard of 1024 rows, more than the
+    #22 (m = 1, the sweep), #23 (m = 8, the pipelined pass) and the m-sweep
+    loop (m = 3), each with s = m boundary rows and with s = 11, #25 (the
+    window, m = 3, 15 and 63 on m-row slabs), on random boundary rows (a
+    ring, or a chain's inner shard) and zeroed ones (a chain's end shard),
+    all and sparse stripes, shards of 1, 3 and 17 rows (the frontier
+    only), small and ragged shards, a stripe split over blocks of the
+    window (16 columns each) and a shard of 1024 rows, more than the
     window kernel's shared-memory tile holds at nf = 3 (its row tiles and
     their carried halos); then one shard of the phase 9 mesh (256 x 2^20 by
-    default), timed. Rows, counts and stats exact."""
+    default), timed. Rows, counts and stats exact, and the frontier's
+    boundary rows as they were at m = 1 and 8."""
     from bullet_tpu_torch.ops import packed as pk
     from bullet_tpu_torch.ops.ring_kernel import frontier_tile_n, frontier_shard_round_torch
 
@@ -1196,10 +1210,10 @@ def check_frontier_shard_packed(dev, shard_shape, errs, times, nf):
             return [torch.zeros((s, n), dtype=torch.int32, device=dev) for _ in range(nf)]
         return list(random_family(nf, int(rng.integers(1 << 30)), s, n, dev))
 
-    def pair(base, m, window, zero_top, zero_bottom, dirty, what):
+    def pair(base, m, s, window, zero_top, zero_bottom, dirty, what):
         n = base[0].shape[1]
         tile = frontier_tile_n(n)
-        tops, bottoms = slabs(m, n, zero_top), slabs(m, n, zero_bottom)
+        tops, bottoms = slabs(s, n, zero_top), slabs(s, n, zero_bottom)
         got, want = clone(base), clone(base)
         ids = _ids(dirty, m, dev)
         copies = ([t.clone() for t in tops], [t.clone() for t in bottoms])
@@ -1214,16 +1228,24 @@ def check_frontier_shard_packed(dev, shard_shape, errs, times, nf):
             c_want, ms = timed_once(lambda: frontier_shard_round_torch(
                 want, tops, bottoms, ids, tile, pk.packed_beats, m))
         _pair(name, errs, (*got, c_got), (*want, c_want), f"nf={nf} {what}")
+        if not window and m in (1, 8):  # the boundary rows are read only
+            _pair(name, errs, (*copies[0], *copies[1]), (*tops, *bottoms),
+                  f"nf={nf} {what} boundary")
         return ms
 
-    for b, n in ((8, 64), (8, 1024), (37, 512), (256, 4096), (1024, 4096)):
+    frontier = ((1, 1), (1, 11), (8, 8), (8, 11), (3, 3), (3, 11))
+    for b, n in ((1, 64), (3, 512), (8, 64), (8, 1024), (17, 1024), (37, 512), (256, 4096),
+                 (1024, 4096)):
         base = random_family(nf, 800 + b, b, n, dev)
         t_total = n // frontier_tile_n(n)
-        for m, window in ((1, False), (8, False), (3, True), (15, True), (63, True)):
+        cases = [(m, s, False) for m, s in frontier]
+        if b >= 8:
+            cases += [(m, m, True) for m in (3, 15, 63)]
+        for m, s, window in cases:
             for zero_top, zero_bottom in ((False, False), (True, False), (False, True)):
                 for dirty in (np.ones(t_total, bool), rng.random(t_total) < 0.4):
-                    pair(base, m, window, zero_top, zero_bottom, dirty,
-                         f"{b}x{n} m={m} window={window} zero={zero_top},{zero_bottom}")
+                    pair(base, m, s, window, zero_top, zero_bottom, dirty,
+                         f"{b}x{n} m={m} s={s} window={window} zero={zero_top},{zero_bottom}")
         del base
     b, n = shard_shape
     tile = frontier_tile_n(n)
@@ -1232,7 +1254,7 @@ def check_frontier_shard_packed(dev, shard_shape, errs, times, nf):
     every = np.ones(t_total, bool)
     plain = {}
     for m, window in ((1, False), (8, False), (63, True)):
-        plain[m] = pair(base, m, window, False, m == 8, every, f"{b}x{n} m={m}")
+        plain[m] = pair(base, m, m, window, False, m == 8, every, f"{b}x{n} m={m}")
     tops, bottoms = slabs(63, n, False), slabs(63, n, False)
     for m, name, window in ((1, "frontier_shard packed", False),
                             (8, "frontier_shard packed fused", False),
@@ -1857,7 +1879,9 @@ def sharded_equal(sharded, table) -> bool:
 
 def sharded_main_path(args, dev, window=wall_window):
     """Phase 8: ``SHARDS`` shards on the one card, P x N (default
-    1024 x 2^18), lww (full metadata) and lean, against unsharded twins."""
+    1024 x 2^18), lww (full metadata) and lean, against unsharded twins.
+    Returns the launches of both runs, and under "frontier_shard fused
+    lean" the lean run's fused launches (the kernel at nf = 4)."""
     from bullet_tpu_torch import PeerNetworkSim, _build
 
     p, n = args.peers, args.capacity
@@ -1933,6 +1957,8 @@ def sharded_main_path(args, dev, window=wall_window):
             raise AssertionError(f"sharded {tag} reads differ from the twin")
         for k in SHARD_KERNELS:
             launches[k] += _build.LAUNCHES[k]
+        if lean:
+            launches["frontier_shard fused lean"] = _build.LAUNCHES["frontier_shard fused"]
         log(f"  {tag} ({'lean, ' if lean else ''}{SHARDS} shards of {p // SHARDS} x {n}"
             f" on one card): run_until_converged [{route}] {rounds} rounds in "
             f"{secs[f'{tag} sharded run_until_converged']:.3f} s (twin "
@@ -2223,7 +2249,8 @@ def main() -> int:
     # one row per kernel at the layout its main path drives (dense: phase
     # 4, packed: phase 5), one per packed-family kernel at rank1 (phase 6),
     # the lean kernels (phase 7; the merge and the dense frontier at
-    # nf = 4), the sharded ones (phase 8) and the packed family's mesh
+    # nf = 4), the sharded ones (phase 8, and the fused per-shard frontier
+    # at nf = 4 with its lean run's launches) and the packed family's mesh
     # kernels at packed and rank1 (phase 9; its packed sim never takes the
     # fused frontier, the rank1 copy does); the rank (nf = 2) times, the
     # packed frontier's m = 1 times and the fused mesh frontier's at
@@ -2235,6 +2262,8 @@ def main() -> int:
               lean_launches["frontier_round_dense"]),
              ("merge lean", "merge", lean_launches["merge"])]
     rows += [(name, name, shard_launches[name]) for name in SHARD_KERNELS]
+    rows.append(("frontier_shard fused lean", "frontier_shard fused",
+                 shard_launches["frontier_shard fused lean"]))
     rows += [(name, name, mesh_packed[name]) for name in MESH_PACKED_KERNELS
              if name != "frontier_shard packed fused"]
     rows += [(tag(name, 1), name, mesh_rank1[name]) for name in MESH_PACKED_KERNELS]

@@ -1,4 +1,4 @@
-"""CPU models of the port's two fused frontier kernels, step by step as the
+"""CPU models of the port's fused frontier kernels, step by step as the
 CUDA kernels schedule their work, for the tests to hold against the
 reference (the kernels themselves run only on the card):
 
@@ -6,6 +6,9 @@ reference (the kernels themselves run only on the card):
   ``bullet_tpu_torch/csrc/frontier.cuh``, the pipelined m-round pass of
   the compacting frontier step (#19, #16 and #8 at m = 8), with the
   order-preserving key encodings it holds values in (``PipeKey``);
+- ``shard_pipe_model``: ``shard_pipe_kernel`` of
+  ``bullet_tpu_torch/csrc/frontier_shard.cu``, the same stages over one
+  shard's extended column (#7 and #23 at m = 8);
 - ``shard_window_model``: ``frontier_shard_window.cu`` (#25), the distance
   chain on shared-memory row tiles with carried halos and the atomic stats
   reduction.
@@ -169,6 +172,66 @@ def frontier_pipe_model(fields, ids, tile, wrap, key, depth):
     if depth > 1:
         out[t_total + 2] = int(last.max())
     return out
+
+
+def shard_pipe_model(fields, tops, bottoms, ids, tile, key, depth):
+    """One per-shard frontier step of ``depth`` rounds as the pipelined pass
+    of frontier_shard.cu runs it, in place on the shard's ``fields``
+    ([b, n]) given its [s, n] boundary rows ``tops`` and ``bottoms``, which
+    it only reads. Per column, step e of the pass reads input e, extended
+    row s - depth + e (the extended column: ``tops``, the shard, then
+    ``bottoms``), in ``key``'s encoding; the stages start from encoded
+    zeros; stage k emits round k at pass row e - k from its two kept rows
+    and stage k - 1's output, compared by ``key.gt``; only the shard's pass
+    rows [depth, depth + b) count, and stage depth's output is decoded and
+    stored at shard row e - 2 depth for every e >= 2 depth. The pass is
+    b + 2 depth steps long. As in the kernel, the steps in [2 depth,
+    b + depth] (the body) count every stage, read the next input and store
+    with no test at all; the head and the tail test. Returns the per-round,
+    per-stripe counts, int32 [depth, t_total] (each a sum wrapping like
+    uint32), zero for stripes not in ids."""
+    b, n = fields[0].shape
+    s = tops[0].shape[0]
+    t_total = n // tile
+    counts = torch.zeros((depth, t_total), dtype=torch.int32)
+    count = int(ids[t_total])
+    if count == 0:
+        return counts
+    stripes = ids[:count].to(torch.int64)
+    cols = (stripes[:, None] * tile + torch.arange(tile)).reshape(-1)
+
+    def read(e):  # ExtColumn::load of extended row s - depth + e
+        r = s - depth + e
+        src, i = (tops, r) if r < s else (fields, r - s) if r < s + b else (bottoms, r - s - b)
+        return key.encode([f[i, cols] for f in src])
+
+    zero = key.encode([torch.zeros(cols.numel(), dtype=torch.int32) for _ in fields])
+    up = [zero] * depth
+    cur = [zero] * depth
+    cnt = torch.zeros((depth, cols.numel()), dtype=torch.int64)
+    length, head = b + 2 * depth, 2 * depth
+    body = max(head, b + depth + 1)
+    nxt = read(0)
+    for e in range(length):
+        edge = not head <= e < body
+        inp = nxt
+        if not edge or e + 1 < length:
+            nxt = read(e + 1)
+        for k in range(depth):
+            g1 = key.gt(up[k], cur[k])
+            v = [torch.where(g1, a, c) for a, c in zip(up[k], cur[k])]
+            g2 = key.gt(inp, v)
+            v = [torch.where(g2, a, c) for a, c in zip(inp, v)]
+            if not edge or depth <= e - k - 1 < depth + b:
+                cnt[k] += g1.to(torch.int64) + g2.to(torch.int64)
+            up[k], cur[k] = cur[k], inp
+            inp = v
+        if e >= head:
+            for f, x in zip(fields, key.decode(inp)):
+                f[e - 2 * depth, cols] = x
+    per_stripe = cnt.reshape(depth, count, tile).sum(2) & MASK32
+    counts[:, stripes] = _s32(per_stripe)
+    return counts
 
 
 def window_tile_rows(nf, b, m, optin=H100_SMEM_OPTIN):

@@ -21,6 +21,7 @@ from bullet_tpu_torch import native as port_native
 from bullet_tpu_torch.convert import FROM_NUMPY, table_to_numpy
 from bullet_tpu_torch.ops import packed as pk
 from bullet_tpu_torch.ops import rank as rk
+from _native_libs import load_native
 from test_torch_packed import _check_step, _ids, assert_same
 from test_torch_window import JAX_TABLE, LAYOUT, fields_np
 
@@ -150,7 +151,7 @@ def test_reduce_flat_ops_rank_matches_reference(native, monkeypatch):
     reference's winners in (peer, slot) order."""
     if not native:
         monkeypatch.setattr(port_native, "reduce_flat_ops_rank", lambda *a: NotImplemented)
-    elif port_native.load() is None or ref_native.load() is None:
+    elif any(load_native(lib, monkeypatch) is None for lib in (port_native, ref_native)):
         pytest.skip("no C++ toolchain: the numpy fallbacks run")
     rng = np.random.default_rng(40)
     k, p, n = 20_000, 32, 2048

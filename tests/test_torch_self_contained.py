@@ -3,8 +3,10 @@ chip_smoke.py or a script in tools/, imports the JAX package or JAX, or
 finds the JAX package's files through ``bullet_tpu.__file__``; and the
 port's own copies of the framework-free modules (utils/encode, utils/paths,
 parallel/topology, the native host runtime) give the reference's results
-on the same seeded inputs. The reference modules are imported here, by
-the test, never by the port."""
+on the same seeded inputs, native against native also in a process that
+lost the race to build the reference's library (tests/_native_libs.py).
+The reference modules are imported here, by the test, never by the
+port."""
 
 import ast
 import os
@@ -21,6 +23,8 @@ from bullet_tpu_torch import native as port_native
 from bullet_tpu_torch.parallel import topology as port_topo
 from bullet_tpu_torch.utils import encode as port_encode
 from bullet_tpu_torch.utils import paths as port_paths
+
+from _native_libs import load_native
 
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("bullet_tpu", "jax", "jaxlib")
@@ -80,8 +84,8 @@ def test_the_scan_catches_each_form(tmp_path):
     ]
 
 
-def test_native_library_builds_outside_the_sources():
-    lib = port_native.load()
+def test_native_library_builds_outside_the_sources(monkeypatch):
+    lib = load_native(port_native, monkeypatch)
     if lib is None:
         pytest.skip("no C++ toolchain: the numpy fallbacks run")
     target = port_native._lib_path()
@@ -117,7 +121,31 @@ def test_encode_matches_reference():
     assert port.epoch == ref.epoch
 
 
-def test_paths_match_reference():
+def test_paths_match_reference(monkeypatch):
+    load_native(ref_native, monkeypatch)
+    load_native(port_native, monkeypatch)
+    _assert_paths_match()
+
+
+def test_native_parity_survives_a_lost_build_race(monkeypatch):
+    """A process whose build of the reference's library lost the race to
+    another's (the library exists, the failure flag is set, nothing is
+    loaded, so the reference hands out its Python interner) still compares
+    the two native path interners."""
+    if any(load_native(lib, monkeypatch) is None for lib in (port_native, ref_native)):
+        pytest.skip("no C++ toolchain: the numpy fallbacks run")
+    monkeypatch.setattr(ref_native, "_lib", None)
+    monkeypatch.setattr(ref_native, "_load_failed", True)
+    assert ref_native.load() is None
+    assert type(ref_native.make_path_interner()).__name__ == "PathInterner"
+    assert load_native(ref_native, monkeypatch) is not None
+    assert type(ref_native.make_path_interner()).__name__ == "NativePathInterner"
+    _assert_paths_match()
+
+
+def _assert_paths_match():
+    """The port's path interners (Python, and native where it loads) give
+    the reference's ids, paths, parents and lookups."""
     rng = np.random.default_rng(1)
     paths = [f"r{int(a)}/m{int(b)}/leaf{int(c)}" for a, b, c in rng.integers(0, 6, (400, 3))]
     for make_ref, make_port in (
@@ -153,8 +181,8 @@ def test_topology_matches_reference(build):
     np.testing.assert_array_equal(dropped_port.neighbors, dropped_ref.neighbors)
 
 
-def test_native_matches_reference():
-    if port_native.load() is None or ref_native.load() is None:
+def test_native_matches_reference(monkeypatch):
+    if any(load_native(lib, monkeypatch) is None for lib in (port_native, ref_native)):
         pytest.skip("no C++ toolchain: the numpy fallbacks run")
     rng = np.random.default_rng(3)
     k = 5000

@@ -3,9 +3,13 @@ reference on its 8-device CPU mesh (the counterpart of
 tests/test_shardmap_gossip.py): the mesh helpers; ring, chain, mesh, star
 and generic rounds on a sharded table; the per-shard frontier step (#6,
 #7) and the count compaction (#21, #24) against the reference's Pallas
-kernels in interpret mode; gossip_frontier_shardmap_dense (reference,
+kernels in interpret mode, and the CUDA kernel's pipelined pass at m = 8
+(modelled in tests/_kernel_models.py) against them and the plain version
+on shards of 1 to 256 rows; gossip_frontier_shardmap_dense (reference,
 lww, lean; ring and chain; fuse 1 and 8; cutoffs; a sparse seed).
 Tolerance: exact (int32 fields, counts, ids, rounds and residuals)."""
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -26,7 +30,12 @@ from bullet_tpu.parallel.gossip import (
     gossip_until_converged_device,
 )
 from bullet_tpu_torch.convert import sharded_from_numpy, table_from_numpy, table_to_numpy
-from bullet_tpu_torch.ops.packed import compact_counts, compact_counts_torch
+from bullet_tpu_torch.ops.packed import (
+    compact_counts,
+    compact_counts_torch,
+    frontier_shard_round_packed,
+    packed_beats,
+)
 from bullet_tpu_torch.ops.ring_kernel import (
     beats_of,
     frontier_shard_round,
@@ -37,6 +46,8 @@ from bullet_tpu_torch.ops.ring_kernel import (
 from bullet_tpu_torch.parallel import mesh as port_mesh
 from bullet_tpu_torch.parallel import shardmap_gossip as sg
 from bullet_tpu_torch.parallel import topology as topo
+
+from _kernel_models import PipeKey, shard_pipe_model
 
 torch.set_num_threads(2)
 
@@ -284,6 +295,128 @@ def test_frontier_shard_skips_inactive_stripes():
     assert counts.shape == (8, 4) and not counts[:, ~torch.from_numpy(flags)].any()
     for a, o in zip(f, before):
         assert torch.equal(a[:, :256], o[:, :256]) and torch.equal(a[:, 512:768], o[:, 512:768])
+
+
+# ------------------------------ the pipelined pass at m = 8 (#7), modelled
+
+# a shard's slots and the port's stripes in the model tests: four stripes,
+# of which stripes 1 and 3 are the sparse case's active ones
+PIPE_N, PIPE_TILE = 512, 128
+SPARSE = np.array([False, True, False, True])
+PIPE_ROWS = (1, 3, 8, 17, 37, 256)
+
+
+def tied_fields(p, n, rng, nf=7):
+    """Dense fields with many ties: small value ranges, negative khi/klo,
+    absent (cls = 0) entries with nonzero fields."""
+    ranges = ((0, 4), (-3, 3), (-3, 3), (0, 4), (0, 4), (0, 4), (0, 5))
+    return [rng.integers(lo, hi, (p, n)).astype(np.int32) for lo, hi in ranges[:nf]]
+
+
+@functools.lru_cache(maxsize=None)
+def _pipe_case(mode, lean, b, zero, sparse):
+    """One shard of [b, PIPE_N] with 11 boundary rows each way (a zeroed
+    slab is a chain's end), and what the reference makes of it: eight
+    rounds from the 8 boundary rows next to the shard, on the columns of
+    the active stripes, by its Pallas kernel in interpret mode where that
+    takes the shard (b % 8 == 0), else by the XLA rounds the kernel runs
+    (``_merge_ext_round_dense``). Returns (fields, tops, bottoms, stripe
+    flags, the reference's rows of those columns, its per-round counts)."""
+    nf = 4 if lean else 7
+    rng = np.random.default_rng(b)
+    f = tied_fields(b, PIPE_N, rng, nf)
+    tops, bottoms = tied_fields(11, PIPE_N, rng, nf), tied_fields(11, PIPE_N, rng, nf)
+    if zero == "top":
+        tops = [np.zeros_like(x) for x in tops]
+    if zero == "bottom":
+        bottoms = [np.zeros_like(x) for x in bottoms]
+    flags = SPARSE if sparse else np.ones(len(SPARSE), bool)
+    cols = np.repeat(flags, PIPE_TILE)
+    sub, top, bottom = ([jnp.asarray(x[rows][:, cols]) for x in xs] for xs, rows in (
+        (f, slice(None)), (tops, slice(-8, None)), (bottoms, slice(0, 8))))
+    if b % 8 == 0:
+        tile = ref_rk.frontier_tile_n_dense(b, int(cols.sum()), lean)
+        rows, c = ref_rk.frontier_shard_multiround_dense(
+            tuple(sub), tuple(top), tuple(bottom),
+            jnp.asarray(_ids(np.ones(int(cols.sum()) // tile, bool), 8)), mode, True)
+        totals = np.asarray(c).sum(1)
+    else:
+        ext = [jnp.concatenate([t, x, bo]) for x, t, bo in zip(sub, top, bottom)]
+        totals = []
+        for _ in range(8):
+            ext, c = ref_rk._merge_ext_round_dense(ext, nf, mode, b)
+            totals.append(int(c))
+        rows = [e[8:8 + b] for e in ext]
+    return f, tops, bottoms, flags, [np.asarray(r) for r in rows], np.asarray(totals)
+
+
+@pytest.mark.parametrize("sparse", [False, True])
+@pytest.mark.parametrize("zero", ["none", "top", "bottom"])
+@pytest.mark.parametrize("s", [8, 11])
+@pytest.mark.parametrize("b", PIPE_ROWS)
+@pytest.mark.parametrize("mode,lean", [("reference", False), ("lww", False), ("reference", True)])
+def test_shard_pipe_model_matches_reference(mode, lean, b, s, zero, sparse):
+    """#7 at m = 8: the CUDA kernel's pipelined pass over the extended
+    column (shard_pipe_model) on shards smaller than the pipeline (b = 1,
+    3), at its depth (8) and past it, with s = 8 boundary rows or s = 11 >
+    m; rows and every per-round, per-stripe count equal the plain
+    version's, the active stripes' rows and per-round totals the
+    reference's, and inactive stripes stay as they were."""
+    f, tops, bottoms, flags, want, totals = _pipe_case(mode, lean, b, zero, sparse)
+    t = lambda xs: [torch.from_numpy(x.copy()) for x in xs]  # noqa: E731
+    top, bottom = t([x[-s:] for x in tops]), t([x[:s] for x in bottoms])
+    ids = torch.from_numpy(_ids(flags, 8))
+    got, plain = t(f), t(f)
+    counts = shard_pipe_model(got, top, bottom, ids, PIPE_TILE,
+                              PipeKey("lean" if lean else mode), 8)
+    c_plain = frontier_shard_round_torch(plain, top, bottom, ids, PIPE_TILE,
+                                         beats_of(len(f), mode), 8)
+    assert all(torch.equal(a, p) for a, p in zip(got, plain))
+    assert torch.equal(counts, c_plain)
+    cols = np.repeat(flags, PIPE_TILE)
+    for a, x, w in zip(got, f, want):
+        np.testing.assert_array_equal(a.numpy()[:, cols], w)
+        np.testing.assert_array_equal(a.numpy()[:, ~cols], x[:, ~cols])
+    assert counts.sum(1).tolist() == totals.tolist()
+    assert not counts[:, ~torch.from_numpy(flags)].any()
+
+
+@pytest.mark.parametrize("layout", ["reference", "lww", "lean", "packed", "rank", "rank1"])
+def test_frontier_shard_leaves_the_boundary_rows_unwritten(layout):
+    """The boundary rows are read only at the loops' depths: the kernel's
+    pass at m = 8 (modelled) and the wrappers at m = 1 and 8 leave the
+    neighbours' rows as they were, on a ring's slabs and a chain's zeroed
+    one."""
+    rng = np.random.default_rng(5)
+    if layout in ("packed", "rank", "rank1"):
+        nf = {"packed": 3, "rank": 2, "rank1": 1}[layout]
+        fields = [rng.integers(-3, 3, (24, PIPE_N)) for _ in range(nf)]
+        if nf < 3:  # rank, rank1: keyed by rank, cv a function of it
+            fields = [fields[0], np.where(fields[0] > 0, (1 << 28) | fields[0], 0)][:nf]
+        step = lambda f, t, bo, ids, m: frontier_shard_round_packed(  # noqa: E731
+            f, t, bo, ids, PIPE_TILE, m)
+        beats = packed_beats
+    else:
+        nf = 4 if layout == "lean" else 7
+        fields = tied_fields(24, PIPE_N, rng, nf)
+        mode = "lww" if layout == "lww" else "reference"
+        step = lambda f, t, bo, ids, m: frontier_shard_round(  # noqa: E731
+            f, t, bo, ids, PIPE_TILE, mode, m)
+        beats = beats_of(nf, mode)
+    t = lambda xs: [torch.from_numpy(np.asarray(x, np.int32).copy()) for x in xs]  # noqa: E731
+    tops = t(x[:8] for x in fields)
+    bottoms = [torch.zeros_like(x) for x in tops]
+    shard = t(x[8:] for x in fields)
+    before = [x.clone() for x in (*tops, *bottoms)]
+    ids = torch.from_numpy(_ids(np.ones(PIPE_N // PIPE_TILE, bool), 8))
+    modelled, plain = [x.clone() for x in shard], [x.clone() for x in shard]
+    counts = shard_pipe_model(modelled, tops, bottoms, ids, PIPE_TILE, PipeKey(layout), 8)
+    assert torch.equal(counts, frontier_shard_round_torch(plain, tops, bottoms, ids, PIPE_TILE,
+                                                          beats, 8))
+    assert int(counts.sum()) > 0
+    for m in (1, 8):
+        step([x.clone() for x in shard], tops, bottoms, ids if m == 8 else ids[:-1], m)
+    assert all(torch.equal(a, x) for a, x in zip((*tops, *bottoms), before))
 
 
 # -------------------------------------------- count compaction (#21, #24)

@@ -4,7 +4,9 @@ and the packed half of tests/test_shardmap_gossip.py), at nf = 3
 (packed), 2 (rank) and 1 (rank1): the route predicates; the per-shard
 frontier step (#22 at m = 1 against the reference's Pallas kernel in
 interpret mode, #23 at m = 8 against its XLA trapezoid rounds and, for
-rank1, its Pallas kernel); the window step (#25: the plain version
+rank1, its Pallas kernel; the CUDA kernel's pipelined pass at m = 8,
+modelled, against the plain version and the reference's kernel or its
+rounds on shards of 1 to 256 rows); the window step (#25: the plain version
 against the reference's kernel in interpret mode at m = 3 and 5, and
 against its distance chain and classic rounds at m = 15 and 63; the CUDA
 kernel's design, the distance chain on shared-memory row tiles with
@@ -14,6 +16,8 @@ chain, mesh, star and generic exchanges; the spmd fast_forward window;
 gossip_frontier_shardmap_packed in all three modes (cutoffs, a sparse
 seed). Tolerance: exact (int32 fields, counts, stats, ids, rounds and
 residuals)."""
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -33,7 +37,7 @@ from bullet_tpu_torch.ops.ring_kernel import _round_masks, frontier_tile_n
 from bullet_tpu_torch.parallel import shardmap_gossip as sg
 from bullet_tpu_torch.parallel import topology as port_topo
 
-from _kernel_models import shard_window_model, window_tile_rows
+from _kernel_models import PipeKey, shard_pipe_model, shard_window_model, window_tile_rows
 
 torch.set_num_threads(2)
 
@@ -180,6 +184,72 @@ def test_frontier_shard_m8_matches_reference_twin(nf, zero):
             J(nf, f), J(nf, tops), J(nf, bottoms), jnp.asarray(ids), True)
         assert_equal(got, kernel)
         assert np.asarray(c_kernel)[:, 0].tolist() == c_want
+
+
+# a shard's slots and the port's stripes in the model tests: four stripes,
+# of which stripes 1 and 3 are the sparse case's active ones
+PIPE_N, PIPE_TILE = 512, 128
+SPARSE = np.array([False, True, False, True])
+
+
+@functools.lru_cache(maxsize=None)
+def _pipe_case(nf, b, zero, sparse):
+    """One shard of [b, PIPE_N] with 11 boundary rows each way (a zeroed
+    slab is a chain's end), and what the reference makes of it: eight
+    rounds from the 8 boundary rows next to the shard, on the columns of
+    the active stripes, by its Pallas kernel in interpret mode where that
+    takes the shard (b % 8 == 0), else by its XLA trapezoid rounds
+    (``_merge_ext_round``). Returns (fields, tops, bottoms, stripe flags,
+    the reference's rows of those columns, its per-round counts)."""
+    f = family(nf, b, PIPE_N, 40 + b, absent=0.2)
+    tops = boundary(nf, 11, PIPE_N, 41 + b, zero == "top")
+    bottoms = boundary(nf, 11, PIPE_N, 42 + b, zero == "bottom")
+    flags = SPARSE if sparse else np.ones(len(SPARSE), bool)
+    cols = np.repeat(flags, PIPE_TILE)
+    sub = [x[:, cols] for x in f]
+    top, bottom = [x[-8:, cols] for x in tops], [x[:8, cols] for x in bottoms]
+    if b % 8 == 0:
+        width = int(cols.sum())
+        t_ref = width // ref_pk._stripe_tile_n(b, width)
+        ids = np.zeros(t_ref + 3, np.int32)
+        ids[:t_ref], ids[t_ref] = np.arange(t_ref), t_ref
+        rows, c = ref_pk.frontier_shard_multiround_packed(
+            J(nf, sub), J(nf, top), J(nf, bottom), jnp.asarray(ids), True)
+        rows, totals = [np.asarray(r) for r in rows], np.asarray(c).sum(1)
+    else:
+        rows, totals = _trapezoid_twin(nf, sub, top, bottom, 8)
+    return f, tops, bottoms, flags, rows, np.asarray(totals)
+
+
+@pytest.mark.parametrize("sparse", [False, True])
+@pytest.mark.parametrize("zero", ["none", "top", "bottom"])
+@pytest.mark.parametrize("s", [8, 11])
+@pytest.mark.parametrize("b", [1, 3, 8, 17, 37, 256])
+@pytest.mark.parametrize("nf", [3, 2, 1])
+def test_shard_pipe_model_matches_reference(nf, b, s, zero, sparse):
+    """#23 at m = 8: the CUDA kernel's pipelined pass over the extended
+    column (shard_pipe_model) on shards smaller than the pipeline (b = 1,
+    3), at its depth (8) and past it, with s = 8 boundary rows or s = 11 >
+    m; rows and every per-round, per-stripe count equal the plain
+    version's, the active stripes' rows and per-round totals the
+    reference's, and inactive stripes stay as they were."""
+    f, tops, bottoms, flags, want, totals = _pipe_case(nf, b, zero, sparse)
+    top, bottom = T([x[-s:] for x in tops]), T([x[:s] for x in bottoms])
+    ids = all_ids(len(flags), 8)
+    ids[:int(flags.sum())] = torch.from_numpy(np.flatnonzero(flags))
+    ids[len(flags)] = int(flags.sum())
+    got, plain = T(f), T(f)
+    counts = shard_pipe_model(got, top, bottom, ids, PIPE_TILE, PipeKey(LAYOUT[nf]), 8)
+    c_plain = pk.frontier_shard_round_torch(plain, top, bottom, ids, PIPE_TILE,
+                                            pk.packed_beats, 8)
+    assert all(torch.equal(a, p) for a, p in zip(got, plain))
+    assert torch.equal(counts, c_plain)
+    cols = np.repeat(flags, PIPE_TILE)
+    for a, x, w in zip(got, f, want):
+        np.testing.assert_array_equal(a.numpy()[:, cols], w)
+        np.testing.assert_array_equal(a.numpy()[:, ~cols], x[:, ~cols])
+    assert counts.sum(1).tolist() == totals.tolist()
+    assert not counts[:, ~torch.from_numpy(flags)].any()
 
 
 def test_frontier_shard_packed_skips_inactive_stripes():

@@ -14,7 +14,12 @@ mean of 5 calls after one warm-up (3 for the shard window), on:
   4096 stripes, nf = 3, 2, 1;
 - frontier_shard_window (#25, m = 63), one 256 x 2^20 shard, nf = 3, 2, 1;
 - frontier_round_dense (#8, m = 8), 1024 x 2^18 (reference, lww) and lean
-  1024 x 2^20.
+  1024 x 2^20;
+- frontier_shard_round (#7 at m = 8, #6 at m = 1) on one shard of phase 8
+  of chip_smoke.py, 256 x 2^18, with s = m boundary rows: reference, lww
+  and lean;
+- frontier_shard_round_packed (#23 at m = 8, #22 at m = 1) on one shard
+  of phase 9, 256 x 2^20, with s = m boundary rows: nf = 3, 2, 1.
 
 ``--ptxas`` first compiles the frontier sources of each ROOT with
 ``-Xptxas -v`` and prints the registers, shared memory and spills of every
@@ -30,7 +35,8 @@ import subprocess
 import sys
 import tempfile
 
-PTXAS_SOURCES = ("frontier_packed.cu", "frontier_dense.cu", "frontier_shard_window.cu")
+PTXAS_SOURCES = ("frontier_packed.cu", "frontier_dense.cu", "frontier_shard.cu",
+                 "frontier_shard_window.cu")
 
 
 def ptxas_report(root: str) -> None:
@@ -72,7 +78,11 @@ def time_root(root: str) -> None:
     import chip_smoke as cs
     from bullet_tpu_torch import _build
     from bullet_tpu_torch.ops import packed as pk
-    from bullet_tpu_torch.ops.ring_kernel import frontier_round_dense, frontier_tile_n
+    from bullet_tpu_torch.ops.ring_kernel import (
+        frontier_round_dense,
+        frontier_shard_round,
+        frontier_tile_n,
+    )
 
     if not cs.__file__.startswith(root):
         raise RuntimeError(f"imported {cs.__file__}, not {root}'s chip_smoke.py")
@@ -112,6 +122,32 @@ def time_root(root: str) -> None:
     ids = cs._ids(every, 8, dev)
     res["frontier_round_dense lean 1024x2^20 m=8"] = cs.time_ms(
         lambda: frontier_round_dense(table, ids, tile, True, "reference", 8, lean=True), 5)
+    del table
+    torch.cuda.empty_cache()
+    b = p // cs.SHARDS
+    rng = np.random.default_rng(7)
+    shard = cs.random_table(41, b, nd, dev)
+    tops, bottoms = (cs._boundary(rng, 8, nd, dev, False) for _ in range(2))
+    for m in (8, 1):
+        ids = cs._ids(np.ones(nd // tile_d, bool), m, dev)
+        for mode, nf in (("reference", 7), ("lww", 7), ("lean", 4)):
+            res[f"frontier_shard {mode} {b}x2^18 m={m}"] = cs.time_ms(
+                lambda: frontier_shard_round(
+                    shard[:nf], [t[:m] for t in tops[:nf]], [t[:m] for t in bottoms[:nf]],
+                    ids, tile_d, "lww" if mode == "lww" else "reference", m), 5)
+    del shard, tops, bottoms
+    torch.cuda.empty_cache()
+    for nf in (3, 2, 1):
+        shard = cs.random_family(nf, 9 + nf, b, n, dev)
+        tops = list(cs.random_family(nf, 19 + nf, 8, n, dev))
+        bottoms = list(cs.random_family(nf, 29 + nf, 8, n, dev))
+        for m in (8, 1):
+            ids = cs._ids(every, m, dev)
+            res[f"frontier_shard_packed nf={nf} {b}x2^20 m={m}"] = cs.time_ms(
+                lambda: pk.frontier_shard_round_packed(
+                    shard, [t[:m] for t in tops], [t[:m] for t in bottoms], ids, tile, m), 5)
+        del shard, tops, bottoms
+        torch.cuda.empty_cache()
     for name, ms in res.items():
         print(f"TIME {root} {name}: {ms:.3f} ms", flush=True)
 
