@@ -48,7 +48,7 @@ LAUNCHES = {
     "compact_counts fused": 0, "frontier_shard packed": 0, "frontier_shard packed fused": 0,
     "frontier_shard_window": 0, "compact_counts window": 0,
     "apply_packed": 0, "packed_round": 0, "reconcile_packed": 0,
-    "frontier_round_packed": 0, "window_packed": 0,
+    "frontier_round_packed": 0, "window_packed": 0, "window_shard": 0,
 }
 
 _P = ctypes.c_void_p
@@ -94,9 +94,14 @@ _SIGNATURES = {
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P,
     ),
     "bt_window_packed": (
-        _P, _P, _P, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
-        ctypes.c_int, ctypes.c_int, _P,
+        _P, _P, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_int, _P,
     ),
+    "bt_window_shard_packed": (
+        _P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, _P,
+    ),
+    "bt_window_rows": (ctypes.c_int,),
 }
 
 _lock = threading.Lock()

@@ -446,30 +446,216 @@ def ring_window_packed_torch(table, wrap: bool, m: int) -> Tuple[object, torch.T
     return table, total.to(torch.int32)
 
 
+def _check_slabs(tops, bottoms, m: int, n: int) -> None:
+    """Raise unless every slab is [m, n]: the window of m rounds reads m
+    rows on each side."""
+    for slab in (*tops, *bottoms):
+        if tuple(slab.shape) != (m, n):
+            raise ValueError(f"a window of {m} rounds needs [{m}, {n}] slabs, got "
+                             f"{tuple(slab.shape)}")
+
+
+def ring_window_shard_torch(fields, tops, bottoms, m: int):
+    """Plain twin of the reference's per-device window body
+    (``_window_block_packed``): ``m`` rounds of a shard's [b, n] rows
+    given the m rows above (``tops``) and below (``bottoms``) it, taken
+    before the call. The extended column [m slab | b rows | m slab] joins
+    to radius m - 1 (``_window_chain``'s doubling steps as line shifts:
+    rows from past its ends are the all-zero entry), then runs the last
+    round classically, on column blocks (columns are independent), which
+    bounds the temporaries. The slabs are exactly m deep, so the shard's
+    rows are exact; a chain's zeroed end slabs are its absent neighbours.
+    Returns (the center rows' new values, a list of [b, n] tensors; the
+    round-m residual of the center rows as int32). Reads only."""
+    if m < 1:
+        raise ValueError(f"m must be >= 1, got {m}")
+    b, n = fields[0].shape
+    _check_slabs(tops, bottoms, m, n)
+    steps = _window_chain(m - 1)
+
+    def shifted(vals, s):
+        return [_shift_line(v, s, 0) for v in vals]
+
+    out = [torch.empty_like(f) for f in fields]
+    count = torch.zeros((), dtype=torch.int64, device=fields[0].device)
+    width = max(1, _PLAIN_BLOCK_ELEMS // (b + 2 * m))
+    for c0 in range(0, n, width):
+        cols = slice(c0, c0 + width)
+        vals = [torch.cat([t[:, cols], x[:, cols], bo[:, cols]])
+                for x, t, bo in zip(fields, tops, bottoms)]
+        for s in steps:
+            vals, _ = _lexmax(vals, shifted(vals, s), packed_beats)
+            vals, _ = _lexmax(vals, shifted(vals, -s), packed_beats)
+        # the classic last round (its down neighbour read from m1, as the
+        # reference's: the same values and counts as the pre-round rows give)
+        m1, gt1 = _lexmax(vals, shifted(vals, 1), packed_beats)
+        m2, gt2 = _lexmax(m1, shifted(m1, -1), packed_beats)
+        count += gt1[m:m + b].sum() + gt2[m:m + b].sum()
+        for o, v in zip(out, m2):
+            o[:, cols] = v[m:m + b]
+    return out, count.to(torch.int32)
+
+
+# the extended form's clip flags: the center's first (last) row is a
+# chain's top (bottom) edge, with no slab on that side
+CLIP_TOP, CLIP_BOTTOM = 1, 2
+
+
+def window_rows(nf: int, device) -> int:
+    """The most extended rows one launch of the window kernel takes at nf
+    fields: two planes of one column in a block's shared memory."""
+    lib = _build.library()
+    with torch.cuda.device(device):
+        return int(lib.bt_window_rows(nf))
+
+
+def _window_launch(fields, tops, bottoms, m: int, clip: int, key: str) -> torch.Tensor:
+    """One launch of the window kernel's extended form on CUDA ``fields``
+    (the center rows, in place) between ``tops`` and ``bottoms`` (row
+    tensors, or None for no slab); ``key`` names the launch count.
+    Returns the center rows' round-m residual (int32 [1])."""
+    device = fields[0].device
+    b, n = fields[0].shape
+    ht = tops[0].shape[0] if tops is not None else 0
+    hb = bottoms[0].shape[0] if bottoms is not None else 0
+    _build.check_fields(fields, (b, n), device, "window")
+    for slab, rows in ((tops, ht), (bottoms, hb)):
+        if slab is not None:
+            _build.check_fields(slab, (rows, n), device, "window slab")
+    lib = _build.library()
+    count = torch.zeros(1, dtype=torch.int32, device=device)
+    with torch.cuda.device(device):
+        err = lib.bt_window_shard_packed(
+            _build.pointers(fields), _build.pointers(tops) if tops is not None else None,
+            _build.pointers(bottoms) if bottoms is not None else None, count.data_ptr(),
+            b, n, m, ht, hb, clip, len(fields), _build.stream_of(device),
+        )
+    _build.check(err, "window")
+    _build.LAUNCHES[key] += 1
+    return count
+
+
+def window_row_tiles(fields, m: int, rows: int, launch: Callable, wrap: bool = False,
+                     tops=None, bottoms=None) -> torch.Tensor:
+    """``m`` rounds on a column taller than one launch takes, as row tiles
+    of the window kernel's extended form: each tile of at most rows - 2 m
+    center rows between m-row slabs of the rows around it, all copied from
+    the pre-call rows before the first launch, so no tile reads a row that
+    another has written. The rows around ``fields`` [b, n] are ``tops`` and
+    ``bottoms`` (the shard form, m rows each) or, without them, the
+    table's own rows wrapped (a ring) or clamped to its edge rows (a chain:
+    the edge row's window is the clipped one; the chain's edge tiles clip
+    instead). ``launch(fields, tops, bottoms, m, clip)`` runs one tile in
+    place and returns its count. Returns the summed count (int64)."""
+    b = fields[0].shape[0]
+    tile = rows - 2 * m
+    if tile < 1:
+        raise ValueError(f"a tile of {rows} rows cannot hold the slabs of {m} rounds")
+    device = fields[0].device
+
+    def virtual(lo: int, hi: int):
+        """Copies of the rows [lo, hi) around and of the center."""
+        if tops is not None:
+            parts = []
+            if lo < 0:
+                parts.append([t[m + lo:m + min(hi, 0)] for t in tops])
+            if max(lo, 0) < min(hi, b):
+                parts.append([f[max(lo, 0):min(hi, b)] for f in fields])
+            if hi > b:
+                parts.append([t[max(lo, b) - b:hi - b] for t in bottoms])
+            return [torch.cat([part[i] for part in parts]) for i in range(len(fields))]
+        idx = torch.arange(lo, hi, device=device)
+        idx = idx % b if wrap else idx.clamp(0, b - 1)
+        return [f.index_select(0, idx) for f in fields]
+
+    plan = []
+    for t0 in range(0, b, tile):
+        t1 = min(t0 + tile, b)
+        clip = 0
+        if tops is None and not wrap and t0 == 0:
+            clip, top = clip | CLIP_TOP, None
+        else:
+            top = virtual(t0 - m, t0)
+        if tops is None and not wrap and t1 == b:
+            clip, bottom = clip | CLIP_BOTTOM, None
+        else:
+            bottom = virtual(t1, t1 + m)
+        plan.append((t0, t1, top, bottom, clip))
+    total = torch.zeros((), dtype=torch.int64, device=device)
+    for t0, t1, top, bottom, clip in plan:
+        total += launch([f[t0:t1] for f in fields], top, bottom, m, clip)[0]
+    return total
+
+
+def window_tiled_passes(fields, wrap: bool, m: int, rows: int, launch: Callable):
+    """``m`` ring or chain rounds of a table taller than one launch takes
+    (``rows``), in place: passes of at most rows / 4 rounds (so a tile's
+    slabs take at most half its rows), each as ``window_row_tiles``.
+    Returns the last pass's count: the round-m residual (int64)."""
+    left = m
+    while left:
+        depth = min(left, max(1, rows // 4))
+        total = window_row_tiles(fields, depth, rows, launch, wrap=wrap)
+        left -= depth
+    return total
+
+
 def ring_window_packed(table, wrap: bool, m: int) -> Tuple[object, torch.Tensor]:
     """``m`` ring or chain rounds as one window join, in place: the CUDA
-    kernel for CUDA tensors (it allocates one table-sized scratch when
-    m > 1), the plain version for CPU tensors. Returns (table, the classic
-    round-m residual). Any P, N >= 1 and m >= 1."""
+    kernel for CUDA tensors (one pass that reads and writes each entry
+    once, where a column fits one launch; taller tables as row tiles, in
+    passes of at most rows / 4 rounds), the plain version for CPU
+    tensors. Returns (table, the classic round-m residual). Any P, N >= 1
+    and m >= 1."""
     if m < 1:
         raise ValueError(f"m must be >= 1, got {m}")
     device = table[0].device
     if device.type == "cpu":
         return ring_window_packed_torch(table, wrap, m)
     p, n = _fields_checked(table, "ring_window_packed")
-    lib = _build.library()
-    count = torch.zeros(1, dtype=torch.int32, device=device)
-    # the scratch is freed on return; the caching allocator hands its
-    # memory to later work on this stream only, after the kernel
-    scratch = [torch.empty_like(f) for f in table] if m > 1 else None
-    with torch.cuda.device(device):
-        err = lib.bt_window_packed(
-            _build.pointers(table), _build.pointers(scratch) if scratch else None,
-            count.data_ptr(), p, n, m, int(wrap), len(table), _build.stream_of(device),
-        )
-    _build.check(err, "ring_window_packed")
-    _build.LAUNCHES["window_packed"] += 1
-    return table, count[0]
+    rows = window_rows(len(table), device)
+    if p <= rows:
+        lib = _build.library()
+        count = torch.zeros(1, dtype=torch.int32, device=device)
+        with torch.cuda.device(device):
+            err = lib.bt_window_packed(_build.pointers(table), count.data_ptr(), p, n, m,
+                                       int(wrap), len(table), _build.stream_of(device))
+        _build.check(err, "ring_window_packed")
+        _build.LAUNCHES["window_packed"] += 1
+        return table, count[0]
+
+    def launch(fields, tops, bottoms, depth, clip):
+        return _window_launch(fields, tops, bottoms, depth, clip, "window_packed")
+
+    return table, window_tiled_passes(list(table), wrap, m, rows, launch).to(torch.int32)
+
+
+def ring_window_shard_packed(fields, tops, bottoms, m: int) -> torch.Tensor:
+    """``m`` rounds of a shard's [b, n] rows between the m-row slabs of its
+    neighbours (``ring_window_shard_torch``'s function), in place: the
+    window kernel's extended form for CUDA tensors (a shard whose extended
+    column is taller than one launch takes as row tiles), the plain version
+    for CPU tensors. Returns the center rows' round-m residual (int32)."""
+    if m < 1:
+        raise ValueError(f"m must be >= 1, got {m}")
+    device = fields[0].device
+    if device.type == "cpu":
+        out, count = ring_window_shard_torch(fields, tops, bottoms, m)
+        for f, o in zip(fields, out):
+            f.copy_(o)
+        return count
+    b, n = _fields_checked(fields, "ring_window_shard_packed")
+    _check_slabs(tops, bottoms, m, n)
+    rows = window_rows(len(fields), device)
+    if b + 2 * m <= rows:
+        return _window_launch(list(fields), list(tops), list(bottoms), m, 0, "window_shard")[0]
+
+    def launch(center, top, bottom, depth, clip):
+        return _window_launch(center, top, bottom, depth, clip, "window_shard")
+
+    total = window_row_tiles(list(fields), m, rows, launch, tops=list(tops),
+                             bottoms=list(bottoms))
+    return total.to(torch.int32)
 
 
 # --------------------------------------------------------- direct reconcile

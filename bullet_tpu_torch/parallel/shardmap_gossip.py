@@ -29,8 +29,8 @@ shard needs.
   family also as m-round windows (``frontier_shard_window.cu``, its stats
   folded by ``compact_counts.cu``).
 * the packed ``fast_forward`` window — m rounds per exchange of m-row
-  slabs, a window join per shard in plain PyTorch (XLA code in the
-  reference).
+  slabs, a window join per shard (``window_packed.cu``'s extended form;
+  XLA code in the reference).
 
 Every merge runs the kernels on CUDA tensors and their plain versions on
 CPU tensors. A round returns a new ``ShardedTable`` whose shards may be the
@@ -46,18 +46,16 @@ import torch
 
 from ..ops.merge import TableState, lean_fields, merge_lean, merge_tables
 from ..ops.packed import (
-    _shift_line,
-    _window_chain,
     compact_counts,
     compact_counts_window,
     frontier_loop,
     frontier_shard_round_packed,
     frontier_shard_window,
     merge_packed_torch,
-    packed_beats,
     reconcile_packed,
+    ring_window_shard_packed,
 )
-from ..ops.ring_kernel import _PLAIN_BLOCK_ELEMS, _lexmax, frontier_shard_round, frontier_tile_n
+from ..ops.ring_kernel import frontier_shard_round, frontier_tile_n
 from .gossip import lean_round_applies
 from .mesh import Mesh, ShardedTable
 
@@ -371,44 +369,21 @@ def ring_window_shardmap_packed(table: ShardedTable, wrap: bool, m: int):
     """``m`` ring (wrap) or chain rounds of a packed-family sharded table
     per ONE exchange of m-row slabs (the reference's
     ``ring_window_shardmap_packed``): each shard joins its extended column
-    [m slab | b rows | m slab] to radius m - 1 (``_window_chain``'s
-    doubling steps, line shifts: rows from past the column's ends are
-    zero) and runs the last round classically, in place, on column blocks
-    (columns are independent), which bounds the temporaries. The slabs are
-    exactly m deep, so the shard's rows are exact; a chain's zeroed end
-    slabs are its absent neighbours. Bit-identical to m classic rounds;
-    returns (table, the round-m residual of the shards' own rows, summed
-    on mesh[0]). Needs 1 <= m <= the rows of a shard."""
+    [m slab | b rows | m slab] to radius m - 1 and runs the last round
+    classically, in place (``ring_window_shard_packed``: the window
+    kernel's extended form on a CUDA shard, ``ring_window_shard_torch`` on
+    a CPU one). The slabs are exactly m deep, so the shard's rows are
+    exact; a chain's zeroed end slabs are its absent neighbours.
+    Bit-identical to m classic rounds; returns (table, the round-m
+    residual of the shards' own rows, summed on mesh[0]). Needs
+    1 <= m <= the rows of a shard."""
     if not 1 <= m <= table.rows:
         raise ValueError(f"a window of {m} rounds needs 1 <= m <= {table.rows} rows per shard")
     parts = _parts(table, False)
     tops, bottoms = boundary_rows(parts, m, wrap, table.mesh)
-    steps = _window_chain(m - 1)
-
-    def shifted(vals, s):
-        return [_shift_line(v, s, 0) for v in vals]
-
     total = torch.zeros((), dtype=torch.int64, device=table.mesh[0])
     for f, top, bottom in zip(parts, tops, bottoms):
-        b, n = f[0].shape
-        width = max(1, _PLAIN_BLOCK_ELEMS // (b + 2 * m))
-        count = torch.zeros((), dtype=torch.int64, device=f[0].device)
-        for c0 in range(0, n, width):
-            cols = slice(c0, c0 + width)
-            vals = [torch.cat([t[:, cols], x[:, cols], bo[:, cols]])
-                    for x, t, bo in zip(f, top, bottom)]
-            for s in steps:
-                vals, _ = _lexmax(vals, shifted(vals, s), packed_beats)
-                vals, _ = _lexmax(vals, shifted(vals, -s), packed_beats)
-            # the classic last round (its down neighbour read from m1, as
-            # the reference's: the same values and counts as the pre-round
-            # rows give)
-            m1, gt1 = _lexmax(vals, shifted(vals, 1), packed_beats)
-            m2, gt2 = _lexmax(m1, shifted(m1, -1), packed_beats)
-            count += gt1[m:m + b].sum() + gt2[m:m + b].sum()
-            for x, v in zip(f, m2):
-                x[:, cols] = v[m:m + b]
-        total = total + count.to(table.mesh[0])
+        total = total + ring_window_shard_packed(f, top, bottom, m).to(table.mesh[0])
     return table, total.to(torch.int32)
 
 

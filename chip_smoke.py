@@ -15,7 +15,8 @@ Phases, in order; any failure raises and exits nonzero:
    small and ragged shapes, at P = 4096 (where the TPU took its peer-tile
    kernels) and at the main-path shapes, with times per call there; the
    packed-family kernels at each field count (packed, rank, rank1), the
-   window join also at rank1 8192 x 2^18 (the TPU's halo-window shape),
+   window join also at rank1 8192 x 2^18 (the TPU's halo-window shape)
+   and at the main paths' depths m = 480, 513 and 1024 beside m = 120,
    the frontiers (dense, lean, packed family) at m = 1 and 8 on rings and
    chains of P in {1, 2, 3, 17, 64, 1000, 4096}, with stripes that settle
    inside a fused step and leave the frontier, the whole ids array
@@ -29,7 +30,10 @@ Phases, in order; any failure raises and exits nonzero:
    step m = 1, the fused step m = 8, the window m = 3, 15, 63; random and
    zeroed boundary rows; small, ragged, 1024 x 4096 (the window's row
    tiles) and one 256 x 2^20 shard, timed)
-   and the window fold on random, all-zero and all-at-m stats; small
+   and the window fold on random, all-zero and all-at-m stats; the window
+   join's shard form (the spmd fast_forward's) at nf = 3, 2, 1 on shards
+   of 1 to 17 rows, one past a launch's rows and one 256 x 2^20 shard at
+   the spmd passes m = 256 and 224 (random, zeroed and mixed slabs); small
    packed, rank and rank1 sims on 4 shards on the card against the CPU;
 4. dense main path: a dense ring PeerNetworkSim at P x N (default
    1024 x 2^18): put_bulk + scalar puts, step, run_until_converged,
@@ -71,7 +75,8 @@ Phases, in order; any failure raises and exits nonzero:
    off at 70 rounds (one window and a 7-round tail), converged(),
    reconcile and reads. Rank1 (4.3 GB): a converge on the window route, a
    restored copy converged by gossip_frontier_shardmap_packed with
-   fuse=HALO_FUSE, and fast_forward(480) (the spmd route) against
+   fuse=HALO_FUSE, and fast_forward(480) (the spmd route: the window
+   join's shard form, two passes) against
    step(480) on the twin, with its windowed logical merges/s.
 
 Every kernel's launch count over the phase that drives its path (4 for
@@ -125,6 +130,9 @@ KERNELS = {
         "bullet_tpu_torch/csrc/window_packed.cu",
         "bullet_tpu/ops/packed.py:1138; bullet_tpu/ops/packed.py:1969",
     ),
+    "window_shard": (
+        "bullet_tpu_torch/csrc/window_packed.cu", "bullet_tpu/ops/packed.py:1969",
+    ),
     "ring_round_lean": (
         "bullet_tpu_torch/csrc/ring_round.cu",
         "bullet_tpu/ops/ring_kernel.py:146; bullet_tpu/ops/ring_kernel.py:185",
@@ -166,9 +174,9 @@ SHARD_KERNELS = ("frontier_shard", "frontier_shard fused", "compact_counts",
                  "compact_counts fused")
 # phase 9 drives the packed family's per-shard kernels: the packed sim the
 # ring round (m = 1), the window and its fold; the rank1 copy the fused
-# frontier (m = 8)
+# frontier (m = 8), the rank1 spmd fast_forward the window join's shard form
 MESH_PACKED_KERNELS = ("frontier_shard packed", "frontier_shard packed fused",
-                       "frontier_shard_window", "compact_counts window")
+                       "frontier_shard_window", "compact_counts window", "window_shard")
 # phases 8 and 9's mesh: this many shards, all on the one card
 SHARDS = 4
 
@@ -511,6 +519,21 @@ PACKED_SHAPES = ((1, 64), (3, 130), (64, 1000), (1000, 512), (4096, 256))
 # rank1 P x N where the TPU's full-P window stripe ran out of VMEM and its
 # halo window (#17) took over
 HALO_WINDOW_SHAPE = (8192, 1 << 18)
+# the window depths the main paths run on the 1024-ring: m = 120, phase 6's
+# fast_forward(480) and its jump to the fixed point (1024), phase 5's twin
+# jump (513)
+MAIN_WINDOW_DEPTHS = (120, 480, 513, 1024)
+
+
+def spmd_passes(p: int, b: int):
+    """The window passes of phase 9's spmd fast_forward(min(480, P/2 - 1))
+    on shards of b rows: at most b rounds each (256 and 224 at the default
+    1024 peers on 4 shards)."""
+    passes, left = [], min(480, p // 2 - 1)
+    while left > 0:
+        passes.append(min(left, b))
+        left -= passes[-1]
+    return tuple(passes)
 
 
 def _pair(name, errs, got, want, what):
@@ -763,7 +786,9 @@ def window_bound(nf: int, entries: int, m: int):
 def check_window(dev, main_shape, errs, times, nf):
     """window_packed against its plain version: every depth of the list on
     small, ragged and big-P shapes, ring and chain; rank1 at P = 8192
-    (where the TPU took its halo window, #17); the main shape, timed."""
+    (where the TPU took its halo window, #17); a table past one launch's
+    rows (its row tiles and passes); the main shape at the main paths'
+    depths, timed at m = 120 and 480."""
     from bullet_tpu_torch.ops import packed as pk
 
     def pair(base, wrap, m, what):
@@ -788,17 +813,98 @@ def check_window(dev, main_shape, errs, times, nf):
         log(f"  window_packed [rank1] {p}x{n} (the TPU's halo-window shape): "
             "ring m=120, chain m=13 bit-identical")
         torch.cuda.empty_cache()
+    # a table taller than one launch takes: row tiles, and two passes at
+    # the deepest m
+    rows = pk.window_rows(nf, dev)
+    p, n = rows + 64, 256
+    base = random_family(nf, 73, p, n, dev)
+    for wrap, m in ((True, 120), (False, 13), (True, rows // 4 + 5)):
+        pair(base, wrap, m, f"{p}x{n} (past the {rows}-row launch) wrap={wrap} m={m}")
+    del base
     p, n = main_shape
     base = random_family(nf, 72, p, n, dev)
     pair(base, False, 13, f"{p}x{n} chain m=13")
-    plain = pair(base, True, 120, f"{p}x{n} ring m=120")
-    ms = time_ms(lambda: pk.ring_window_packed(base, True, 120), 3)
+    plain = {}
+    # the main path's depths: phase 6's fast_forward(480) and its jump to
+    # the fixed point (1024), phase 5's blind twin jump (513)
+    for m in MAIN_WINDOW_DEPTHS:
+        plain[m] = pair(base, True, m, f"{p}x{n} ring m={m}")
+    report = []
+    for m in (120, 480):
+        ms = time_ms(lambda: pk.ring_window_packed(base, True, m), 3)
+        row = (ms, plain[m], window_bound(nf, p * n, m))
+        times[tag("window_packed" if m == 120 else f"window_packed m={m}", nf)] = row
+        report.append(f"m={m} ({len(pk._window_chain(m - 1))} doubling steps + the last "
+                      f"round): kernel {ms:.3f} ms, plain {plain[m]:.3f} ms, bound "
+                      f"{row[2][0]:.3f} ms")
     del base
-    times[tag("window_packed", nf)] = (ms, plain, window_bound(nf, p * n, 120))
-    log(f"  window_packed [{LAYOUT_OF[nf]}] {p}x{n}, ring m=120 "
-        f"({len(pk._window_chain(119))} doubling steps + the last round): kernel {ms:.3f} ms, "
-        f"plain {plain:.3f} ms per call; bit-identical with m in (1, 13, 120, 2P+3) at "
-        "small, ragged and P = 4096 shapes")
+    log(f"  window_packed [{LAYOUT_OF[nf]}] {p}x{n} ring " + "; ".join(report)
+        + f" per call; bit-identical at m in {MAIN_WINDOW_DEPTHS} there, with m in "
+        "(1, 13, 120, 2P+3) at small, ragged and P = 4096 shapes and past one launch's "
+        f"{rows} rows")
+
+
+def check_window_shard(dev, shard_shape, errs, times, nf):
+    """The window kernel's extended form (the spmd fast_forward's per-shard
+    join) against ring_window_shard_torch: shards of 1 to 17 rows at every
+    m <= b, 130 columns (a ragged last block), random, zeroed and mixed
+    slabs; one shard of phase 9's mesh (256 x 2^20 by default) at its
+    passes (m = 256 and 224), random and zeroed slabs, timed at the first; and
+    a shard whose extended column is taller than one launch takes (its row
+    tiles). Rows and counts exact."""
+    from bullet_tpu_torch.ops import packed as pk
+
+    rng = np.random.default_rng(41 + nf)
+
+    def slabs(m, n, kind):
+        if kind == "zero":
+            return [torch.zeros((m, n), dtype=torch.int32, device=dev) for _ in range(nf)]
+        rows = list(random_family(nf, int(rng.integers(1 << 30)), m, n, dev))
+        if kind == "mixed":  # every other row zeroed
+            for f in rows:
+                f[1::2] = 0
+        return rows
+
+    def pair(base, m, kinds, what):
+        n = base[0].shape[1]
+        tops, bottoms = slabs(m, n, kinds[0]), slabs(m, n, kinds[1])
+        got = clone(base)
+        c_got = pk.ring_window_shard_packed(got, [t.clone() for t in tops],
+                                            [t.clone() for t in bottoms], m)
+        (want, c_want), ms = timed_once(lambda: pk.ring_window_shard_torch(
+            list(base), tops, bottoms, m))
+        _pair("window_shard", errs, (*got, c_got), (*want, c_want), f"nf={nf} {what}")
+        return ms
+
+    kinds = (("random", "random"), ("zero", "zero"), ("random", "zero"), ("mixed", "random"))
+    for b in (1, 3, 8, 17):
+        base = random_family(nf, 900 + b, b, 130, dev)
+        for m in range(1, b + 1):
+            for kind in kinds:
+                pair(base, m, kind, f"{b}x130 m={m} slabs={kind}")
+    rows = pk.window_rows(nf, dev)
+    b, m = rows + 64, 32
+    base = random_family(nf, 950, b, 256, dev)
+    for kind in kinds[:3]:
+        pair(base, m, kind, f"{b}x256 m={m} (past the {rows}-row launch) slabs={kind}")
+    del base
+    b, n = shard_shape
+    passes = spmd_passes(b * SHARDS, b)
+    base = random_family(nf, 960, b, n, dev)
+    plain = {}
+    for m in passes:
+        for kind in kinds[:2]:
+            plain[m] = pair(base, m, kind, f"{b}x{n} m={m} slabs={kind}")
+    m = passes[0]
+    tops, bottoms = slabs(m, n, "random"), slabs(m, n, "random")
+    ms = time_ms(lambda: pk.ring_window_shard_packed(base, tops, bottoms, m), 3)
+    joins = 2 * len(pk._window_chain(m - 1)) + 2
+    times[tag("window_shard", nf)] = (ms, plain[m], shard_bound(nf, b, m, n, joins))
+    del base, tops, bottoms
+    log(f"  window_shard [{LAYOUT_OF[nf]}] {b}x{n} per shard, m={m}: kernel {ms:.3f} ms, "
+        f"plain {plain[m]:.3f} ms, bound {times[tag('window_shard', nf)][2][0]:.3f} ms per "
+        f"call; bit-identical at m in {passes} (random and zeroed slabs), on shards of "
+        f"1 to 17 rows and on {rows + 64} rows, past one launch's {rows}")
 
 
 def check_small_packed_sims(dev):
@@ -2223,6 +2329,9 @@ def main() -> int:
         torch.cuda.empty_cache()
     check_compact_counts_window(dev, args.packed_capacity // frontier_tile_n(args.packed_capacity),
                                 errs, times)
+    for nf in (3, 2, 1):
+        check_window_shard(dev, (args.peers // SHARDS, args.packed_capacity), errs, times, nf)
+        torch.cuda.empty_cache()
     check_small_packed_mesh_sims(dev)
     torch.cuda.empty_cache()
 
@@ -2252,9 +2361,10 @@ def main() -> int:
     # nf = 4), the sharded ones (phase 8, and the fused per-shard frontier
     # at nf = 4 with its lean run's launches) and the packed family's mesh
     # kernels at packed and rank1 (phase 9; its packed sim never takes the
-    # fused frontier, the rank1 copy does); the rank (nf = 2) times, the
-    # packed frontier's m = 1 times and the fused mesh frontier's at
-    # nf = 3 are in the log above
+    # fused frontier or the spmd window, the rank1 copy and jump do); the
+    # rank (nf = 2) times, the packed frontier's m = 1 times, the window's
+    # at m = 480 and the mesh's fused frontier and window at nf = 3 are in
+    # the log above
     rows = [(name, name, launches[name]) for name in (*DENSE_KERNELS, *PACKED_KERNELS)]
     rows += [(tag(name, 1), name, rank1_launches[name]) for name in PACKED_KERNELS]
     rows += [("ring_round_lean", "ring_round_lean", lean_launches["ring_round_lean"]),
@@ -2265,7 +2375,7 @@ def main() -> int:
     rows.append(("frontier_shard fused lean", "frontier_shard fused",
                  shard_launches["frontier_shard fused lean"]))
     rows += [(name, name, mesh_packed[name]) for name in MESH_PACKED_KERNELS
-             if name != "frontier_shard packed fused"]
+             if name not in ("frontier_shard packed fused", "window_shard")]
     rows += [(tag(name, 1), name, mesh_rank1[name]) for name in MESH_PACKED_KERNELS]
     kernels = []
     for row, name, count in rows:

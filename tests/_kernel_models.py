@@ -11,7 +11,11 @@ reference (the kernels themselves run only on the card):
   shard's extended column (#7 and #23 at m = 8);
 - ``shard_window_model``: ``frontier_shard_window.cu`` (#25), the distance
   chain on shared-memory row tiles with carried halos and the atomic stats
-  reduction.
+  reduction;
+- ``window_model``: ``window_packed.cu`` (#12 and #17), the window join of
+  a block's columns in shared memory (both forms: a whole column wrapped or
+  clipped, and the extended column between slabs with its center count),
+  with ``window_cols``, the block width its host code picks.
 
 Every model vectorises over columns (a column is a CUDA thread, or a lane
 of a block, and columns never interact) and follows the kernel's order of
@@ -26,8 +30,10 @@ WINDOW_COLS = 16
 FLAG = 1 << 30
 DIST_MASK = FLAG - 1
 FILL = 1 << 24
-# cudaDevAttrMaxSharedMemoryPerBlockOptin on an H100
+# cudaDevAttrMaxSharedMemoryPerBlockOptin and
+# cudaDevAttrMaxSharedMemoryPerMultiprocessor on an H100
 H100_SMEM_OPTIN = 232448
+H100_SMEM_PER_SM = 233472
 
 
 MASK32 = 0xFFFFFFFF
@@ -331,3 +337,120 @@ def shard_window_model(fields, tops, bottoms, ids, tile, m, h_max, order=None,
         stats[0, s] += int(per_block[0][j])
         stats[1, s] = max(int(stats[1, s]), int(per_block[1][j]))
     return stats
+
+
+# window_packed.cu's constants: the widest block (2^4 columns), a block's
+# static and system shared memory, and the flags of its extended column
+WINDOW_LOG_MAX_COLS = 4
+WINDOW_RESERVED = 1024
+WINDOW_SYSTEM = 1024
+WRAP, CLIP_TOP, CLIP_BOTTOM = 1, 2, 4
+LAYOUT_OF_NF = {3: "packed", 2: "rank", 1: "rank1"}
+
+
+def window_rows(nf, optin=H100_SMEM_OPTIN):
+    """bt_window_rows: the most extended rows one launch takes."""
+    return (optin - WINDOW_RESERVED) // (2 * nf * 4)
+
+
+def window_cols(nf, length, optin=H100_SMEM_OPTIN, per_sm=H100_SMEM_PER_SM):
+    """window_packed.cu's pick_cols: a block of 16 or 8 columns (whole
+    sectors a row) first, two blocks an SM before one; 4, 2 or 1 only when
+    a block of 8 does not fit; None when one column does not fit."""
+    for widest, least in ((WINDOW_LOG_MAX_COLS, 3), (2, 0)):
+        for two in (True, False):
+            for lc in range(widest, least - 1, -1):
+                nbytes = 2 * nf * length * 4 << lc
+                fits = (2 * (nbytes + WINDOW_RESERVED + WINDOW_SYSTEM) <= per_sm if two
+                        else nbytes + WINDOW_RESERVED <= optin)
+                if fits:
+                    return 1 << lc
+    return None
+
+
+def window_model(fields, tops, bottoms, m, flags, cols=None):
+    """One launch of window_kernel, in place on the center rows ``fields``
+    [h, n]: ``tops`` / ``bottoms`` the slab rows around them (None for
+    none), ``flags`` WRAP (a whole ring column), CLIP_TOP / CLIP_BOTTOM (a
+    chain's edge on a side without a slab). Blocks of ``cols`` columns
+    (``window_cols`` by default; the ragged last block's missing columns
+    load as zeros and are neither written nor counted) load the extended
+    column [tops | fields | bottoms] into a plane, encode it (PipeKey),
+    join it to radius min(m - 1, len) by the reference's doubling steps,
+    each a 3-way join of a row with the rows s up and s down of the
+    previous plane (wrapped, clamped to the edge row, or the encoded
+    all-zero entry past an end), then run the classic round on the center
+    rows with the all-zero entry past an unwrapped end, counting each win.
+    Each block's count is summed mod 2^32 and added to the total. (The
+    kernel's threads take 4 adjacent columns at a time; columns are
+    independent, so the model computes all of a block's at once.) Returns
+    the count as int32."""
+    key = PipeKey(LAYOUT_OF_NF[len(fields)])
+    h, n = fields[0].shape
+    ht = tops[0].shape[0] if tops is not None else 0
+    hb = bottoms[0].shape[0] if bottoms is not None else 0
+    length = ht + h + hb
+    cols = cols or window_cols(len(fields), length)
+    assert cols is not None, "one column does not fit a block"
+    blocks = -(-n // cols)
+    width = blocks * cols
+    wrap, clip_top, clip_bottom = flags & WRAP, flags & CLIP_TOP, flags & CLIP_BOTTOM
+    parts = [p for p in (tops, fields, bottoms) if p is not None]
+    ext = [torch.zeros((length, width), dtype=torch.int32) for _ in fields]
+    for e, f in zip(ext, zip(*parts)):
+        e[:, :n] = torch.cat(f)
+    plane = key.encode(ext)
+    zero = key.encode([torch.zeros((), dtype=torch.int32) for _ in fields])
+    x = torch.arange(length)
+
+    def shifted(vals, rows, outside):
+        """Row x of the result is row rows[x] of vals (the zero entry where
+        ``outside``)."""
+        safe = rows.clamp(0, length - 1)
+        return [torch.where(outside[:, None], z, v[safe]) for v, z in zip(vals, zero)]
+
+    radius = min(m - 1, length)
+    r = 0
+    while r < radius:
+        s = min(radius - r, 2 * r + 1)
+        up, down = x - s, x + s
+        if wrap:
+            up, down = (x - s % length) % length, (x + s % length) % length
+        else:
+            if clip_top:
+                up = up.clamp(min=0)
+            if clip_bottom:
+                down = down.clamp(max=length - 1)
+        best = plane
+        for rows in (up, down):
+            cand = shifted(plane, rows, (rows < 0) | (rows >= length))
+            gt = key.gt(cand, best)
+            best = [torch.where(gt, c, b) for c, b in zip(cand, best)]
+        plane = best
+        r += s
+    center = torch.arange(ht, ht + h)
+    up, down = center - 1, center + 1
+    if wrap:
+        up, down = up % length, down % length
+    cur = [v[center] for v in plane]
+    out = cur
+    changed = torch.zeros((h, width), dtype=torch.int64)
+    for rows in (up, down):
+        cand = shifted(plane, rows, (rows < 0) | (rows >= length))
+        gt = key.gt(cand, out)
+        changed += gt
+        out = [torch.where(gt, c, o) for c, o in zip(cand, out)]
+    for f, o in zip(fields, key.decode(out)):
+        f[:] = o[:, :n]
+    live = (torch.arange(width) < n).to(torch.int64)
+    per_block = ((changed * live).sum(0).reshape(blocks, cols).sum(1)) & MASK32
+    return _s32(per_block.sum() & MASK32)
+
+
+def window_model_launch(cols=None):
+    """A ``launch`` for ops/packed.py's ``window_row_tiles`` running
+    ``window_model`` (the kernel's extended form, clip 1 / 2 for a chain's
+    top / bottom edge as the C entry takes it)."""
+    def launch(fields, tops, bottoms, m, clip):
+        return window_model(fields, tops, bottoms, m, clip << 1, cols).reshape(1)
+    return launch

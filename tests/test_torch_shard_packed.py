@@ -37,7 +37,14 @@ from bullet_tpu_torch.ops.ring_kernel import _round_masks, frontier_tile_n
 from bullet_tpu_torch.parallel import shardmap_gossip as sg
 from bullet_tpu_torch.parallel import topology as port_topo
 
-from _kernel_models import PipeKey, shard_pipe_model, shard_window_model, window_tile_rows
+from _kernel_models import (
+    PipeKey,
+    shard_pipe_model,
+    shard_window_model,
+    window_model,
+    window_model_launch,
+    window_tile_rows,
+)
 
 torch.set_num_threads(2)
 
@@ -528,6 +535,111 @@ def test_ring_window_shardmap_packed_matches_reference(nf, wrap):
         assert int(c_got) == int(c_want)
     with pytest.raises(ValueError):
         sg.ring_window_shardmap_packed(sharded(nf, t), wrap, 9)
+
+
+def np_beats(nf, b, a):
+    """b beats a strictly, in numpy: packed keyed (cls, khi, klo, cv) with
+    cls = cv >> 28 (signed), rank and rank1 by the rank."""
+    if nf != 3:
+        return b[0] > a[0]
+    kb, ka = (b[2] >> 28, b[0], b[1], b[2]), (a[2] >> 28, a[0], a[1], a[2])
+    gt = np.zeros(a[0].shape, bool)
+    eq = np.ones(a[0].shape, bool)
+    for x, y in zip(kb, ka):
+        gt |= eq & (x > y)
+        eq &= x == y
+    return gt
+
+
+def np_shard_rounds(nf, f, tops, bottoms, m):
+    """What the spmd window computes on one shard, independently of the
+    port: m classic chain rounds of the extended column [tops | f |
+    bottoms] (the all-zero entry past its ends, which never reaches the
+    center rows within m rounds), the center rows and the last round's
+    sum(gt1) + sum(gt2) over them."""
+    b = f[0].shape[0]
+    ext = [np.concatenate([t, x, bo]).astype(np.int32) for x, t, bo in zip(f, tops, bottoms)]
+
+    def shift(v, k):
+        out = np.zeros_like(v)
+        if k > 0:
+            out[k:] = v[:-k]
+        else:
+            out[:k] = v[-k:]
+        return out
+
+    for _ in range(m):
+        up, down = [shift(v, 1) for v in ext], [shift(v, -1) for v in ext]
+        gt1 = np_beats(nf, up, ext)
+        m1 = [np.where(gt1, u, v) for u, v in zip(up, ext)]
+        gt2 = np_beats(nf, down, m1)
+        ext = [np.where(gt2, d, v) for d, v in zip(down, m1)]
+    count = int(gt1[m:m + b].sum() + gt2[m:m + b].sum())
+    return [e[m:m + b] for e in ext], count
+
+
+SHARD_BS = (1, 3, 8, 17, 256)
+
+
+@pytest.mark.parametrize("nf", [3, 2, 1])
+@pytest.mark.parametrize("b", SHARD_BS)
+def test_ring_window_shard_matches_classic_rounds(nf, b):
+    """The spmd window's per-shard join, ``ring_window_shard_torch`` (the
+    plain version), ``ring_window_shard_packed`` on CPU tensors and the
+    kernel's schedule (tests/_kernel_models.py window_model, its extended
+    form; 37 columns, a ragged last block) against m classic rounds of the
+    extended column, exactly: m <= b, random, zeroed and mixed slabs (one
+    side zero, or random rows with zeroed ones among them)."""
+    n = 37
+    for m in sorted({1, 2, 3, max(1, b // 2), b} & set(range(1, b + 1))):
+        f = family(nf, b, n, 1000 * b + m, absent=0.3)
+        rand = lambda seed: family(nf, m, n, seed)
+        mixed = [np.where(np.arange(m)[:, None] % 2 == 0, x, 0).astype(np.int32)
+                 for x in rand(m + 7)]
+        zero = [np.zeros((m, n), np.int32)] * nf
+        for tops, bottoms in ((rand(m), rand(m + 1)), (zero, zero), (rand(m + 2), zero),
+                              (zero, rand(m + 3)), (mixed, rand(m + 4))):
+            want, c_want = np_shard_rounds(nf, f, tops, bottoms, m)
+            out, c_plain = pk.ring_window_shard_torch(T(f), T(tops), T(bottoms), m)
+            assert_equal(out, want, f"plain b={b} m={m}")
+            assert int(c_plain) == c_want
+            got = T(f)
+            assert int(pk.ring_window_shard_packed(got, T(tops), T(bottoms), m)) == c_want
+            assert_equal(got, want, f"wrapper b={b} m={m}")
+            got = T(f)
+            assert int(window_model(got, T(tops), T(bottoms), m, 0)) == c_want
+            assert_equal(got, want, f"model b={b} m={m}")
+            if b + 2 * m > 2 * m + 2:  # as row tiles past a launch's rows
+                got = T(f)
+                c_tiles = pk.window_row_tiles(got, m, 2 * m + 2, window_model_launch(),
+                                              tops=T(tops), bottoms=T(bottoms))
+                assert int(c_tiles) == c_want
+                assert_equal(got, want, f"tiles b={b} m={m}")
+
+
+@needs_devices
+@pytest.mark.parametrize("nf", [3, 2, 1])
+@pytest.mark.parametrize("wrap", [True, False])
+def test_ring_window_shardmap_shapes_match_reference(nf, wrap):
+    """The spmd window on shards of 1, 3, 17 and 256 rows, through
+    ``ring_window_shardmap_packed`` (the plain version on CPU shards) and
+    through the kernel's schedule on the same exchanged slabs, against
+    the reference's on its 8-device mesh, state and round-m residual."""
+    for b, depths in ((1, (1,)), (3, (2, 3)), (17, (1, 9, 17)), (256, (13, 256))):
+        t = family(nf, 8 * b, 24, 90 + b, absent=0.5)
+        tbl, mesh = jax_sharded(nf, t)
+        for m in depths:
+            want, c_want = ref_sg.ring_window_shardmap_packed(tbl, mesh, wrap, m)
+            got, c_got = sg.ring_window_shardmap_packed(sharded(nf, t), wrap, m)
+            assert_equal(got, want, f"b={b} m={m}")
+            assert int(c_got) == int(c_want)
+            table = sharded(nf, t)
+            parts = [tuple(s) for s in table.shards]
+            tops, bottoms = sg.boundary_rows(parts, m, wrap, table.mesh)
+            total = sum(int(window_model(list(f), top, bottom, m, 0))
+                        for f, top, bottom in zip(parts, tops, bottoms))
+            assert_equal(table, want, f"model b={b} m={m}")
+            assert (total - int(c_want)) % (1 << 32) == 0
 
 
 # ------------------------------------------------ the sharded frontier

@@ -154,3 +154,118 @@ def test_window_wrapper_checks():
     meta = FROM_NUMPY["rank1"](fields_np(1, 4, 32, 0), "meta")
     with pytest.raises(ValueError):  # neither a kernel nor a plain version
         pk.ring_window_packed(meta, True, 3)
+
+
+# ---------------------------------------- the kernel's schedule (its model)
+
+import sys  # noqa: E402
+from pathlib import Path  # noqa: E402
+
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+import _kernel_models as km  # noqa: E402
+
+MODEL_PS = (1, 2, 3, 17, 64, 1000)
+
+
+def model_depths(p):
+    """The depths the kernel model is held at on a P-row table: fixed
+    ones, both sides of P/2 (where a ring's window becomes the whole
+    column) and past P."""
+    return sorted({1, 2, 3, 13, 120, max(1, p // 2), p // 2 + 1, p + 1, 2 * p + 3})
+
+
+def np_fields(f):
+    return [torch.from_numpy(np.array(x, dtype=np.int32)) for x in f]
+
+
+@pytest.mark.parametrize("nf", [1, 2, 3])
+@pytest.mark.parametrize("wrap", [True, False])
+@pytest.mark.parametrize("p", MODEL_PS)
+def test_window_model_matches_xla(nf, wrap, p):
+    """window_packed.cu's schedule (tests/_kernel_models.py window_model:
+    blocks of the kernel's column count, 37 columns so the last block is
+    ragged, the 3-way doubling joins on PipeKey words, the clip, the final
+    round) and the plain version against the reference's XLA window, at
+    every depth of ``model_depths``; packed chains also on the tie table
+    (absent entries with negative keys, which only a clip keeps)."""
+    tables = [fields_np(nf, p, 37, seed=p * 7 + nf)]
+    if nf == 3:
+        tables.append(tie_np(p, 37, seed=p))
+    with jax.disable_jit():
+        for f in tables:
+            for m in model_depths(p):
+                want, c_want = jpk.ring_window_packed_xla(jt(f), wrap, m)
+                got = np_fields(f)
+                c_got = km.window_model(got, None, None, m, km.WRAP if wrap else
+                                        km.CLIP_TOP | km.CLIP_BOTTOM)
+                check(got, c_got, want, c_want, f"model P={p} m={m}")
+                plain, c_plain = pk.ring_window_packed_torch(pt(f), wrap, m)
+                check(plain, c_plain, want, c_want, f"plain P={p} m={m}")
+
+
+@pytest.mark.parametrize("nf", [1, 3])
+@pytest.mark.parametrize("cols", [1, 2, 4, 16])
+def test_window_model_block_width(nf, cols):
+    """Every block width the host code may pick gives the same bits and
+    count: 29 columns leave a ragged last block at each."""
+    for wrap in (True, False):
+        f = fields_np(nf, 17, 29, seed=cols)
+        want, c_want = pk.ring_window_packed_torch(pt(f), wrap, 9)
+        got = np_fields(f)
+        c_got = km.window_model(got, None, None, 9,
+                                km.WRAP if wrap else km.CLIP_TOP | km.CLIP_BOTTOM, cols)
+        check(got, c_got, table_to_numpy(want), c_want, f"wrap={wrap}")
+
+
+@pytest.mark.parametrize("nf", [1, 2, 3])
+@pytest.mark.parametrize("wrap", [True, False])
+def test_window_row_tiles_match_xla(nf, wrap):
+    """A table taller than one launch takes: row tiles of the extended
+    form with slabs copied before the first launch (wrapped on a ring;
+    clamped, and the edge tiles clipped, on a chain), in passes of at most
+    rows / 4 rounds; the model launches each tile."""
+    with jax.disable_jit():
+        for p, rows, m in ((17, 7, 1), (17, 7, 3), (17, 9, 13), (64, 12, 5), (64, 31, 13),
+                           (64, 40, 120), (1000, 300, 120), (1000, 600, 1001)):
+            f = fields_np(nf, p, 21, seed=p + m)
+            want, c_want = jpk.ring_window_packed_xla(jt(f), wrap, m)
+            got = np_fields(f)
+            c_got = pk.window_tiled_passes(got, wrap, m, rows, km.window_model_launch())
+            check(got, c_got, want, c_want, f"P={p} rows={rows} m={m}")
+
+
+@pytest.mark.parametrize("nf", [1, 2, 3])
+@pytest.mark.parametrize("wrap", [True, False])
+def test_window_model_matches_interpret_kernels(nf, wrap):
+    """The model against the full-P stripe kernel (#12, m = 7) and, as
+    row tiles of its extended form, against the halo kernel (#17, m = 13
+    with (16, 128) tiles), both in interpret mode."""
+    f = fields_np(nf, 16, 512, seed=6)
+    want, c_want = jpk.ring_window_packed_traced(jt(f), wrap, 7, True)
+    got = np_fields(f)
+    c_got = km.window_model(got, None, None, 7,
+                            km.WRAP if wrap else km.CLIP_TOP | km.CLIP_BOTTOM)
+    check(got, c_got, want, c_want, "full-P m=7")
+
+    f = fields_np(nf, 64, 256, seed=19)
+    want, c_want = jpk.ring_window_halo_packed_traced(jt(f), wrap, 13, True, tiles=(16, 128))
+    got = np_fields(f)
+    c_got = pk.window_tiled_passes(got, wrap, 13, 2 * 13 + 16, km.window_model_launch())
+    check(got, c_got, want, c_want, "halo m=13")
+
+
+def test_window_block_width_and_rows():
+    """The host code's choices on an H100 (the model of pick_cols and
+    bt_window_rows): at 1024 rows a block takes 8 columns (two blocks an
+    SM at rank1, one at rank and packed); every choice fits; rank1 at 8192
+    rows takes one column; the launch limits in rows."""
+    assert [km.window_cols(nf, 1024) for nf in (1, 2, 3)] == [8, 8, 8]
+    assert km.window_cols(1, 8192) == 1
+    assert [km.window_rows(nf) for nf in (1, 2, 3)] == [28928, 14464, 9642]
+    for nf in (1, 2, 3):
+        rows = km.window_rows(nf)
+        assert km.window_cols(nf, rows) == 1 and km.window_cols(nf, rows + 1) is None
+        for length in (1, 3, 768, 1024, 4096, 8192):
+            if length <= rows:
+                c = km.window_cols(nf, length)
+                assert 2 * nf * length * 4 * c + km.WINDOW_RESERVED <= km.H100_SMEM_OPTIN
