@@ -68,6 +68,7 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P,
     ),
+    "bt_frontier_shard_blocks": (ctypes.c_int, ctypes.c_int, ctypes.c_int, _P),
     "bt_compact_counts": (_P, _P, ctypes.c_int, ctypes.c_int, _P),
     "bt_compact_counts_window": (_P, _P, ctypes.c_int, ctypes.c_int, _P),
     # the packed-family kernels take the table's field count nf (1, 2, 3)

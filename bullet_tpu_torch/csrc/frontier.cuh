@@ -32,6 +32,8 @@
 // runs m sweeps back to back.
 #pragma once
 
+#include <utility>
+
 #include "lexmax.cuh"
 
 namespace bt {
@@ -259,26 +261,35 @@ struct Slot {
   static constexpr int value = R;
 };
 
-// Steps [e, end) of a pipelined pass as step(Slot<e mod 3>(), e), each
-// step's rotation slot a compile-time constant: single steps up to a
-// multiple of 3, then the body unrolled by 3, then at most two single
-// steps.
-template <typename Step>
+// step(Slot<U>(), e + U) for each U of the sequence (if TEST, those with
+// e + U < end)
+template <bool TEST, typename Step, int... U>
+__device__ __forceinline__ void rotated_turn(Step& step, int e, int end,
+                                             std::integer_sequence<int, U...>) {
+  ((!TEST || e + U < end ? step(Slot<U>(), e + U) : void()), ...);
+}
+
+// step(Slot<e mod R>(), e) for e mod R != 0 (U runs over 0..R-2)
+template <int R, typename Step, int... U>
+__device__ __forceinline__ void rotated_step(Step& step, int e,
+                                             std::integer_sequence<int, U...>) {
+  ((e % R == U + 1 ? step(Slot<U + 1>(), e) : void()), ...);
+}
+
+// Steps [e, end) of a pass over a ring of R slots as step(Slot<e mod R>(),
+// e), each step's slot a compile-time constant: single steps up to a
+// multiple of R, then the body unrolled by R without a test, then at most
+// R - 1 steps, each tested. The pipelined passes rotate their history by 3
+// (the default); the m = 1 shard sweep its ring of prefetched rows.
+template <int R = 3, typename Step>
 __device__ __forceinline__ void rotated_steps(int e, int end, Step step) {
-  for (; e < end && e % 3 != 0; ++e) {
-    if (e % 3 == 1) {
-      step(Slot<1>(), e);
-    } else {
-      step(Slot<2>(), e);
-    }
+  for (; e < end && e % R != 0; ++e) {
+    rotated_step<R>(step, e, std::make_integer_sequence<int, R - 1>());
   }
-  for (; e + 3 <= end; e += 3) {
-    step(Slot<0>(), e);
-    step(Slot<1>(), e + 1);
-    step(Slot<2>(), e + 2);
+  for (; e + R <= end; e += R) {
+    rotated_turn<false>(step, e, end, std::make_integer_sequence<int, R>());
   }
-  if (e < end) step(Slot<0>(), e);
-  if (e + 1 < end) step(Slot<1>(), e + 1);
+  rotated_turn<true>(step, e, end, std::make_integer_sequence<int, R - 1>());
 }
 
 // Step e of the compacting frontier's pass (pipe_stages), R = e mod 3:

@@ -4,7 +4,8 @@
 //
 // An entry type E gives the field count E::NF and E::gt(b, a), "b beats a
 // strictly", comparing SIGNED int32 keys (the packed family also E::eq(b,
-// a), "equal keys"):
+// a), "equal keys", and E::gt_at(b, at), gt against the entry whose field
+// f is at(f), reading each field only when the compare reaches it):
 //   DenseEntry<false>: fields (cls, khi, klo, vid, writer, ctr, tick), the
 //     TableState order, keyed (cls, khi, klo, vid, writer, ctr) (reference);
 //   DenseEntry<true>:  the same fields keyed (ctr, cls, khi, klo, vid,
@@ -67,13 +68,20 @@ struct LeanEntry {
 
 struct PackedEntry {
   static constexpr int NF = 3;
+  template <typename At>
+  __device__ __forceinline__ static bool gt_at(const int32_t (&b)[NF], At at) {
+    const int32_t acv = at(2);
+    const int32_t bc = b[2] >> kCvShift, ac = acv >> kCvShift;
+    if (bc != ac) return bc > ac;
+    const int32_t akhi = at(0);
+    if (b[0] != akhi) return b[0] > akhi;
+    const int32_t aklo = at(1);
+    if (b[1] != aklo) return b[1] > aklo;
+    return b[2] > acv;
+  }
   __device__ __forceinline__ static bool gt(const int32_t (&b)[NF],
                                             const int32_t (&a)[NF]) {
-    const int32_t bc = b[2] >> kCvShift, ac = a[2] >> kCvShift;
-    if (bc != ac) return bc > ac;
-    if (b[0] != a[0]) return b[0] > a[0];
-    if (b[1] != a[1]) return b[1] > a[1];
-    return b[2] > a[2];
+    return gt_at(b, [&](int f) { return a[f]; });
   }
   // equal keys (cls, khi, klo, vid): the three fields equal
   __device__ __forceinline__ static bool eq(const int32_t (&b)[NF],
@@ -88,9 +96,13 @@ struct PackedEntry {
 
 struct RankEntry {
   static constexpr int NF = 2;
+  template <typename At>
+  __device__ __forceinline__ static bool gt_at(const int32_t (&b)[NF], At at) {
+    return b[0] > at(0);
+  }
   __device__ __forceinline__ static bool gt(const int32_t (&b)[NF],
                                             const int32_t (&a)[NF]) {
-    return b[0] > a[0];
+    return gt_at(b, [&](int f) { return a[f]; });
   }
   // equal keys: the rank alone
   __device__ __forceinline__ static bool eq(const int32_t (&b)[NF],
@@ -104,9 +116,13 @@ struct RankEntry {
 
 struct Rank1Entry {
   static constexpr int NF = 1;
+  template <typename At>
+  __device__ __forceinline__ static bool gt_at(const int32_t (&b)[NF], At at) {
+    return b[0] > at(0);
+  }
   __device__ __forceinline__ static bool gt(const int32_t (&b)[NF],
                                             const int32_t (&a)[NF]) {
-    return b[0] > a[0];
+    return gt_at(b, [&](int f) { return a[f]; });
   }
   __device__ __forceinline__ static bool eq(const int32_t (&b)[NF],
                                             const int32_t (&a)[NF]) {

@@ -15,6 +15,9 @@ Phases, in order; any failure raises and exits nonzero:
    small and ragged shapes, at P = 4096 (where the TPU took its peer-tile
    kernels) and at the main-path shapes, with times per call there; the
    packed-family kernels at each field count (packed, rank, rank1), the
+   op apply at 1024 x 2^20 also on the device's clock alone, on shuffled
+   ops and at K raw = 2^10, 2^14 and 2^17 (its bound in 32-byte sectors, a
+   gather of the same entries and, for rank1, scatter_reduce_ beside it), the
    window join also at rank1 8192 x 2^18 (the TPU's halo-window shape)
    and at the main paths' depths m = 480, 513 and 1024 beside m = 120,
    the frontiers (dense, lean, packed family) at m = 1 and 8 on rings and
@@ -572,6 +575,70 @@ def timed_once(fn):
     return out, start.elapsed_time(end)
 
 
+# a spin of about 3 ms at the H100's clock, queued ahead of a timed call so
+# that the host has enqueued all of the call before the device reaches it
+SPIN_CYCLES = 5_000_000
+
+
+# a write this large leaves nothing of a call's inputs in the 50 MB L2
+FLUSH_BYTES = 256 << 20
+
+
+def flush_l2():
+    torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda").zero_()
+
+
+def device_once(fn):
+    """(fn(), ms): one call's device time, CUDA events behind a spin kernel:
+    unlike ``timed_once`` it leaves out the host's time to enqueue the call,
+    which the device would otherwise wait for (about 0.1 ms for the apply's
+    wrapper, as long as its kernel). A 256 MB write first flushes the L2,
+    so the call finds its inputs in device memory, as a main path's call
+    does after work over a whole table."""
+    flush_l2()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def apply_sector_bound(table, ops, nf: int):
+    """Bound of applying ``ops`` to ``table`` as it is now, in 32-byte
+    sectors (the least a scattered access moves), counting what these ops
+    need: the op rows read once; for the live in-range ops, each distinct
+    sector of the entry planes their compares need read once (the most
+    significant key's plane: the packed cv, the rank; the packed khi only
+    where the classes tie, klo only where khi ties too); each distinct
+    sector of the entries that land written once a field; a compare and a
+    select a field an op."""
+    from bullet_tpu_torch.ops.packed import CV_SHIFT, op_present, packed_beats
+
+    p, n = table[0].shape
+    peer, slot = ops[0].to(torch.int64), ops[1].to(torch.int64)
+    inside = (peer >= 0) & (peer < p) & (slot >= 0) & (slot < n)
+    flat = (peer * n + slot)[inside]
+    vals = [v[inside] for v in ops[2:]]
+    cur = [f.view(-1)[flat] for f in table]
+    live = op_present(vals)
+    lands = live & packed_beats(vals, cur)
+    needed = [live]
+    if nf == 3:
+        needed.append(live & (vals[2] >> CV_SHIFT == cur[2] >> CV_SHIFT))
+        needed.append(needed[-1] & (vals[0] == cur[0]))
+    sectors = sum(torch.unique(flat[m] >> 3).numel() for m in needed)
+    sectors += nf * torch.unique(flat[lands] >> 3).numel()
+    return bound(4 * ops.numel() + 32 * sectors, 2 * nf * ops.shape[1])
+
+
+# raw op counts of the apply's K sweep at the main shape, beside its batch of
+# 2^20 (each reduced to unique (peer, slot) pairs on the host)
+APPLY_SWEEP = (1 << 10, 1 << 14, 1 << 17)
+
+
 def check_apply_packed(dev, main_shape, errs, times, nf):
     from bullet_tpu_torch.ops.packed import apply_flat_packed, apply_flat_packed_torch
 
@@ -584,8 +651,11 @@ def check_apply_packed(dev, main_shape, errs, times, nf):
             got, c_got = apply_flat_packed(clone(base), ops)
             want, c_want = apply_flat_packed_torch(clone(base), ops)
             _pair("apply_packed", errs, (*got, c_got), (*want, c_want), f"nf={nf} {p}x{n} K={k}")
-    # the main shape: one call each on identical tables, timed (the warm-up
-    # calls on a small table keep first-use costs out of the times)
+    # the main shape: one call each on identical tables, timed as every row
+    # is (the warm-up calls on a small table keep first-use costs out of
+    # the times); then the same call on a fresh table on the device's clock
+    # alone, the yardsticks on both clocks, and, on the tables as the batch
+    # left them, a shuffled batch and the K sweep
     p, n = main_shape
     ops = _random_ops(rng, p, n, 1 << 20, dev, nf)
     k = ops.shape[1]
@@ -595,17 +665,61 @@ def check_apply_packed(dev, main_shape, errs, times, nf):
     table = random_family(nf, 5, p, n, dev)
     (_, wins), ms = timed_once(lambda: apply_flat_packed(table, ops))
     twin = random_family(nf, 5, p, n, dev)
+    # reckoned on the twin before its apply, then the L2 flushed: its
+    # gathers leave the entries the ops touch in L2
+    row_bound = apply_sector_bound(twin, ops, nf)
+    flush_l2()
     (_, want_wins), plain = timed_once(lambda: apply_flat_packed_torch(twin, ops))
     _pair("apply_packed", errs, (*table, wins), (*twin, want_wins), f"nf={nf} {p}x{n} K={k}")
-    del table, twin
     wins = int(wins)
-    # reads each op ((2 + nf) x 4 B) and the entry it targets (nf x 4 B),
-    # writes the wins
-    times[tag("apply_packed", nf)] = (
-        ms, plain, bound((8 + 8 * nf) * k + 4 * nf * wins, 11 * k))
+    del table
+    table = random_family(nf, 5, p, n, dev)
+    flat = ops[0].to(torch.int64) * n + ops[1].to(torch.int64)
+    planes = [f.view(-1) for f in table]
+    # each call cold: the L2 flushed first, as device_once does
+    clocks = (("host", lambda fn: (flush_l2(), timed_once(fn))[1]), ("device", device_once))
+    gather = {clock: timer(lambda: [f.index_select(0, flat) for f in planes])[1]
+              for clock, timer in clocks}
+    library = {}
+    if nf == 1:
+        # the rank1 table result (not the count) by one PyTorch call, on a
+        # copy of the entries the ops touch, put back after each call
+        saved = planes[0][flat].clone()
+        for clock, timer in clocks:
+            library[clock] = timer(
+                lambda: planes[0].scatter_reduce_(0, flat, ops[2], "amax"))[1]
+            planes[0].index_copy_(0, flat, saved)
+        del saved
+    (_, c_dev), device_ms = device_once(lambda: apply_flat_packed(table, ops))
+    _pair("apply_packed", errs, (*table, c_dev), (*twin, want_wins),
+          f"nf={nf} {p}x{n} K={k} device-timed")
+    shuffled = _random_ops(rng, p, n, 1 << 20, dev, nf)
+    shuffled = shuffled[:, torch.from_numpy(rng.permutation(shuffled.shape[1])).to(dev)]
+    batches = [("shuffled", shuffled.contiguous())]
+    batches += [(f"K raw {raw}", _random_ops(rng, p, n, raw, dev, nf)) for raw in APPLY_SWEEP]
+    sweep = []
+    for what, batch in batches:
+        (_, c_got), t = device_once(lambda: apply_flat_packed(table, batch))
+        _, c_want = apply_flat_packed_torch(twin, batch)
+        _pair("apply_packed", errs, (*table, c_got), (*twin, c_want),
+              f"nf={nf} {p}x{n} {what} K={batch.shape[1]}")
+        sweep.append(f"{what} K={batch.shape[1]} {t:.4f}")
+    del table, twin, planes
+    # ms and library_ms on the host-inclusive clock of every row; the
+    # device-alone times under keys of their own
+    extra = {"device_ms": device_ms}
+    if library:
+        extra.update(library_call="scatter_reduce_ amax: table only, no count",
+                     library_device_ms=library["device"])
+    times[tag("apply_packed", nf)] = (ms, plain, row_bound, library.get("host"), extra)
     log(f"  apply_packed [{LAYOUT_OF[nf]}] {p}x{n}, K = {k} unique ops, {wins} land: kernel "
-        f"{ms:.3f} ms (one call), plain {plain:.3f} ms; bit-identical at "
-        f"{len(PACKED_SHAPES) + 1} shapes")
+        f"{ms:.4f} ms (one call, host-inclusive), {device_ms:.4f} ms (device alone), plain "
+        f"{plain:.3f} ms, sector bound {row_bound[0]:.4f} ms, gather of the entries "
+        f"{gather['host']:.4f} / {gather['device']:.4f} ms"
+        + (f", scatter_reduce_ amax {library['host']:.4f} / {library['device']:.4f} ms "
+           "(table only, no count)" if library else "")
+        + f" (host-inclusive / device alone); then on the device alone {', '.join(sweep)} ms; "
+        f"bit-identical at {len(PACKED_SHAPES) + 6} shapes and clocks")
 
 
 def round_bound(nf: int, entries: int, rounds: int = 1):
@@ -703,7 +817,8 @@ def check_reconcile_packed(dev, main_shape, errs, times, nf):
     # the keys read once and every field written once: a rank layout's cv
     # is needed only from each column's winning row
     times[tag("reconcile_packed", nf)] = (
-        ms, plain, bound(4 * (key_fields(nf) + nf) * p * n, (2 * nf + 1) * p * n), library)
+        ms, plain, bound(4 * (key_fields(nf) + nf) * p * n, (2 * nf + 1) * p * n)) + (
+        (library, {"library_call": "torch.amax + copy_"}) if library is not None else ())
     log(f"  reconcile_packed [{LAYOUT_OF[nf]}] {p}x{n}: kernel {ms:.3f} ms, plain {plain:.3f} ms"
         + (f", torch.amax + copy_ {library:.3f} ms" if library is not None else "")
         + " per call; bit-identical")
@@ -2380,15 +2495,20 @@ def main() -> int:
     kernels = []
     for row, name, count in rows:
         src, rep = KERNELS[name]
-        ms, plain_ms, (bound_ms, bound_by), *library = times[row]
+        # a row's library call, where it has one, and keys of its own (what
+        # the call computes, times on another clock)
+        ms, plain_ms, (bound_ms, bound_by), *more = times[row]
+        library, extra = (*more, None, {})[:2]
         kernels.append({
             "name": row, "route": "cuda", "source": src, "replaces": rep,
             "launches": count, "max_abs_err": errs[name],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            # only the rank1 reconcile has one PyTorch call that computes
-            # the same function (a column amax and a broadcast copy); no
-            # single call computes the lexicographic multi-key selects
-            "library_ms": library[0] if library else None,
+            # only the rank1 rows have one PyTorch call that computes the
+            # same table: the reconcile's column amax and broadcast copy, the
+            # apply's scatter_reduce_ (without the count); no single call
+            # computes the lexicographic multi-key selects
+            "library_ms": library,
+            **extra,
         })
     log(f"chip_smoke: all phases passed in {time.perf_counter() - started:.1f} s of wall time")
     print(json.dumps({"kernels": kernels}), flush=True)

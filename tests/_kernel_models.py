@@ -9,6 +9,11 @@ reference (the kernels themselves run only on the card):
 - ``shard_pipe_model``: ``shard_pipe_kernel`` of
   ``bullet_tpu_torch/csrc/frontier_shard.cu``, the same stages over one
   shard's extended column (#7 and #23 at m = 8);
+- ``shard_sweep_model``: ``shard_sweep_kernel`` of the same file, the
+  single round at m = 1 (#6 and #22): two boundary rows, a ring of rows
+  prefetched in registers, units of adjacent columns;
+- ``apply_model``: ``apply_packed.cu`` (#9 and #10), one op a thread in
+  turn, the entry's planes read only as far as the compare needs;
 - ``shard_window_model``: ``frontier_shard_window.cu`` (#25), the distance
   chain on shared-memory row tiles with carried halos and the atomic stats
   reduction;
@@ -238,6 +243,156 @@ def shard_pipe_model(fields, tops, bottoms, ids, tile, key, depth):
     per_stripe = cnt.reshape(depth, count, tile).sum(2) & MASK32
     counts[:, stripes] = _s32(per_stripe)
     return counts
+
+
+# frontier_shard.cu's m = 1 kernel: the rows of a thread's ring
+SWEEP_RING = 6
+# the key fields of each layout, most significant first, as lexmax.cuh's
+# E::gt compares them (signed); the packed layout's are (cv >> 28, khi,
+# klo, cv)
+ENTRY_KEYS = {"reference": (0, 1, 2, 3, 4, 5), "lww": (5, 0, 1, 2, 3, 4),
+              "lean": (0, 1, 2, 3), "rank": (0,), "rank1": (0,)}
+
+
+def entry_gt(layout, b, a):
+    """lexmax.cuh's E::gt: ``b`` strictly beats ``a``, field lists of a
+    layout compared as signed int32 key words, most significant first."""
+    def keys(v):
+        if layout == "packed":
+            return [v[2] >> 28, v[0], v[1], v[2]]
+        return [v[i] for i in ENTRY_KEYS[layout]]
+
+    gt = torch.zeros(a[0].shape, dtype=torch.bool)
+    eq = torch.ones_like(gt)
+    for x, y in zip(keys(b), keys(a)):
+        gt |= eq & (x > y)
+        eq &= x == y
+    return gt
+
+
+def sweep_unit(nf, tile):
+    """The columns a thread of shard_sweep_kernel takes (on rows aligned for
+    its accesses): the widest of 4, 2 and 1 up to its field count's width
+    (1 at nf = 7, 2 at nf = 4 and 3, 4 at nf = 2 and 1) whose units fill
+    the stripe's tile columns in whole warps."""
+    width = 1 if nf >= 7 else 2 if nf >= 3 else 4
+    return next(v for v in (4, 2, 1) if v <= width and tile % (32 * v) == 0)
+
+
+def shard_sweep_model(fields, tops, bottoms, ids, tile, layout, ring=SWEEP_RING):
+    """One per-shard frontier round (m = 1) as shard_sweep_kernel of
+    frontier_shard.cu runs it, in place on the shard's ``fields`` ([b, n])
+    given its [s, n] boundary rows, which it only reads. Block j takes
+    stripe ids[j], each thread a unit of ``sweep_unit(nf, tile)`` adjacent
+    columns. A thread's inputs are x[0] = tops row s - 1, x[1 + i] = shard
+    row i, x[b + 1] = bottoms row 0, each read once; slot i mod ``ring`` of
+    its ring holds x[i]. It loads x[0], ..., x[ring - 1], then for each row
+    r joins slots r, r + 1, r + 2 (cur, then up, then down, by ``entry_gt``
+    of ``layout``), stores row r and loads x[r + ring] into slot r, whose
+    x[r] it no longer needs. Loads read the live tensors, so a load the
+    schedule put after the store of its row would read the new value; a
+    slot read before it holds the expected input fails an assertion. Each
+    thread sums its unit's wins, each block its threads' mod 2^32. Returns
+    the counts, int32 [1, t_total], zero for stripes not in ids."""
+    b, n = fields[0].shape
+    s = tops[0].shape[0]
+    t_total = n // tile
+    counts = torch.zeros((1, t_total), dtype=torch.int32)
+    count = int(ids[t_total])
+    if count == 0:
+        return counts
+    unit = sweep_unit(len(fields), tile)
+    stripes = ids[:count].to(torch.int64)
+    # thread t of block j owns columns stripes[j] tile + t unit + [0, unit)
+    cols = (stripes[:, None] * tile + torch.arange(tile)).reshape(-1)
+    loads = []
+
+    def load(i):
+        src, row = ((tops, s - 1) if i == 0 else (fields, i - 1) if i <= b
+                    else (bottoms, 0) if i == b + 1 else (None, None))
+        if src is None:
+            return None
+        loads.append(i)
+        return i, [f[row, cols].clone() for f in src]
+
+    slots = [load(i) for i in range(ring)]
+    wins = torch.zeros(cols.numel(), dtype=torch.int64)
+    for r in range(b):
+        held = [slots[(r + d) % ring] for d in range(3)]
+        assert [x[0] for x in held] == [r, r + 1, r + 2], "a slot lost its row"
+        up, cur, down = (x[1] for x in held)
+        g1 = entry_gt(layout, up, cur)
+        best = [torch.where(g1, u, c) for u, c in zip(up, cur)]
+        g2 = entry_gt(layout, down, best)
+        best = [torch.where(g2, d, c) for d, c in zip(down, best)]
+        wins += g1.to(torch.int64) + g2.to(torch.int64)
+        for f, v in zip(fields, best):
+            f[r, cols] = v
+        slots[r % ring] = load(r + ring)
+    assert loads == list(range(b + 2)), "every input read once, in order"
+    per_thread = wins.reshape(count, tile // unit, unit).sum(2)
+    counts[0, stripes] = _s32(per_thread.sum(1) & MASK32)
+    return counts
+
+
+# apply_packed.cu's launch: threads a block, and at most this many blocks an
+# SM (the grid strides over the ops past that); an H100's SMs
+APPLY_THREADS, APPLY_BLOCKS_PER_SM, H100_SMS = 256, 16, 132
+
+
+def apply_model(table, ops, layout, sms=H100_SMS):
+    """bt_apply_packed as apply_packed_kernel runs it, in place on
+    ``table`` (nf [p, n] fields of ``layout``): ``ops`` [2 + nf, K] with
+    unique (peer, slot) pairs. The grid is min(ceil(K / T), 16 ``sms``)
+    blocks of T = 256 threads; thread t of block j takes ops j T + t + r G T
+    (r = 0, 1, ...; G blocks), one at a time, in turn. An op outside [0, p)
+    x [0, n) or dead (E::present false) reads no entry; a live one reads
+    its entry's planes most significant key first, only as far as the
+    compare needs (packed: cv, then khi on a class tie, then klo on a khi
+    tie; rank and rank1: the rank alone), and stores every field if it
+    strictly beats the entry. Each turn r of every thread runs before the
+    next (one order the card may take; the unique pairs make every order
+    give the same table), blocks last first within a turn; each block adds
+    its wins, summed mod 2^32, to the count. Returns (the count as int32,
+    the entries read of each plane)."""
+    p, n = table[0].shape
+    k = ops.shape[1]
+    planes = [f.view(-1) for f in table]
+    blocks = min(-(-k // APPLY_THREADS), APPLY_BLOCKS_PER_SM * sms)
+    stride = blocks * APPLY_THREADS
+    wins = [0] * blocks
+    reads = [0] * len(planes)
+    for first in range(0, k, stride):
+        for j in reversed(range(blocks)):
+            if first + j * APPLY_THREADS >= k:
+                continue
+            i = torch.arange(first + j * APPLY_THREADS,
+                             min(first + (j + 1) * APPLY_THREADS, k))
+            peer, slot = ops[0, i].to(torch.int64), ops[1, i].to(torch.int64)
+            op = [v[i] for v in ops[2:]]
+            live = (peer >= 0) & (peer < p) & (slot >= 0) & (slot < n)
+            live &= (op[0] > 0) if layout == "rank1" else (op[-1] >> 28) > 0
+            idx = (peer * n + slot).clamp(0, p * n - 1)
+            order = (2, 0, 1) if layout == "packed" else (0,)
+            decided = ~live
+            beats = torch.zeros_like(live)
+            for f in order:  # the planes in the compare's order, while undecided
+                need = ~decided
+                reads[f] += int(need.sum())
+                cur = torch.where(need, planes[f][idx], 0)
+                a, b = (op[f] >> 28, cur >> 28) if (layout, f) == ("packed", 2) else (op[f], cur)
+                beats |= need & (a > b)
+                decided |= need & (a != b)
+            if layout == "packed":  # the class and both keys tie: the whole cv
+                need = ~decided
+                beats |= need & (op[2] > torch.where(need, planes[2][idx], 0))
+            for pl, v in zip(planes, op):
+                pl[idx[beats]] = v[beats]
+            wins[j] += int(beats.sum())
+    total = 0
+    for j in reversed(range(blocks)):
+        total = (total + (wins[j] & MASK32)) & MASK32
+    return _s32(torch.tensor(total)), reads
 
 
 def window_tile_rows(nf, b, m, optin=H100_SMEM_OPTIN):

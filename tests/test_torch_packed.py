@@ -19,13 +19,20 @@ from bullet_tpu.ops.apply import OpBatch
 from bullet_tpu.ops.merge import TableState as JaxTable
 from bullet_tpu.ops.merge import merge_tables_xla
 from bullet_tpu.parallel import topology as jax_topo
+from bullet_tpu.ops import rank as jrk
 from bullet_tpu.ops.rank import Rank1Table as JaxRank1, RankTable as JaxRank
 from bullet_tpu.parallel.gossip import gossip_round_chain, gossip_round_mesh, gossip_round_ring
-from bullet_tpu_torch.convert import packed_from_numpy, packed_to_numpy, table_from_numpy
+from bullet_tpu_torch.convert import (
+    FROM_NUMPY,
+    packed_from_numpy,
+    packed_to_numpy,
+    table_from_numpy,
+    table_to_numpy,
+)
 from bullet_tpu_torch.ops import packed as pk
 from bullet_tpu_torch.parallel import topology as topo
 
-from _kernel_models import PipeKey, frontier_pipe_model
+from _kernel_models import APPLY_BLOCKS_PER_SM, APPLY_THREADS, PipeKey, apply_model, frontier_pipe_model
 
 torch.set_num_threads(2)
 
@@ -364,6 +371,93 @@ def test_apply_drops_out_of_range_and_dead_ops():
     for peer, slot, cv in ((0, 1, (5 << 28) | 1), (2, 7, (6 << 28) | 2)):
         want[0][peer, slot], want[1][peer, slot], want[2][peer, slot] = 9, 0, cv
     assert_same(got, want)
+
+
+FAMILY = {3: "packed", 2: "rank", 1: "rank1"}
+
+
+def model_apply_case(nf, seed, p=16, n=1024, k=9000):
+    """A table of nf fields with many ties and K unique (peer, slot) ops
+    for it, sorted by (peer, slot): live and dead (cls 0, rank 0) values,
+    ties (a tenth copy the entry they target), then out-of-range rows
+    (peer or slot outside the table) appended. The ops span several of
+    the apply kernel's blocks. Returns (table fields, ops [2 + nf, K],
+    the in-range count)."""
+    rng = np.random.default_rng(seed)
+    base = family_np(nf, p, n, seed)
+    flat = np.sort(rng.choice(p * n, k, replace=False))
+    peer, slot = (flat // n).astype(np.int32), (flat % n).astype(np.int32)
+    if nf == 3:
+        cls, vid = rng.integers(0, 4, k), rng.integers(0, 5, k)
+        vals = [rng.integers(-3, 3, k), rng.integers(-3, 3, k), (cls << 28) | vid]
+    else:
+        rank = rng.integers(0, 8, k)
+        vals = [rank, np.where(rank > 0, (1 << 28) | rank, 0)][:nf]
+    tie = rng.random(k) < 0.1
+    vals = [np.where(tie, b.reshape(-1)[flat], v).astype(np.int32) for b, v in zip(base, vals)]
+    stray = np.array([[-1, 0], [p, 3], [p + 3, n - 1], [0, -1], [p - 1, n], [2, n + 7]],
+                     np.int32).T
+    stray_vals = [np.full(stray.shape[1], v, np.int32)
+                  for v in ((5, 0, (5 << 28) | 1) if nf == 3 else (7, (1 << 28) | 7))[:nf]]
+    ops = np.concatenate([np.stack([peer, slot, *vals]), np.vstack([stray, *stray_vals])], 1)
+    return base, ops.astype(np.int32), k
+
+
+def reference_apply(base, ops, k):
+    """The reference's flat apply of the first k (in-range, sorted) ops."""
+    nf = len(base)
+    arrays = [jnp.asarray(a) for a in ops[:, :k]]
+    if nf == 3:
+        return jpk.apply_flat_packed(jt(base), *arrays)
+    if nf == 2:
+        return jrk.apply_flat_rank(jfam(base), *arrays)
+    return jrk.apply_flat_rank1(jfam(base), *arrays)
+
+
+def check_apply_model(nf, order, seed):
+    """apply_model (the kernel's schedule) and the plain version on sorted
+    or shuffled ops against the reference on the sorted in-range ops:
+    tables and applied counts equal, on the H100's grid and on one small
+    enough that every thread takes several ops in turn. The model reads no
+    entry for a dead or out-of-range op, the rank layouts' cv never, and
+    the packed keys khi and klo only on ties."""
+    base, ops, k = model_apply_case(nf, seed)
+    want, a_want = reference_apply(base, ops, k)
+    if order == "shuffled":
+        ops = ops[:, np.random.default_rng(seed).permutation(ops.shape[1])]
+    port_ops = torch.from_numpy(np.ascontiguousarray(ops))
+    layout = FAMILY[nf]
+    plain, a_plain = pk.apply_flat_packed_torch(FROM_NUMPY[layout](base, "cpu"), port_ops)
+    results = [(plain, a_plain)]
+    live = (ops[-1] >> 28 > 0) if nf > 1 else ops[2] > 0
+    live &= (ops[0] >= 0) & (ops[0] < base[0].shape[0]) & (ops[1] >= 0)
+    live &= ops[1] < base[0].shape[1]
+    for sms in (132, 1):
+        modelled = FROM_NUMPY[layout](base, "cpu")
+        a_model, reads = apply_model(modelled, port_ops, layout, sms)
+        results.append((modelled, a_model))
+        key = 2 if nf == 3 else 0
+        assert reads[key] == int(live.sum())
+        if nf == 3:
+            assert reads[key] > reads[0] >= reads[1] > 0
+        else:
+            assert reads[1:] == [0] * (nf - 1)
+    assert port_ops.shape[1] > 2 * APPLY_THREADS * APPLY_BLOCKS_PER_SM
+    for got, applied in results:
+        for a, b in zip(table_to_numpy(got), want):
+            np.testing.assert_array_equal(a, np.asarray(b))
+        assert int(applied) == int(a_want) > 0
+    assert int(a_want) < k  # ties and dead values did not land
+
+
+@pytest.mark.parametrize("order", ["sorted", "shuffled"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_apply_model_matches_reference(order, seed):
+    """#9/#10 at nf = 3: the CUDA kernel's schedule (apply_model: one op a
+    thread in turn over a capped grid, the entry's planes read only as far
+    as the compare needs) on sorted and shuffled ops with dead values, ties
+    and out-of-range rows."""
+    check_apply_model(3, order, seed)
 
 
 # --------------------------------------------------------------- reconcile

@@ -22,7 +22,7 @@ from bullet_tpu_torch.convert import FROM_NUMPY, table_to_numpy
 from bullet_tpu_torch.ops import packed as pk
 from bullet_tpu_torch.ops import rank as rk
 from _native_libs import load_native
-from test_torch_packed import _check_step, _ids, assert_same
+from test_torch_packed import _check_step, _ids, assert_same, check_apply_model
 from test_torch_window import JAX_TABLE, LAYOUT, fields_np
 
 torch.set_num_threads(2)
@@ -283,6 +283,15 @@ def test_flat_apply_matches_reference(nf):
     stray = torch.tensor([[p], [0], [1 << 29], [(1 << 28) | 1]], dtype=torch.int32)[: nf + 2]
     again, a_stray = pk.apply_flat_packed(got, stray)
     assert int(a_stray) == 0
+
+
+@pytest.mark.parametrize("order", ["sorted", "shuffled"])
+@pytest.mark.parametrize("nf", [1, 2])
+def test_apply_model_matches_reference(nf, order):
+    """#9/#10 at nf = 2 and 1: the CUDA kernel's schedule (apply_model: the
+    rank alone read) on sorted and shuffled ops with dead values (rank 0),
+    ties and out-of-range rows, against the reference's flat apply."""
+    check_apply_model(nf, order, 10 + nf)
 
 
 @pytest.mark.parametrize("nf", [1, 2])

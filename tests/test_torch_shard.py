@@ -10,6 +10,7 @@ lww, lean; ring and chain; fuse 1 and 8; cutoffs; a sparse seed).
 Tolerance: exact (int32 fields, counts, ids, rounds and residuals)."""
 
 import functools
+import itertools
 
 import jax
 import jax.numpy as jnp
@@ -47,7 +48,7 @@ from bullet_tpu_torch.parallel import mesh as port_mesh
 from bullet_tpu_torch.parallel import shardmap_gossip as sg
 from bullet_tpu_torch.parallel import topology as topo
 
-from _kernel_models import PipeKey, shard_pipe_model
+from _kernel_models import PipeKey, shard_pipe_model, shard_sweep_model, sweep_unit
 
 torch.set_num_threads(2)
 
@@ -379,6 +380,103 @@ def test_shard_pipe_model_matches_reference(mode, lean, b, s, zero, sparse):
         np.testing.assert_array_equal(a.numpy()[:, ~cols], x[:, ~cols])
     assert counts.sum(1).tolist() == totals.tolist()
     assert not counts[:, ~torch.from_numpy(flags)].any()
+
+
+# ------------------------------ the single round at m = 1 (#6), modelled
+
+SWEEP_ROWS = (1, 2, 3, 8, 17, 256)
+BOUNDARY_CASES = tuple(itertools.product(("none", "top", "bottom"), (False, True)))
+
+
+@functools.lru_cache(maxsize=None)
+def _sweep_case(mode, lean, b, zero, sparse):
+    """One shard of [b, PIPE_N] with 11 boundary rows each way (a zeroed
+    slab is a chain's end), and the reference's round of it on the columns
+    of the active stripes, given the 8 boundary rows next to the shard: its
+    Pallas kernel in interpret mode where that takes the shard (b % 8 ==
+    0; it reads row 7 above and row 0 below), else one XLA round of the
+    extended column (``_merge_ext_round_dense``). Returns (fields, tops,
+    bottoms, stripe flags, the reference's rows of those columns, its
+    count)."""
+    nf = 4 if lean else 7
+    rng = np.random.default_rng(100 + b)
+    f = tied_fields(b, PIPE_N, rng, nf)
+    tops, bottoms = tied_fields(11, PIPE_N, rng, nf), tied_fields(11, PIPE_N, rng, nf)
+    if zero == "top":
+        tops = [np.zeros_like(x) for x in tops]
+    if zero == "bottom":
+        bottoms = [np.zeros_like(x) for x in bottoms]
+    flags = SPARSE if sparse else np.ones(len(SPARSE), bool)
+    cols = np.repeat(flags, PIPE_TILE)
+    sub, top, bottom = ([jnp.asarray(x[rows][:, cols]) for x in xs] for xs, rows in (
+        (f, slice(None)), (tops, slice(-8, None)), (bottoms, slice(0, 8))))
+    if b % 8 == 0:
+        tile = ref_rk.frontier_tile_n_dense(b, int(cols.sum()), lean)
+        rows, c = ref_rk.frontier_shard_round_dense(
+            tuple(sub), tuple(top), tuple(bottom),
+            jnp.asarray(_ids(np.ones(int(cols.sum()) // tile, bool), 1)), mode, True)
+        total = int(np.asarray(c).sum())
+    else:
+        ext = [jnp.concatenate([t, x, bo]) for x, t, bo in zip(sub, top, bottom)]
+        ext, c = ref_rk._merge_ext_round_dense(ext, nf, mode, b)
+        rows, total = [e[8:8 + b] for e in ext], int(c)
+    return f, tops, bottoms, flags, [np.asarray(r) for r in rows], total
+
+
+@pytest.mark.parametrize("s", [1, 11])
+@pytest.mark.parametrize("b", SWEEP_ROWS)
+@pytest.mark.parametrize("mode,lean", [("reference", False), ("lww", False), ("reference", True)])
+def test_shard_sweep_model_matches_reference(mode, lean, b, s):
+    """#6 at m = 1: the CUDA kernel's single round (shard_sweep_model: row
+    s - 1 above and row 0 below read once, the shard's rows through the
+    ring of prefetched rows, units of columns) on shards of 1 to 256 rows
+    with s = 1 or 11 boundary rows, random, zeroed-top and zeroed-bottom
+    boundaries, all and sparse stripes: rows and per-stripe counts equal
+    the plain version's, the active stripes' rows and the total the
+    reference's, inactive stripes and the boundary rows stay as they
+    were."""
+    t = lambda xs: [torch.from_numpy(x.copy()) for x in xs]  # noqa: E731
+    for zero, sparse in BOUNDARY_CASES:
+        f, tops, bottoms, flags, want, total = _sweep_case(mode, lean, b, zero, sparse)
+        top, bottom = t([x[-s:] for x in tops]), t([x[:s] for x in bottoms])
+        before = [x.clone() for x in (*top, *bottom)]
+        ids = torch.from_numpy(_ids(flags, 1))
+        got, plain = t(f), t(f)
+        counts = shard_sweep_model(got, top, bottom, ids, PIPE_TILE, "lean" if lean else mode)
+        c_plain = frontier_shard_round_torch(plain, top, bottom, ids, PIPE_TILE,
+                                             beats_of(len(f), mode), 1)
+        assert all(torch.equal(a, p) for a, p in zip(got, plain))
+        assert torch.equal(counts, c_plain)
+        cols = np.repeat(flags, PIPE_TILE)
+        for a, x, w in zip(got, f, want):
+            np.testing.assert_array_equal(a.numpy()[:, cols], w)
+            np.testing.assert_array_equal(a.numpy()[:, ~cols], x[:, ~cols])
+        assert int(counts.sum()) == total
+        assert not counts[:, ~torch.from_numpy(flags)].any()
+        assert all(torch.equal(a, x) for a, x in zip((*top, *bottom), before))
+
+
+@pytest.mark.parametrize("tile", [32, 64, 96, 128, 256])
+@pytest.mark.parametrize("mode,lean", [("reference", False), ("lww", False), ("reference", True)])
+def test_shard_sweep_model_units(mode, lean, tile):
+    """The m = 1 kernel's column units: a thread takes the widest unit
+    (at most 1 column at nf = 7, 2 at nf = 4) whose units fill the stripe
+    in whole warps, so no unit is ragged; stripes whose width does not fit
+    the widest unit (96, 32) fall back to single columns. The model at
+    each width against the plain version, three stripes, one inactive."""
+    nf = 4 if lean else 7
+    assert sweep_unit(nf, tile) == (2 if lean and tile % 64 == 0 else 1)
+    rng = np.random.default_rng(tile)
+    n, b = 3 * tile, 5
+    f, top, bottom = (tied_fields(rows, n, rng, nf) for rows in (b, 2, 2))
+    t = lambda xs: [torch.from_numpy(x.copy()) for x in xs]  # noqa: E731
+    ids = torch.from_numpy(_ids(np.array([True, False, True]), 1))
+    got, plain = t(f), t(f)
+    counts = shard_sweep_model(got, t(top), t(bottom), ids, tile, "lean" if lean else mode)
+    c_plain = frontier_shard_round_torch(plain, t(top), t(bottom), ids, tile,
+                                         beats_of(nf, mode), 1)
+    assert all(torch.equal(a, p) for a, p in zip(got, plain))
+    assert torch.equal(counts, c_plain) and int(counts.sum()) > 0
 
 
 @pytest.mark.parametrize("layout", ["reference", "lww", "lean", "packed", "rank", "rank1"])

@@ -18,6 +18,7 @@ seed). Tolerance: exact (int32 fields, counts, stats, ids, rounds and
 residuals)."""
 
 import functools
+import itertools
 
 import jax
 import jax.numpy as jnp
@@ -40,6 +41,8 @@ from bullet_tpu_torch.parallel import topology as port_topo
 from _kernel_models import (
     PipeKey,
     shard_pipe_model,
+    shard_sweep_model,
+    sweep_unit,
     shard_window_model,
     window_model,
     window_model_launch,
@@ -257,6 +260,98 @@ def test_shard_pipe_model_matches_reference(nf, b, s, zero, sparse):
         np.testing.assert_array_equal(a.numpy()[:, ~cols], x[:, ~cols])
     assert counts.sum(1).tolist() == totals.tolist()
     assert not counts[:, ~torch.from_numpy(flags)].any()
+
+
+# ------------------------------ the single round at m = 1 (#22), modelled
+
+BOUNDARY_CASES = tuple(itertools.product(("none", "top", "bottom"), (False, True)))
+
+
+@functools.lru_cache(maxsize=None)
+def _sweep_case(nf, b, zero, sparse):
+    """One shard of [b, PIPE_N] with 11 boundary rows each way (a zeroed
+    slab is a chain's end), and the reference's round of it on the columns
+    of the active stripes, given the 8 boundary rows next to the shard: its
+    Pallas kernel in interpret mode where that takes the shard (b % 8 ==
+    0; it reads row 7 above and row 0 below), else one round of its XLA
+    trapezoid (``_merge_ext_round``). Returns (fields, tops, bottoms,
+    stripe flags, the reference's rows of those columns, its count)."""
+    f = family(nf, b, PIPE_N, 60 + b, absent=0.2)
+    tops = boundary(nf, 11, PIPE_N, 61 + b, zero == "top")
+    bottoms = boundary(nf, 11, PIPE_N, 62 + b, zero == "bottom")
+    flags = SPARSE if sparse else np.ones(len(SPARSE), bool)
+    cols = np.repeat(flags, PIPE_TILE)
+    sub = [x[:, cols] for x in f]
+    top, bottom = [x[-8:, cols] for x in tops], [x[:8, cols] for x in bottoms]
+    if b % 8 == 0:
+        width = int(cols.sum())
+        t_ref = width // ref_pk._stripe_tile_n(b, width)
+        ids = np.zeros(t_ref + 2, np.int32)
+        ids[:t_ref], ids[t_ref] = np.arange(t_ref), t_ref
+        rows, c = ref_pk.frontier_shard_round_packed(
+            J(nf, sub), J(nf, top), J(nf, bottom), jnp.asarray(ids), True)
+        rows, total = [np.asarray(r) for r in rows], int(np.asarray(c).sum())
+    else:
+        rows, c = _trapezoid_twin(nf, sub, top, bottom, 1)
+        total = c[0]
+    return f, tops, bottoms, flags, rows, total
+
+
+@pytest.mark.parametrize("s", [1, 11])
+@pytest.mark.parametrize("b", [1, 2, 3, 8, 17, 256])
+@pytest.mark.parametrize("nf", [3, 2, 1])
+def test_shard_sweep_model_matches_reference(nf, b, s):
+    """#22 at m = 1: the CUDA kernel's single round (shard_sweep_model: row
+    s - 1 above and row 0 below read once, the shard's rows through the
+    ring of prefetched rows, units of 2 or 4 columns) on shards of 1 to
+    256 rows with s = 1 or 11 boundary rows, random, zeroed-top and
+    zeroed-bottom boundaries, all and sparse stripes: rows and per-stripe
+    counts equal the plain version's, the active stripes' rows and the
+    total the reference's, inactive stripes and the boundary rows stay as
+    they were."""
+    for zero, sparse in BOUNDARY_CASES:
+        f, tops, bottoms, flags, want, total = _sweep_case(nf, b, zero, sparse)
+        top, bottom = T([x[-s:] for x in tops]), T([x[:s] for x in bottoms])
+        before = [x.clone() for x in (*top, *bottom)]
+        ids = all_ids(len(flags), 1)
+        ids[:int(flags.sum())] = torch.from_numpy(np.flatnonzero(flags))
+        ids[len(flags)] = int(flags.sum())
+        got, plain = T(f), T(f)
+        counts = shard_sweep_model(got, top, bottom, ids, PIPE_TILE, LAYOUT[nf])
+        c_plain = pk.frontier_shard_round_torch(plain, top, bottom, ids, PIPE_TILE,
+                                                pk.packed_beats, 1)
+        assert all(torch.equal(a, p) for a, p in zip(got, plain))
+        assert torch.equal(counts, c_plain)
+        cols = np.repeat(flags, PIPE_TILE)
+        for a, x, w in zip(got, f, want):
+            np.testing.assert_array_equal(a.numpy()[:, cols], w)
+            np.testing.assert_array_equal(a.numpy()[:, ~cols], x[:, ~cols])
+        assert int(counts.sum()) == total
+        assert not counts[:, ~torch.from_numpy(flags)].any()
+        assert all(torch.equal(a, x) for a, x in zip((*top, *bottom), before))
+
+
+@pytest.mark.parametrize("tile", [32, 64, 96, 128, 256])
+@pytest.mark.parametrize("nf", [3, 2, 1])
+def test_shard_sweep_model_units(nf, tile):
+    """The m = 1 kernel's column units at the packed family's field counts:
+    the widest unit (2 columns at nf = 3, 4 at nf = 2 and 1) whose units
+    fill the stripe in whole warps, so no unit is ragged; narrower stripes
+    fall back to 2 or 1 columns. The model at each width against the plain
+    version, three stripes, one inactive."""
+    units = {32: 1, 64: 2, 96: 1, 128: 2 if nf == 3 else 4, 256: 2 if nf == 3 else 4}
+    assert sweep_unit(nf, tile) == units[tile]
+    n, b = 3 * tile, 5
+    f, top, bottom = (family(nf, rows, n, tile + rows, absent=0.2) for rows in (b, 2, 3))
+    ids = all_ids(3, 1)
+    ids[:2] = torch.tensor([0, 2])
+    ids[3] = 2
+    got, plain = T(f), T(f)
+    counts = shard_sweep_model(got, T(top), T(bottom), ids, tile, LAYOUT[nf])
+    c_plain = pk.frontier_shard_round_torch(plain, T(top), T(bottom), ids, tile,
+                                            pk.packed_beats, 1)
+    assert all(torch.equal(a, p) for a, p in zip(got, plain))
+    assert torch.equal(counts, c_plain) and int(counts.sum()) > 0
 
 
 def test_frontier_shard_packed_skips_inactive_stripes():

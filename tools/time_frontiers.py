@@ -21,15 +21,19 @@ mean of 5 calls after one warm-up (3 for the shard window), on:
 - frontier_shard_round_packed (#23 at m = 8, #22 at m = 1) on one shard
   of phase 9, 256 x 2^20, with s = m boundary rows: nf = 3, 2, 1.
 
-``--ptxas`` first compiles the frontier sources of each ROOT with
-``-Xptxas -v`` and prints the registers, shared memory and spills of every
-kernel. Prints the card's name and power limit first, then one line
-``TIME <root> <kernel shape>: <ms> ms`` per shape.
+Where the checkout has the occupancy entry of the per-shard m = 1 kernel
+(``bt_frontier_shard_blocks``), one line ``OCCUPANCY ...`` a field count
+gives the blocks of it an SM holds. ``--ptxas`` first compiles the
+frontier sources of each ROOT with ``-Xptxas -v`` and prints the
+registers, shared memory and spills of every kernel. Prints the card's
+name and power limit first, then one line ``TIME <root> <kernel shape>:
+<ms> ms`` per shape.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import os
 import subprocess
 import sys
@@ -87,10 +91,17 @@ def time_root(root: str) -> None:
     if not cs.__file__.startswith(root):
         raise RuntimeError(f"imported {cs.__file__}, not {root}'s chip_smoke.py")
     dev = torch.device("cuda", 0)
-    _build.library()
+    lib = _build.library()
     res = {}
     p, n = 1024, 1 << 20
     tile = frontier_tile_n(n)
+    if hasattr(lib, "bt_frontier_shard_blocks"):
+        for nf, lww in ((7, 0), (7, 1), (4, 0), (3, 0), (2, 0), (1, 0)):
+            blocks = ctypes.c_int(0)
+            _build.check(lib.bt_frontier_shard_blocks(nf, lww, tile, ctypes.byref(blocks)),
+                         "bt_frontier_shard_blocks")
+            print(f"OCCUPANCY {root} frontier_shard m=1 nf={nf} lww={lww} tile={tile}: "
+                  f"{blocks.value} blocks an SM", flush=True)
     every = np.ones(n // tile, bool)
     for nf in (3, 2, 1):
         table = cs.random_family(nf, 5 + nf, p, n, dev)
