@@ -47,7 +47,7 @@ LAUNCHES = {
     "frontier_shard": 0, "frontier_shard fused": 0, "compact_counts": 0,
     "compact_counts fused": 0, "frontier_shard packed": 0, "frontier_shard packed fused": 0,
     "frontier_shard_window": 0, "compact_counts window": 0,
-    "apply_packed": 0, "packed_round": 0, "reconcile_packed": 0,
+    "apply_packed": 0, "packed_round": 0, "packed_round fused": 0, "reconcile_packed": 0,
     "frontier_round_packed": 0, "window_packed": 0, "window_shard": 0,
 }
 
@@ -69,8 +69,9 @@ _SIGNATURES = {
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P,
     ),
     "bt_frontier_shard_blocks": (ctypes.c_int, ctypes.c_int, ctypes.c_int, _P),
-    "bt_compact_counts": (_P, _P, ctypes.c_int, ctypes.c_int, _P),
-    "bt_compact_counts_window": (_P, _P, ctypes.c_int, ctypes.c_int, _P),
+    # the fold's counts or stats, ids, then shards, m and t_total
+    "bt_compact_counts": (_P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P),
+    "bt_compact_counts_window": (_P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P),
     # the packed-family kernels take the table's field count nf (1, 2, 3)
     # as their last argument before the stream
     "bt_frontier_shard_packed": (

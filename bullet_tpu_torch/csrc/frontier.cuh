@@ -1,9 +1,10 @@
 // Compacting frontier step, shared by every layout: m ring/chain rounds, in
 // place, on the active slot stripes only, then the next round's ids array.
 // frontier_dense.cu and frontier_packed.cu instantiate it for their entry
-// types (lexmax.cuh). Also the ordered compaction (compact_counts.cu) and
-// the extended column of the per-shard step on a device mesh
-// (frontier_shard.cu: its sweep, and its pipelined pass on pipe_stages).
+// types (lexmax.cuh). Also the ordered compaction (compact_counts.cu), the
+// extended column of the per-shard step on a device mesh (frontier_shard.cu:
+// its sweep, and its pipelined pass on pipe_stages) and the whole table's
+// m-round pass (packed_round.cu: frontier_pipe_kernel with a total count).
 //
 // ids layout (as the reference's ops/packed.py frontier loops use it):
 //   [0, count)    active stripe ids, ascending
@@ -329,6 +330,42 @@ __device__ __forceinline__ void pipe_steps(int32_t (&h)[M][3][E::NF], int32_t (&
   });
 }
 
+// Where the blocks of a pipelined pass (frontier_pipe_kernel) take their
+// stripes and leave their counts. The compacting frontier: block j takes
+// stripe ids[j], none past the count, and writes its changed total and
+// last changed round for frontier_compact_kernel.
+struct StripeCounts {
+  const int32_t* ids;
+  int t_total;
+  unsigned* stripe_changed;
+  int32_t* stripe_last;
+
+  __device__ __forceinline__ bool active() const { return (int)blockIdx.x < ids[t_total]; }
+  __device__ __forceinline__ int64_t stripe() const { return ids[blockIdx.x]; }
+  __device__ __forceinline__ void finish(unsigned total, int last) const {
+    total = block_sum(total);
+    last = block_max(last);
+    if (threadIdx.x == 0) {
+      stripe_changed[blockIdx.x] = total;
+      stripe_last[blockIdx.x] = last;
+    }
+  }
+};
+
+// The whole table (packed_round.cu): block j takes stripe j, and its
+// changed total lands in *count with one atomicAdd (mod 2^32, like the
+// reference's int32 sum).
+struct TotalCount {
+  unsigned* count;
+
+  __device__ __forceinline__ bool active() const { return true; }
+  __device__ __forceinline__ int64_t stripe() const { return blockIdx.x; }
+  __device__ __forceinline__ void finish(unsigned total, int) const {
+    total = block_sum(total);
+    if (threadIdx.x == 0 && total) atomicAdd(count, total);
+  }
+};
+
 // M rounds in one pass per column. Step e reads input e (y_0[e]); stage k
 // (1..M) holds round k - 1's outputs y_{k-1}[e - k - 1] and y_{k-1}[e - k]
 // (its pre-round `up` and `cur`), receives y_{k-1}[e - k + 1] from stage
@@ -340,23 +377,23 @@ __device__ __forceinline__ void pipe_steps(int32_t (&h)[M][3][E::NF], int32_t (&
 // reaches it. On a chain the rows outside the central copy are the
 // constant all-zero neighbours: stage 1 reads zeros there and every stage
 // writes zeros there, which are still compared, as in sweep_column. Only
-// the central copy counts: stripe_changed sums gt(up) + gt(down) over
-// rounds and rows (an entry can count twice, wrapping mod 2^32), and
-// stripe_last is the last round with a nonzero count, exactly as m classic
-// sweeps count them. The steps run unrolled by 3, the period of the
-// history's rotation (pipe_stages), those in [2 M, p + M] without any row
-// test. Dynamic shared memory: M x NF x blockDim.x int32 for the ring's
-// saved rows.
-template <typename E, int M>
+// the central copy counts: a thread's total sums gt(up) + gt(down) over
+// rounds and rows (an entry can count twice, wrapping mod 2^32), and its
+// last is the last round with a nonzero count, exactly as m classic sweeps
+// count them; out (StripeCounts, TotalCount) picks each block's stripe of
+// tile_n columns (columns past n take no part) and reduces the counts. The
+// steps run unrolled by 3, the period of the history's rotation
+// (pipe_stages), those in [2 M, p + M] without any row test. Dynamic shared
+// memory: M x NF x blockDim.x int32 for the ring's saved rows, each
+// thread's own, so that every block of a grid keeps its rows 0..M - 1 as
+// they were before the pass.
+template <typename E, int M, typename Out>
 __global__ void __launch_bounds__(kMaxTile)
-    frontier_pipe_kernel(Fields<E::NF> t, const int32_t* ids, int p, int64_t n, int tile_n,
-                         int t_total, int wrap, unsigned* stripe_changed,
-                         int32_t* stripe_last) {
+    frontier_pipe_kernel(Fields<E::NF> t, int p, int64_t n, int tile_n, int wrap, Out out) {
   constexpr int NF = E::NF;
   extern __shared__ int32_t saved[];
-  const int j = blockIdx.x;
-  if (j >= ids[t_total]) return;  // uniform across the block
-  const int64_t col = (int64_t)ids[j] * tile_n + threadIdx.x;
+  if (!out.active()) return;  // uniform across the block
+  const int64_t col = out.stripe() * tile_n + threadIdx.x;
   const bool ring = wrap != 0;
   unsigned total = 0;
   int last = 0;
@@ -385,12 +422,22 @@ __global__ void __launch_bounds__(kMaxTile)
       if (cnt[k]) last = k + 1;
     }
   }
-  total = block_sum(total);
-  last = block_max(last);
-  if (threadIdx.x == 0) {
-    stripe_changed[j] = total;
-    stripe_last[j] = last;
-  }
+  out.finish(total, last);
+}
+
+// One launch of the pipelined pass of kPipeDepth rounds: `blocks` blocks
+// of tile_n threads, out as in frontier_pipe_kernel.
+template <typename E, typename Out>
+cudaError_t launch_pipe(void* const* fields, int p, long long n, int tile_n, long long blocks,
+                        int wrap, Out out, cudaStream_t s) {
+  auto* kernel = frontier_pipe_kernel<E, kPipeDepth, Out>;
+  const int smem = kPipeDepth * E::NF * tile_n * (int)sizeof(int32_t);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<(unsigned)blocks, tile_n, smem, s>>>(fields_of<E::NF>(fields), p, n, tile_n, wrap,
+                                                out);
+  return cudaGetLastError();
 }
 
 // Exclusive prefix sum of a 0/1 flag over the block; *total gets the sum.
@@ -572,14 +619,8 @@ cudaError_t launch_frontier_round(void* const* fields, const void* ids, void* id
   auto* sc = static_cast<unsigned*>(stripe_changed);
   auto* sl = static_cast<int32_t*>(stripe_last);
   if (t_total > 0 && m == kPipeDepth) {
-    auto* kernel = frontier_pipe_kernel<E, kPipeDepth>;
-    const int smem = kPipeDepth * E::NF * tile_n * (int)sizeof(int32_t);
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    kernel<<<t_total, tile_n, smem, s>>>(fields_of<E::NF>(fields), in, p, n, tile_n, t_total,
-                                         wrap, sc, sl);
-    err = cudaGetLastError();
+    const cudaError_t err =
+        launch_pipe<E>(fields, p, n, tile_n, t_total, wrap, StripeCounts{in, t_total, sc, sl}, s);
     if (err != cudaSuccess) return err;
   } else if (t_total > 0) {
     frontier_round_kernel<E><<<t_total, tile_n, 0, s>>>(

@@ -17,7 +17,8 @@ Each kernel sits beside its plain PyTorch version:
   ``apply_flat_packed_torch``: K pre-reduced ops, in place, win count;
 * ``ring_round_packed`` / ``ring_multiround_packed`` /
   ``count_changes_round_packed`` (``csrc/packed_round.cu``) /
-  ``packed_round_torch``: m in-place ring/chain rounds, or the count one
+  ``packed_round_torch``: m in-place ring/chain rounds (m >= 8 as
+  pipelined passes of 8 rounds, then single sweeps), or the count one
   round would make;
 * ``reconcile_packed`` (``csrc/reconcile_packed.cu``) /
   ``reconcile_packed_torch``: every row becomes its column's join;
@@ -32,9 +33,11 @@ Each kernel sits beside its plain PyTorch version:
   ``packed_beats``: m = 1 or 8 rounds on the active stripes, per-round
   counts; ``frontier_shard_window`` (``csrc/frontier_shard_window.cu``) /
   ``frontier_shard_window_torch``: m <= 63 rounds per boundary exchange,
-  the window stats; and the fold of the shards' agreed stats,
-  ``compact_counts_window`` (``csrc/compact_counts.cu``) /
-  ``compact_counts_window_torch``.
+  the window stats; each into its row of one [S, ...] buffer; and the
+  fold of the shards' rows into the next ids array, one launch a step:
+  ``compact_counts`` / ``compact_counts_torch`` and
+  ``compact_counts_window`` / ``compact_counts_window_torch``
+  (``csrc/compact_counts.cu``).
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches its kernel or raises. Every kernel is instantiated for the three
@@ -74,7 +77,9 @@ from .ring_kernel import (
     frontier_tile_n,
     launch_frontier_step,
     launch_shard_step,
+    plain_into,
     rounds_torch,
+    shard_step_out,
 )
 
 CV_SHIFT = 28
@@ -290,7 +295,7 @@ def _packed_round(table, wrap: bool, m: int, count_only: bool):
             int(count_only), len(table), _build.stream_of(device),
         )
     _build.check(err, "packed_round")
-    _build.LAUNCHES["packed_round"] += 1
+    _build.LAUNCHES["packed_round" if m == 1 else "packed_round fused"] += 1
     return table, count[0]
 
 
@@ -300,7 +305,9 @@ def ring_round_packed(table, wrap: bool = True) -> Tuple[object, torch.Tensor]:
 
 
 def ring_multiround_packed(table, wrap: bool, m: int) -> Tuple[object, torch.Tensor]:
-    """``m`` rounds in one launch, in place, + the count summed over them."""
+    """``m`` rounds in one call, in place, + the count summed over them: on
+    the card m // 8 pipelined passes of 8 rounds (one read and one write of
+    the table each), then m % 8 single sweeps."""
     return _packed_round(table, wrap, m, False)
 
 
@@ -738,47 +745,67 @@ def _wrap_int32(x: int) -> int:
     return x - (1 << 32) if x >= 1 << 31 else x
 
 
-def compact_counts_torch(counts: torch.Tensor) -> torch.Tensor:
-    """Plain version of the count compaction: int32 [m, t_total] per-round,
-    per-stripe change counts (summed over a mesh's shards) -> the next ids
-    array: the stripes whose round-m count is > 0, ascending; their count;
-    the total of every count (wrapping like int32); for m > 1 the max over
-    stripes of the last round that changed it. Cells past the count are
-    zero."""
-    m, t_total = counts.shape
-    c = counts.to(torch.int64)
+def _ids_out(out: Optional[torch.Tensor], length: int, device, what: str) -> torch.Tensor:
+    """The first ``length`` cells of ``out``, a caller's int32 ids buffer on
+    ``device`` (a new one when None)."""
+    if out is None:
+        return torch.empty(length, dtype=torch.int32, device=device)
+    if (out.dtype != torch.int32 or out.device != device or out.dim() != 1
+            or out.numel() < length or not out.is_contiguous()):
+        raise ValueError(f"{what}: out must be int32 [>= {length}] on {device}")
+    return out[:length]
+
+
+def compact_counts_torch(counts: torch.Tensor, out: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """Plain version of the count fold and compaction: the S shards' int32
+    [S, m, t_total] per-round, per-stripe change counts, summed over the
+    shards (wrapping like the reference's int32 psum) -> the next ids array
+    (in ``out`` when given): the stripes whose round-m count is > 0,
+    ascending; their count; the total of every count (wrapping like int32);
+    for m > 1 the max over stripes of the last round that changed it. Cells
+    past the count are zero. Zeroes ``counts``, as the kernel does."""
+    _, m, t_total = counts.shape
+    c = counts.to(torch.int64).sum(0).to(torch.int32).to(torch.int64)
+    counts.zero_()
     rounds = torch.arange(1, m + 1, device=counts.device)[:, None]
     last = torch.where(c > 0, rounds, 0).amax(0)
     keep = torch.nonzero(last == m).flatten()
-    out = torch.zeros(t_total + (3 if m > 1 else 2), dtype=torch.int32, device=counts.device)
-    out[: keep.numel()] = keep.to(torch.int32)
-    out[t_total] = keep.numel()
-    out[t_total + 1] = _wrap_int32(int(c.sum()))
+    ids = _ids_out(out, t_total + (3 if m > 1 else 2), counts.device, "compact_counts")
+    ids.zero_()
+    ids[: keep.numel()] = keep.to(torch.int32)
+    ids[t_total] = keep.numel()
+    ids[t_total + 1] = _wrap_int32(int(c.sum()))
     if m > 1:
-        out[t_total + 2] = int(last.max()) if t_total else 0
-    return out
+        ids[t_total + 2] = int(last.max()) if t_total else 0
+    return ids
 
 
-def compact_counts(counts: torch.Tensor) -> torch.Tensor:
-    """The count compaction (see ``compact_counts_torch``): the CUDA kernel
-    (``csrc/compact_counts.cu``, one block) for a CUDA tensor, the plain
-    version for a CPU tensor. The port of the reference's
+def compact_counts(counts: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The count fold and compaction (see ``compact_counts_torch``) of the
+    shards' [S, m, t_total] counts, one launch: the CUDA kernel
+    (``csrc/compact_counts.cu``, one block, which zeroes the counts as it
+    reads them) for a CUDA tensor, the plain version for a CPU tensor. The
+    port of the reference's psum over the shards and its
     ``compact_counts_packed`` (m = 1) and
-    ``compact_counts_multiround_packed`` (m > 1). Cells of the result past
-    its count are left unwritten by the kernel."""
-    if counts.dim() != 2 or counts.dtype != torch.int32:
-        raise ValueError("compact_counts takes int32 [m, t_total] counts")
+    ``compact_counts_multiround_packed`` (m > 1). ``out``: an int32 ids
+    buffer of at least t_total + 3 cells on the same device, which must not
+    be the ids array the shards' step read (a loop ping-pongs two); the
+    result is its first t_total + 2 (m = 1) or + 3 cells. Cells of the
+    result past its count are left unwritten by the kernel."""
+    if counts.dim() != 3 or counts.dtype != torch.int32 or counts.shape[0] < 1:
+        raise ValueError("compact_counts takes int32 [S >= 1, m, t_total] counts")
     if counts.device.type == "cpu":
-        return compact_counts_torch(counts)
+        return compact_counts_torch(counts, out)
     device = counts.device
     _build.require_cuda(device, "compact_counts")
-    m, t_total = counts.shape
-    counts = counts.contiguous()
+    shards, m, t_total = counts.shape
+    _build.check_fields((counts,), (shards, m, t_total), device, "compact_counts")
+    ids = _ids_out(out, t_total + (3 if m > 1 else 2), device, "compact_counts")
     lib = _build.library()
-    ids = torch.empty(t_total + (3 if m > 1 else 2), dtype=torch.int32, device=device)
     with torch.cuda.device(device):
         err = lib.bt_compact_counts(
-            counts.data_ptr(), ids.data_ptr(), m, t_total, _build.stream_of(device)
+            counts.data_ptr(), ids.data_ptr(), shards, m, t_total, _build.stream_of(device)
         )
     _build.check(err, "compact_counts")
     _build.LAUNCHES["compact_counts" if m == 1 else "compact_counts fused"] += 1
@@ -918,7 +945,8 @@ def window_frontier_depth(b: int, n: int) -> int:
 
 
 def frontier_shard_round_packed(fields, tops, bottoms, ids: torch.Tensor, tile_n: int,
-                                m: int = 1) -> torch.Tensor:
+                                m: int = 1, out: Optional[torch.Tensor] = None
+                                ) -> torch.Tensor:
     """One per-shard frontier step of ``m`` rounds on a packed-family shard
     (see ``ring_kernel.frontier_shard_round_torch``, whose plain version it
     runs with ``packed_beats`` for CPU tensors): the CUDA kernel
@@ -930,15 +958,16 @@ def frontier_shard_round_packed(fields, tops, bottoms, ids: torch.Tensor, tile_n
     ``_frontier_halo_kernel_counts`` (which reads one row of its 8-row
     pads), m = 8 of ``_frontier_shard_multiround_kernel_packed``. Returns
     the int32 [m, t_total] per-round, per-stripe counts of the shard's
-    rows."""
+    rows, in ``out`` when given (zeroed, on the shard's device: the
+    shard's row of the mesh's fold buffer)."""
     nf = len(fields)
     if nf not in (1, 2, 3):
         raise ValueError(f"frontier_shard_round_packed takes 1, 2 or 3 fields, got {nf}")
     check_shard_step(fields, tops, bottoms, tile_n, m, m)
     if fields[0].device.type == "cpu":
-        return frontier_shard_round_torch(fields, tops, bottoms, ids, tile_n, packed_beats, m)
-    counts = torch.zeros((m, fields[0].shape[1] // tile_n), dtype=torch.int32,
-                         device=fields[0].device)
+        return plain_into(
+            frontier_shard_round_torch(fields, tops, bottoms, ids, tile_n, packed_beats, m), out)
+    counts = shard_step_out(fields, out, m, tile_n, "frontier_shard_round_packed")
     launch_shard_step("frontier_shard_packed", fields, tops, bottoms, ids, tile_n, (counts,),
                       m, nf)
     _build.LAUNCHES["frontier_shard packed" if m == 1 else "frontier_shard packed fused"] += 1
@@ -1028,7 +1057,7 @@ def frontier_shard_window_torch(fields, tops, bottoms, ids: torch.Tensor, tile_n
 
 
 def frontier_shard_window(fields, tops, bottoms, ids: torch.Tensor, tile_n: int,
-                          m: int) -> torch.Tensor:
+                          m: int, out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One per-shard window step of ``m`` rounds on a packed-family shard
     (see ``frontier_shard_window_torch``): the CUDA kernel
     (``csrc/frontier_shard_window.cu``: the distance chain on a tile of the
@@ -1036,8 +1065,9 @@ def frontier_shard_window(fields, tops, bottoms, ids: torch.Tensor, tile_n: int,
     tensors, the plain version for CPU tensors. ``tops`` and ``bottoms``
     are the neighbour shards' [m, N] slabs, taken before any shard's step;
     the kernel only reads them. Returns the int32 [2, t_total] window
-    stats; the caller sums row 0 and maxes row 1 over the shards and folds
-    them (``compact_counts_window``)."""
+    stats, in ``out`` when given (zeroed, on the shard's device: the kernel
+    adds into it); the caller folds the shards' stats, row 0 summed and
+    row 1 maxed (``compact_counts_window``)."""
     nf = len(fields)
     if nf not in (1, 2, 3):
         raise ValueError(f"frontier_shard_window takes 1, 2 or 3 fields, got {nf}")
@@ -1045,53 +1075,62 @@ def frontier_shard_window(fields, tops, bottoms, ids: torch.Tensor, tile_n: int,
     if tops[0].shape[0] != m:
         raise ValueError(f"a window of {m} rounds takes {m}-row slabs, got {tops[0].shape[0]}")
     if fields[0].device.type == "cpu":
-        return frontier_shard_window_torch(fields, tops, bottoms, ids, tile_n, m)
-    stats = torch.zeros((2, fields[0].shape[1] // tile_n), dtype=torch.int32,
-                        device=fields[0].device)
+        return plain_into(frontier_shard_window_torch(fields, tops, bottoms, ids, tile_n, m), out)
+    stats = shard_step_out(fields, out, 2, tile_n, "frontier_shard_window")
     launch_shard_step("frontier_shard_window", fields, tops, bottoms, ids, tile_n, (stats,), nf)
     _build.LAUNCHES["frontier_shard_window"] += 1
     return stats
 
 
-def compact_counts_window_torch(stats: torch.Tensor, m: int) -> torch.Tensor:
-    """Plain version of the window fold: agreed int32 [2, t_total] window
-    stats (row 0 summed over the shards, row 1 maxed) -> the fused ids
-    array [t_total + 3]: the stripes whose last changed round is m,
-    ascending (the others reached their fixed point inside the window);
-    their count; the total of row 0 (wrapping like int32); the max of row 1
-    (at least 0). Cells past the count are zero."""
-    t_total = stats.shape[1]
-    last = stats[1].to(torch.int64)
+def compact_counts_window_torch(stats: torch.Tensor, m: int,
+                                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of the window fold: the S shards' int32 [S, 2, t_total]
+    window stats, agreed as the reference's shard_map does (row 0 summed
+    over the shards, wrapping like int32; row 1 maxed) -> the fused ids
+    array [t_total + 3] (in ``out`` when given): the stripes whose last
+    changed round is m, ascending (the others reached their fixed point
+    inside the window); their count; the total of row 0 (wrapping like
+    int32); the max of row 1 (at least 0). Cells past the count are zero.
+    Zeroes ``stats``, as the kernel does."""
+    t_total = stats.shape[2]
+    total = stats[:, 0].to(torch.int64).sum(0)
+    last = stats[:, 1].to(torch.int64).amax(0)
+    stats.zero_()
     keep = torch.nonzero(last == m).flatten()
-    out = torch.zeros(t_total + 3, dtype=torch.int32, device=stats.device)
-    out[: keep.numel()] = keep.to(torch.int32)
-    out[t_total] = keep.numel()
-    out[t_total + 1] = _wrap_int32(int(stats[0].to(torch.int64).sum()))
-    out[t_total + 2] = max(0, int(last.max())) if t_total else 0
-    return out
+    ids = _ids_out(out, t_total + 3, stats.device, "compact_counts_window")
+    ids.zero_()
+    ids[: keep.numel()] = keep.to(torch.int32)
+    ids[t_total] = keep.numel()
+    ids[t_total + 1] = _wrap_int32(int(total.sum()))
+    ids[t_total + 2] = max(0, int(last.max())) if t_total else 0
+    return ids
 
 
-def compact_counts_window(stats: torch.Tensor, m: int) -> torch.Tensor:
-    """The window fold (see ``compact_counts_window_torch``) for a window
-    of m >= 2 rounds: the CUDA kernel (``csrc/compact_counts.cu``, one
-    block) for a CUDA tensor, the plain version for a CPU tensor. The port
-    of the reference's ``compact_counts_window_packed``. Cells of the
-    result past its count are left unwritten by the kernel."""
-    if stats.dim() != 2 or stats.shape[0] != 2 or stats.dtype != torch.int32:
-        raise ValueError("compact_counts_window takes int32 [2, t_total] stats")
+def compact_counts_window(stats: torch.Tensor, m: int,
+                          out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The window fold (see ``compact_counts_window_torch``) of the shards'
+    [S, 2, t_total] stats for a window of m >= 2 rounds, one launch: the
+    CUDA kernel (``csrc/compact_counts.cu``, one block, which zeroes the
+    stats as it reads them) for a CUDA tensor, the plain version for a CPU
+    tensor. The port of the reference's psum and pmax over the shards and
+    its ``compact_counts_window_packed``. ``out`` as in ``compact_counts``.
+    Cells of the result past its count are left unwritten by the kernel."""
+    if (stats.dim() != 3 or stats.shape[0] < 1 or stats.shape[1] != 2
+            or stats.dtype != torch.int32):
+        raise ValueError("compact_counts_window takes int32 [S >= 1, 2, t_total] stats")
     if m < 2:
         raise ValueError(f"a window folds m >= 2 rounds, got {m}")
     if stats.device.type == "cpu":
-        return compact_counts_window_torch(stats, m)
+        return compact_counts_window_torch(stats, m, out)
     device = stats.device
     _build.require_cuda(device, "compact_counts_window")
-    t_total = stats.shape[1]
-    stats = stats.contiguous()
+    shards, _, t_total = stats.shape
+    _build.check_fields((stats,), (shards, 2, t_total), device, "compact_counts_window")
+    ids = _ids_out(out, t_total + 3, device, "compact_counts_window")
     lib = _build.library()
-    ids = torch.empty(t_total + 3, dtype=torch.int32, device=device)
     with torch.cuda.device(device):
         err = lib.bt_compact_counts_window(
-            stats.data_ptr(), ids.data_ptr(), m, t_total, _build.stream_of(device)
+            stats.data_ptr(), ids.data_ptr(), shards, m, t_total, _build.stream_of(device)
         )
     _build.check(err, "compact_counts_window")
     _build.LAUNCHES["compact_counts window"] += 1

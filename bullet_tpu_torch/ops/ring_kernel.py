@@ -435,7 +435,7 @@ def frontier_shard_round_torch(
 def frontier_shard_round(
     fields: Sequence[torch.Tensor], tops: Sequence[torch.Tensor],
     bottoms: Sequence[torch.Tensor], ids: torch.Tensor, tile_n: int, mode: str,
-    m: int = 1,
+    m: int = 1, out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """One per-shard frontier step (see ``frontier_shard_round_torch``) on
     a shard's seven fields or (lean) its four value keys: the CUDA kernel
@@ -445,8 +445,9 @@ def frontier_shard_round(
     them at m = 1 and m = 8 (one pipelined pass), the depths the loops
     send; another m uses them as scratch, so no caller may depend on
     their contents after the call. Returns the int32 [m, t_total]
-    counts; the caller sums them over the shards and compacts them
-    (``ops.packed.compact_counts``)."""
+    counts, in ``out`` when given (zeroed, on the shard's device: the
+    shard's row of the mesh's fold buffer); the caller folds the shards'
+    counts into the next ids array (``ops.packed.compact_counts``)."""
     if mode not in ("reference", "lww"):
         raise ValueError(f"unknown merge mode: {mode}")
     nf = len(fields)
@@ -454,9 +455,10 @@ def frontier_shard_round(
         raise ValueError(f"frontier_shard_round takes 4 or 7 fields per part, got {nf}")
     check_shard_step(fields, tops, bottoms, tile_n, m, m)
     if fields[0].device.type == "cpu":
-        return frontier_shard_round_torch(fields, tops, bottoms, ids, tile_n, beats_of(nf, mode), m)
-    counts = torch.zeros((m, fields[0].shape[1] // tile_n), dtype=torch.int32,
-                         device=fields[0].device)
+        return plain_into(
+            frontier_shard_round_torch(fields, tops, bottoms, ids, tile_n, beats_of(nf, mode), m),
+            out)
+    counts = shard_step_out(fields, out, m, tile_n, "frontier_shard_round")
     launch_shard_step("frontier_shard", fields, tops, bottoms, ids, tile_n, (counts,),
                       m, int(mode == "lww"), nf)
     _build.LAUNCHES["frontier_shard" if m == 1 else "frontier_shard fused"] += 1
@@ -474,6 +476,23 @@ def check_shard_step(fields, tops, bottoms, tile_n: int, m: int, min_rows: int) 
     s = tops[0].shape[0]
     if s < min_rows:
         raise ValueError(f"{m} fused rounds need {min_rows} boundary rows, got {s}")
+
+
+def shard_step_out(fields, out: Optional[torch.Tensor], rows: int, tile_n: int,
+                   what: str) -> torch.Tensor:
+    """The int32 [rows, t_total] output a per-shard kernel stores or adds
+    into: ``out``, a caller's zeroed buffer on the shard's device, or a new
+    zeroed one."""
+    shape = (rows, fields[0].shape[1] // tile_n)
+    if out is None:
+        return torch.zeros(shape, dtype=torch.int32, device=fields[0].device)
+    _build.check_fields((out,), shape, fields[0].device, f"{what} out")
+    return out
+
+
+def plain_into(result: torch.Tensor, out: Optional[torch.Tensor]) -> torch.Tensor:
+    """A plain per-shard step's result, copied into ``out`` when given."""
+    return result if out is None else out.copy_(result)
 
 
 def launch_shard_step(name: str, fields, tops, bottoms, ids: torch.Tensor, tile_n: int,

@@ -6,9 +6,9 @@ the dense layout (full or lean) and the packed family (packed, rank,
 rank1). The reference ran one ``shard_map`` program under a single
 controller; here one process drives every shard. Its ``ppermute``
 becomes a ``copy_`` of the boundary rows into the neighbour shard's
-device, its ``psum`` a sum of the shards' count tensors on the mesh's
-first device (``pmax`` a max), its ``all_gather`` a copy of the rows a
-shard needs.
+device, its ``psum`` of the frontier's counts (``pmax``) a fold of the
+shards' rows of one buffer on the mesh's first device inside the
+compaction's launch, its ``all_gather`` a copy of the rows a shard needs.
 
 * ring/chain — one exchanged boundary row each way, chain ends zeroed;
   the per-shard frontier kernel at m = 1 over every stripe, in place,
@@ -24,7 +24,8 @@ shard needs.
   rows from their shards and merges them, bit-identical to
   ``gossip_round_generic`` including counts.
 * the frontier — per-shard frontier steps (``frontier_shard.cu``) between
-  boundary exchanges, the shards' counts summed and compacted
+  boundary exchanges, each writing its counts into its row of one buffer,
+  which one launch a step folds over the shards and compacts
   (``compact_counts.cu``) into the next step's ids array; the packed
   family also as m-round windows (``frontier_shard_window.cu``, its stats
   folded by ``compact_counts.cu``).
@@ -394,34 +395,42 @@ def _frontier_shardmap(
     """Frontier convergence over a mesh, shared by the layouts: per step the
     boundary rows are exchanged (m rows each way for an m-round step),
     every shard runs its step on the active stripes of its merged fields
-    ``parts``, in place, and the shards' results, agreed on mesh[0], fold
-    into the next ids array. ``counts_step(fields, tops, bottoms, ids,
-    tile_n, m)`` gives per-round counts, summed over the shards and
-    compacted (``compact_counts``); with ``window_step`` (same arguments)
-    a ``depth``-round step gives window stats instead, row 0 summed and
-    row 1 maxed over the shards, folded by ``compact_counts_window``. The
-    single-round tail of a fused loop runs ``counts_step``. Returns
-    (classic rounds, last_changed)."""
+    ``parts``, in place, and one launch folds the shards' results into the
+    next ids array. ``counts_step(fields, tops, bottoms, ids, tile_n, m,
+    out=)`` gives per-round counts, summed over the shards and compacted
+    (``compact_counts``); with ``window_step`` (same arguments) a
+    ``depth``-round step gives window stats instead, row 0 summed and row 1
+    maxed over the shards, folded by ``compact_counts_window``. The
+    single-round tail of a fused loop runs ``counts_step``. Each shard's
+    step writes into its row of one zeroed buffer on mesh[0], which the fold
+    zeroes again as it reads it (a shard on another device copies its row
+    in), and the folds write two ids buffers in turn, so that none
+    overwrites the ids array its own step read. Returns (classic rounds,
+    last_changed)."""
     mesh = table.mesh
     t_total = table.shape[1] // tile_n
     if depth > table.rows:
         raise ValueError(f"{depth} fused rounds need {depth} rows per shard, got {table.rows}")
+    shards = len(parts)
+    fold = torch.zeros(shards * max(depth, 2) * t_total, dtype=torch.int32, device=mesh[0])
+    ids_bufs = [torch.empty(t_total + 3, dtype=torch.int32, device=mesh[0]) for _ in range(2)]
 
     def step(m: int):
+        window = window_step is not None and m > 1
+        rows = fold[: shards * (2 if window else m) * t_total].view(shards, -1, t_total)
+        shard_step = window_step if window else counts_step
+
         def run(parts, ids):
             tops, bottoms = boundary_rows(parts, m, wrap, mesh)
-            work = zip(parts, tops, bottoms, mesh)
-            if window_step is not None and m > 1:
-                agreed = torch.zeros((2, t_total), dtype=torch.int32, device=mesh[0])
-                for f, top, bottom, dev in work:
-                    stats = window_step(f, top, bottom, ids.to(dev), tile_n, m).to(mesh[0])
-                    agreed[0] += stats[0]
-                    agreed[1] = torch.maximum(agreed[1], stats[1])
-                return parts, compact_counts_window(agreed, m)
-            total = torch.zeros((m, t_total), dtype=torch.int32, device=mesh[0])
-            for f, top, bottom, dev in work:
-                total = total + counts_step(f, top, bottom, ids.to(dev), tile_n, m).to(mesh[0])
-            return parts, compact_counts(total)
+            for row, f, top, bottom, dev in zip(rows, parts, tops, bottoms, mesh):
+                if f[0].device == row.device:
+                    shard_step(f, top, bottom, ids, tile_n, m, out=row)
+                else:
+                    row.copy_(shard_step(f, top, bottom, ids.to(dev), tile_n, m))
+            ids_bufs.reverse()  # not the buffer that the last fold wrote
+            if window:
+                return parts, compact_counts_window(rows, m, ids_bufs[0])
+            return parts, compact_counts(rows, ids_bufs[0])
         return run
 
     _, rounds, last_changed = frontier_loop(parts, dirty, t_total, max_rounds, depth, step)
@@ -442,8 +451,8 @@ def gossip_frontier_shardmap_dense(
     tile_n = tile_n or frontier_tile_n(table.shape[1])
     rounds, last_changed = _frontier_shardmap(
         table, _parts(table, lean), dirty, wrap, max_rounds, fuse, tile_n,
-        lambda f, top, bottom, ids, tile, m: frontier_shard_round(
-            f, top, bottom, ids, tile, mode, m),
+        lambda f, top, bottom, ids, tile, m, out=None: frontier_shard_round(
+            f, top, bottom, ids, tile, mode, m, out),
     )
     return table, rounds, last_changed
 

@@ -20,6 +20,9 @@ Phases, in order; any failure raises and exits nonzero:
    gather of the same entries and, for rank1, scatter_reduce_ beside it), the
    window join also at rank1 8192 x 2^18 (the TPU's halo-window shape)
    and at the main paths' depths m = 480, 513 and 1024 beside m = 120,
+   the whole table's m-round pass at m = 5, 8, 13 and 40 (sweeps, one
+   pipelined pass, a pass and sweeps, five passes) at every shape and m = 8
+   and 40 at the main shape, m = 8 timed on both clocks,
    the frontiers (dense, lean, packed family) at m = 1 and 8 on rings and
    chains of P in {1, 2, 3, 17, 64, 1000, 4096}, with stripes that settle
    inside a fused step and leave the frontier, the whole ids array
@@ -27,13 +30,17 @@ Phases, in order; any failure raises and exits nonzero:
    against the same sims on the CPU; the lean round, the lean frontier and
    the lean merge at 1024 x 2^20 and ragged shapes; the per-shard frontier
    at 256 x 2^18 per shard (reference, lww, lean; m = 1, 8; random and
-   zeroed boundary rows); the count compaction on random, all-zero and
-   all-dirty counts; small lean and sharded sims on the card against the
+   zeroed boundary rows); the count fold and compaction of 1 and 4 shards'
+   [S, m, t_total] counts, random, all-zero and all-dirty, at S = 4 timed
+   on both clocks beside the card's launch floor (an empty kernel) and the
+   host's fold it replaces (a zeroed tensor and S adds), with the launches
+   of each counted; small lean and sharded sims on the card against the
    CPU; the packed family's per-shard kernels at nf = 3, 2, 1 (the ring
    step m = 1, the fused step m = 8, the window m = 3, 15, 63; random and
    zeroed boundary rows; small, ragged, 1024 x 4096 (the window's row
    tiles) and one 256 x 2^20 shard, timed)
-   and the window fold on random, all-zero and all-at-m stats; the window
+   and the window fold of 1 and 4 shards' stats, random, all-zero and
+   all-at-m, timed at S = 4 as the count fold is; the window
    join's shard form (the spmd fast_forward's) at nf = 3, 2, 1 on shards
    of 1 to 17 rows, one past a launch's rows and one 256 x 2^20 shard at
    the spmd passes m = 256 and 224 (random, zeroed and mixed slabs); small
@@ -50,6 +57,10 @@ Phases, in order; any failure raises and exits nonzero:
    incremental converge after a second batch, converged(), a third batch
    and reconcile against a twin restored from a snapshot that reaches the
    fixed point by a blind fast_forward (the window kernel), get/get_bulk;
+   then the reference's packed bench cell (bench.py:95-200): its hash
+   table, 480 ring rounds as 60 launches of ring_multiround_packed(m = 8)
+   against 480 single rounds on a twin, bit-identical, counts equal, with
+   the windowed logical merges/s of both;
 6. rank1 main path: a rank1 ring PeerNetworkSim at P x N (default
    1024 x 2^20, 4 B/entry, 4.3 GB): put_bulk + string puts, step(1), a
    snapshot restored into two twins, run_until_converged on the
@@ -69,21 +80,25 @@ Phases, in order; any failure raises and exits nonzero:
    an unsharded twin given the same ops: run_until_converged on the
    dense-frontier-spmd route (m = 8), all 7 fields, rounds and residuals
    bit-identical; a cutoff converge (fused step + single-round tail),
-   reconcile and reads; the lww pair also step(1) and converged();
+   reconcile and reads; the lww pair also step(1) and converged(); then,
+   untimed, one more cutoff converge with its launches per mesh step
+   counted (port kernels and PyTorch operators);
 9. the packed family on a mesh: 4 shards of P x N (default 1024 x 2^20)
    on the one card, each sim against an unsharded twin given the same
    ops. Packed (12.9 GB + the twin): step(1) (the per-shard apply and ring
    round), run_until_converged on packed-frontier-spmd (windows of 63
    rounds per exchange) against packed-frontier-local, a 2^16 batch cut
    off at 70 rounds (one window and a 7-round tail), converged(),
-   reconcile and reads. Rank1 (4.3 GB): a converge on the window route, a
+   reconcile and reads, then, untimed, one more cutoff converge with its
+   launches per mesh step counted. Rank1 (4.3 GB): a converge on the window route, a
    restored copy converged by gossip_frontier_shardmap_packed with
    fuse=HALO_FUSE, and fast_forward(480) (the spmd route: the window
    join's shard form, two passes) against
    step(480) on the twin, with its windowed logical merges/s.
 
 Every kernel's launch count over the phase that drives its path (4 for
-the dense kernels, 5 and 6 for the packed-family ones, 7 for the lean
+the dense kernels, 5 and 6 for the packed-family ones, 5 for the m-round
+pass, 7 for the lean
 ones, 8 for the sharded ones, 9 for the packed family's mesh kernels)
 must be > 0. The last two lines are a JSON
 object describing the kernels and the contract line
@@ -99,8 +114,11 @@ import subprocess
 import sys
 import time
 
+from collections import Counter
+
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 KERNELS = {
     "merge": ("bullet_tpu_torch/csrc/merge.cu", "bullet_tpu/ops/merge.py:90"),
@@ -118,8 +136,11 @@ KERNELS = {
     ),
     "packed_round": (
         "bullet_tpu_torch/csrc/packed_round.cu",
-        "bullet_tpu/ops/packed.py:948; bullet_tpu/ops/packed.py:967; "
-        "bullet_tpu/ops/packed.py:1286; bullet_tpu/ops/packed.py:2990",
+        "bullet_tpu/ops/packed.py:948; bullet_tpu/ops/packed.py:1286; "
+        "bullet_tpu/ops/packed.py:2990",
+    ),
+    "packed_round fused": (
+        "bullet_tpu_torch/csrc/packed_round.cu", "bullet_tpu/ops/packed.py:967",
     ),
     "reconcile_packed": (
         "bullet_tpu_torch/csrc/reconcile_packed.cu", "bullet_tpu/ops/packed.py:1333",
@@ -166,9 +187,11 @@ KERNELS = {
     ),
 }
 DENSE_KERNELS = ("merge", "ring_round", "frontier_round_dense")
-# the packed-family kernels: phase 5 drives them at nf = 3, phase 6 at nf = 1
+# the packed-family kernels: phase 5 drives them at nf = 3, phase 6 at nf = 1;
+# phase 5's fused rounds window also the m-round pass
 PACKED_KERNELS = ("apply_packed", "packed_round", "reconcile_packed", "frontier_round_packed",
                   "window_packed")
+FUSED_ROUNDS = "packed_round fused"
 # phase 7 drives the lean round, the dense frontier at nf = 4 and the lean
 # merge; phase 8 the per-shard frontier and the count compaction, each
 # single-round (the cutoff's tail) and fused
@@ -741,50 +764,73 @@ def probe_bound(nf: int, entries: int):
     return bound(4 * key_fields(nf) * entries, 2 * (nf + 1) * entries)
 
 
+# the depths the m-round pass is held at: five sweeps, one pipelined pass,
+# a pass and five sweeps, five passes (the reference's stripe_fuse depths
+# are 8, 5 and 40)
+FUSED_DEPTHS = (5, 8, 13, 40)
+# and the rings it is held at besides PACKED_SHAPES': shorter than the
+# pass's 16 extension rows and just past them, on a ragged stripe
+FUSED_PS, FUSED_N = (2, 9, 16, 17), 300
+
+
 def check_packed_round(dev, main_shape, errs, times, nf):
     from bullet_tpu_torch.ops import packed as pk
 
     for p, n in PACKED_SHAPES:
         base = random_family(nf, 400 + p, p, n, dev)
         for wrap in (True, False):
-            for m in (1, 8):
+            for m in (1, *FUSED_DEPTHS):
                 got, c_got = pk.ring_multiround_packed(clone(base), wrap, m)
                 want, c_want = pk.packed_round_torch(clone(base), wrap, m)
-                _pair("packed_round", errs, (*got, c_got), (*want, c_want),
-                      f"nf={nf} {p}x{n} wrap={wrap} m={m}")
+                _pair("packed_round" if m == 1 else FUSED_ROUNDS, errs, (*got, c_got),
+                      (*want, c_want), f"nf={nf} {p}x{n} wrap={wrap} m={m}")
             c_got = pk.count_changes_round_packed(base, wrap)
             _, c_want = pk.packed_round_torch(clone(base), wrap, 1, count_only=True)
             _pair("packed_round", errs, c_got, c_want, f"nf={nf} {p}x{n} wrap={wrap} count-only")
         del base
+    for p in FUSED_PS:
+        base = random_family(nf, 450 + p, p, FUSED_N, dev)
+        for wrap, m in itertools.product((True, False), FUSED_DEPTHS):
+            got, c_got = pk.ring_multiround_packed(clone(base), wrap, m)
+            want, c_want = pk.packed_round_torch(clone(base), wrap, m)
+            _pair(FUSED_ROUNDS, errs, (*got, c_got), (*want, c_want),
+                  f"nf={nf} {p}x{FUSED_N} wrap={wrap} m={m}")
     # the main shape: the kernel on one table, the plain version on an
     # identical twin; each call leaves the two equal again for the next
+    # (m = 40: five passes, their counts summed in one int32)
     p, n = main_shape
     table, twin = random_family(nf, 7, p, n, dev), random_family(nf, 7, p, n, dev)
     plain = {}
     for what, wrap, m, count_only in (("chain", False, 1, False), ("ring", True, 1, False),
-                                      ("count-only", True, 1, True), ("m=8", True, 8, False)):
+                                      ("count-only", True, 1, True), ("m=8", True, 8, False),
+                                      ("m=40", True, 40, False)):
         if count_only:
             got = (pk.count_changes_round_packed(table, wrap),)
         else:
             got = (*table, pk.ring_multiround_packed(table, wrap, m)[1])
         (_, c_want), plain[what] = timed_once(
             lambda: pk.packed_round_torch(twin, wrap, m, count_only))
-        _pair("packed_round", errs, got, (c_want,) if count_only else (*twin, c_want),
-              f"nf={nf} {p}x{n} {what}")
+        _pair("packed_round" if m == 1 else FUSED_ROUNDS, errs, got,
+              (c_want,) if count_only else (*twin, c_want), f"nf={nf} {p}x{n} {what}")
     del twin
     ms = time_ms(lambda: pk.ring_round_packed(table, True), 5)
     probe = time_ms(lambda: pk.count_changes_round_packed(table, True), 5)
     fused = time_ms(lambda: pk.ring_multiround_packed(table, True, 8), 2)
+    _, fused_dev = device_once(lambda: pk.ring_multiround_packed(table, True, 8))
     del table
     times[tag("packed_round", nf)] = (ms, plain["ring"], round_bound(nf, p * n))
     times[tag("packed_round count-only", nf)] = (probe, plain["count-only"], probe_bound(nf, p * n))
-    # one read and one write of the table whatever m: a fused kernel that
-    # kept a column's rows on chip between rounds would need no more
-    times[tag("packed_round m=8", nf)] = (fused, plain["m=8"], round_bound(nf, p * n, rounds=8))
+    # one read and one write of the table whatever m: the pipelined pass
+    # keeps a column's rows on chip between its 8 rounds
+    times[tag(FUSED_ROUNDS, nf)] = (fused, plain["m=8"], round_bound(nf, p * n, rounds=8), None,
+                                    {"device_ms": fused_dev})
     log(f"  packed_round [{LAYOUT_OF[nf]}] {p}x{n}: kernel {ms:.3f} ms, plain "
         f"{plain['ring']:.3f} ms per round; count-only {probe:.3f} ms (plain "
-        f"{plain['count-only']:.3f}); m=8 {fused:.3f} ms (plain {plain['m=8']:.3f}) per call; "
-        "ring, chain, count-only and m=8 bit-identical")
+        f"{plain['count-only']:.3f}); m=8 (one pipelined pass) {fused:.3f} ms, device alone "
+        f"{fused_dev:.3f} ms (plain {plain['m=8']:.3f}, bound "
+        f"{times[tag(FUSED_ROUNDS, nf)][2][0]:.3f}) per call; ring, chain, count-only, m=8 and "
+        f"m=40 bit-identical, and m = 1, {', '.join(map(str, FUSED_DEPTHS))} at "
+        f"{len(PACKED_SHAPES)} shapes and P = {FUSED_PS} x {FUSED_N}")
 
 
 def check_reconcile_packed(dev, main_shape, errs, times, nf):
@@ -881,7 +927,7 @@ def check_frontier_packed(dev, main_shape, errs, times, nf):
     one = _ids(np.ones(t_total, bool), 1, dev)
     ms1 = time_ms(lambda: pk.frontier_round_packed(table, one, tile, True, 1), 3)
     del table
-    # one read and one write of the table whatever m (see packed_round m=8)
+    # one read and one write of the table whatever m (see packed_round fused)
     times[tag("frontier_round_packed", nf)] = (ms, plain, round_bound(nf, p * n, rounds=8))
     times[tag("frontier_round_packed m=1", nf)] = (ms1, plain_m1, round_bound(nf, p * n))
     log(f"  frontier_round_packed [{LAYOUT_OF[nf]}] {p}x{n} tile {tile}, m=8, all {t_total} "
@@ -1181,7 +1227,7 @@ def check_frontier_lean(dev, lean_shape, errs, times):
     del twin
     ms = time_ms(lambda: frontier_round_dense(table, full, tile, True, "reference", 8, True), 3)
     del table
-    # one read and one write of the four keys whatever m (see packed_round m=8)
+    # one read and one write of the four keys whatever m (see packed_round fused)
     times["frontier_round_dense lean"] = (ms, plain, round_bound(4, p * n, rounds=8))
     log(f"  frontier_round_dense [lean] {p}x{n} tile {tile}, m=8, all {t_total} stripes: "
         f"kernel {ms:.3f} ms, plain {plain:.3f} ms per call; m=1 and 8 bit-identical")
@@ -1304,42 +1350,115 @@ def check_frontier_shard(dev, shard_shape, errs, times):
     del base
 
 
-def check_compact_counts(dev, t_main: int, errs, times):
-    """The count compaction against its plain version on random, all-zero
-    and all-dirty counts (negative counts included: sums wrap like int32),
-    t_total in {1, 7, 8192} and the main path's, m = 1 and 8; cells past
-    the count are unspecified."""
+# PyTorch operators that launch a kernel of their own (views and empty
+# allocations launch none)
+LAUNCHING_OPS = ("zeros", "zero_", "fill_", "add", "add_", "maximum", "copy_", "_to_copy",
+                 "index_put_", "cat", "nonzero")
+
+
+class OpCount(TorchDispatchMode):
+    """Counts of the PyTorch operators run inside ``with OpCount() as ops:``,
+    by name; the port's own kernels are counted apart, by
+    ``_build.LAUNCHES``."""
+
+    def __init__(self):
+        super().__init__()
+        self.counts = Counter()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.counts[func.overloadpacket.__name__] += 1
+        return func(*args, **(kwargs or {}))
+
+    def launching(self) -> dict:
+        return {k: v for k, v in sorted(self.counts.items()) if k in LAUNCHING_OPS}
+
+
+def fold_yardsticks(fold, rows, combine):
+    """Times of one fold of the shards' ``rows`` into an ids array: its
+    device time alone (``device_once``); and, host-inclusive like every
+    row's ms (20 back-to-back calls), the host's fold that it replaces,
+    ``combine`` (one zeroed tensor, S adds, the window S maximums too, on
+    the operators PyTorch launches) then the compaction of the one
+    combined row; with the launches each makes (port kernels and PyTorch
+    operators, counted)."""
+    from bullet_tpu_torch import _build
+
+    def launches(fn):
+        before = sum(_build.LAUNCHES.values())
+        with OpCount() as ops:
+            fn()
+        return sum(_build.LAUNCHES.values()) - before, ops.launching()
+
+    fresh, counted = rows.clone(), rows.clone()
+    _, device_ms = device_once(lambda: fold(fresh))
+    host = lambda: fold(combine(rows)[None])  # noqa: E731
+    host_ms = time_ms(host, 20)
+    return device_ms, host_ms, {"one launch": launches(lambda: fold(counted)),
+                                "host fold": launches(host)}
+
+
+def check_compact_counts(dev, t_main: int, errs, times, floor: float):
+    """The count fold and compaction against its plain version on the
+    [S, m, t_total] counts of S = 1 and SHARDS shards, random, all-zero and
+    all-dirty (negative counts included: sums wrap like int32), t_total in
+    {1, 7, 8192} and the main path's, m = 1 and 8; cells past the count are
+    unspecified, and both leave the counts zeroed. At S = SHARDS and the
+    main path's t_total: its time on both clocks beside the launch floor
+    and the host's fold it replaces."""
     from bullet_tpu_torch.ops.packed import compact_counts, compact_counts_torch
 
     rng = np.random.default_rng(19)
 
     def pair(counts, what):
-        m, t_total = counts.shape
-        got = compact_counts(counts)
-        want, ms = timed_once(lambda: compact_counts_torch(counts))
+        _, m, t_total = counts.shape
+        rows, twin = counts.clone(), counts.clone()
+        got = compact_counts(rows)
+        want, ms = timed_once(lambda: compact_counts_torch(twin))
         count = int(want[t_total])
         name = "compact_counts" if m == 1 else "compact_counts fused"
-        _pair(name, errs, (got[:count], got[t_total:]), (want[:count], want[t_total:]), what)
+        _pair(name, errs, (got[:count], got[t_total:], rows), (want[:count], want[t_total:], twin),
+              what)
+        if bool(rows.any()):
+            raise AssertionError(f"{name} {what}: the fold left counts unzeroed")
         return ms
 
     plain = {}
     for t_total in (1, 7, 8192, t_main):
         for m in (1, 8):
-            for what, counts in (
-                ("random", rng.integers(-2, 4, (m, t_total)) * (rng.random((m, t_total)) < 0.3)),
-                ("zero", np.zeros((m, t_total))),
-                ("dirty", rng.integers(1, 1 << 20, (m, t_total))),
-            ):
-                c = torch.from_numpy(counts.astype(np.int32)).to(dev)
-                ms = pair(c, f"t_total={t_total} m={m} {what}")
-                if t_total == t_main and what == "random":
-                    plain[m] = ms
+            for shards in (1, SHARDS):
+                size = (shards, m, t_total)
+                for what, counts in (
+                    ("random", rng.integers(-2, 4, size) * (rng.random(size) < 0.3)),
+                    ("zero", np.zeros(size)),
+                    ("dirty", rng.integers(1, 1 << 30, size)),
+                ):
+                    c = torch.from_numpy(counts.astype(np.int32)).to(dev)
+                    ms = pair(c, f"t_total={t_total} m={m} S={shards} {what}")
+                    if t_total == t_main and shards == SHARDS and what == "random":
+                        plain[m] = ms
+    out = torch.empty(t_main + 3, dtype=torch.int32, device=dev)
+
+    def summed(rows):
+        total = torch.zeros(rows.shape[1:], dtype=torch.int32, device=dev)
+        for row in rows:
+            total = total + row
+        return total
+
     for m, name in ((1, "compact_counts"), (8, "compact_counts fused")):
-        c = torch.from_numpy(rng.integers(0, 3, (m, t_main)).astype(np.int32)).to(dev)
-        ms = time_ms(lambda: compact_counts(c), 20)
-        times[name] = (ms, plain[m], bound(4 * m * t_main + 4 * (t_main + 3), 3 * m * t_main))
-        log(f"  {name} t_total={t_main}, m={m}: kernel {ms:.4f} ms, plain {plain[m]:.4f} ms "
-            "per call; bit-identical")
+        rows = torch.from_numpy(rng.integers(0, 3, (SHARDS, m, t_main)).astype(np.int32)).to(dev)
+        fold = lambda c: compact_counts(c, out)  # noqa: E731
+        device_ms, host_ms, counted = fold_yardsticks(fold, rows, summed)
+        ms = time_ms(lambda: fold(rows), 20)
+        times[name] = (ms, plain[m], bound(8 * SHARDS * m * t_main + 4 * (t_main + 3),
+                                           (SHARDS + 1) * m * t_main), None,
+                       {"device_ms": device_ms, "launch_floor_ms": floor,
+                        "host_fold_ms": host_ms})
+        log(f"  {name} S={SHARDS}, t_total={t_main}, m={m}: kernel {ms:.4f} ms (host-inclusive), "
+            f"{device_ms:.4f} ms (device alone; the launch floor {floor:.4f} ms), plain "
+            f"{plain[m]:.4f} ms per call; the host's fold it replaces {host_ms:.4f} ms; "
+            f"launches per fold (port kernels, PyTorch operators): one launch "
+            f"{counted['one launch']}, host fold {counted['host fold']}; bit-identical, "
+            "counts zeroed")
 
 
 def check_small_lean_and_sharded_sims(dev):
@@ -1496,37 +1615,63 @@ def check_frontier_shard_packed(dev, shard_shape, errs, times, nf):
     del base, tops, bottoms
 
 
-def check_compact_counts_window(dev, t_main: int, errs, times):
-    """The window fold against its plain version on random stats, all-zero
-    ones and all-at-m ones (row 0 sums wrap like int32), t_total in {1, 7,
-    8192} and the main path's, m = 15 and 63; cells past the count are
-    unspecified."""
+def check_compact_counts_window(dev, t_main: int, errs, times, floor: float):
+    """The window fold against its plain version on the [S, 2, t_total]
+    stats of S = 1 and SHARDS shards, random, all-zero and all-at-m (row 0
+    sums wrap like int32), t_total in {1, 7, 8192} and the main path's,
+    m = 15 and 63; cells past the count are unspecified, and both leave
+    the stats zeroed. At S = SHARDS and the main path's t_total: its time
+    on both clocks beside the launch floor and the host's fold it
+    replaces."""
     from bullet_tpu_torch.ops.packed import compact_counts_window, compact_counts_window_torch
 
     rng = np.random.default_rng(29)
     plain = None
     for t_total in (1, 7, 8192, t_main):
         for m in (15, 63):
-            for what, rows in (
-                ("random", (rng.integers(-5, 1 << 20, t_total), rng.integers(0, m + 1, t_total))),
-                ("zero", (np.zeros(t_total), np.zeros(t_total))),
-                ("at m", (rng.integers(1, 1 << 30, t_total), np.full(t_total, m))),
-            ):
-                stats = torch.from_numpy(np.stack(rows).astype(np.int32)).to(dev)
-                got = compact_counts_window(stats, m)
-                want, ms = timed_once(lambda: compact_counts_window_torch(stats, m))
-                k = int(want[t_total])
-                _pair("compact_counts window", errs, (got[:k], got[t_total:]),
-                      (want[:k], want[t_total:]), f"t_total={t_total} m={m} {what}")
-                if t_total == t_main and m == 63 and what == "random":
-                    plain = ms
-    stats = torch.from_numpy(np.stack((rng.integers(0, 9, t_main), rng.integers(0, 64, t_main)))
+            for shards in (1, SHARDS):
+                size = (shards, t_total)
+                for what, rows in (
+                    ("random", (rng.integers(-5, 1 << 20, size), rng.integers(0, m + 1, size))),
+                    ("zero", (np.zeros(size), np.zeros(size))),
+                    ("at m", (rng.integers(1, 1 << 30, size), np.full(size, m))),
+                ):
+                    stats = torch.from_numpy(np.stack(rows, 1).astype(np.int32)).to(dev)
+                    mine, twin = stats.clone(), stats.clone()
+                    got = compact_counts_window(mine, m)
+                    want, ms = timed_once(lambda: compact_counts_window_torch(twin, m))
+                    k = int(want[t_total])
+                    what = f"t_total={t_total} m={m} S={shards} {what}"
+                    _pair("compact_counts window", errs, (got[:k], got[t_total:], mine),
+                          (want[:k], want[t_total:], twin), what)
+                    if bool(mine.any()):
+                        raise AssertionError(f"compact_counts window {what}: stats unzeroed")
+                    if (t_total == t_main and m == 63 and shards == SHARDS
+                            and what.endswith("random")):
+                        plain = ms
+    stats = torch.from_numpy(np.stack((rng.integers(0, 9, (SHARDS, t_main)),
+                                       rng.integers(0, 64, (SHARDS, t_main))), 1)
                              .astype(np.int32)).to(dev)
-    ms = time_ms(lambda: compact_counts_window(stats, 63), 20)
-    row = (ms, plain, bound(8 * t_main + 4 * (t_main + 3), 3 * t_main))
+    out = torch.empty(t_main + 3, dtype=torch.int32, device=dev)
+
+    def agreed(rows):
+        total = torch.zeros(rows.shape[1:], dtype=torch.int32, device=dev)
+        for row in rows:
+            total[0] += row[0]
+            total[1] = torch.maximum(total[1], row[1])
+        return total
+
+    fold = lambda c: compact_counts_window(c, 63, out)  # noqa: E731
+    device_ms, host_ms, counted = fold_yardsticks(fold, stats, agreed)
+    ms = time_ms(lambda: fold(stats), 20)
+    row = (ms, plain, bound(16 * SHARDS * t_main + 4 * (t_main + 3), (SHARDS + 1) * 2 * t_main),
+           None, {"device_ms": device_ms, "launch_floor_ms": floor, "host_fold_ms": host_ms})
     times["compact_counts window"] = times[tag("compact_counts window", 1)] = row
-    log(f"  compact_counts window t_total={t_main}, m=63: kernel {ms:.4f} ms, plain "
-        f"{plain:.4f} ms per call, bound {row[2][0]:.2g} ms (launch-bound); bit-identical")
+    log(f"  compact_counts window S={SHARDS}, t_total={t_main}, m=63: kernel {ms:.4f} ms "
+        f"(host-inclusive), {device_ms:.4f} ms (device alone; the launch floor {floor:.4f} ms), "
+        f"plain {plain:.4f} ms per call; the host's fold it replaces {host_ms:.4f} ms; launches "
+        f"per fold (port kernels, PyTorch operators): one launch {counted['one launch']}, host "
+        f"fold {counted['host fold']}; bound {row[2][0]:.2g} ms; bit-identical, stats zeroed")
 
 
 def check_small_packed_mesh_sims(dev):
@@ -1862,12 +2007,78 @@ def packed_main_path(args, dev, window=wall_window):
         f"fast_forward({jump}) [{route}] to residual 0 in "
         f"{secs['packed twin fast_forward']:.3f} s; tables identical; "
         f"{n_written} leaves == numpy per-leaf max")
-    launches = {k: _build.LAUNCHES[k] for k in PACKED_KERNELS}
+    del sim
+    torch.cuda.empty_cache()
+    fused_rounds(p, n, dev, window, secs)
+    launches = {k: _build.LAUNCHES[k] for k in (*PACKED_KERNELS, FUSED_ROUNDS)}
     log(f"  launches on the packed main path: {dict(_build.LAUNCHES)}")
     missing = [k for k, v in launches.items() if v <= 0]
     if missing:
         raise AssertionError(f"packed main path never launched: {missing}")
     return launches
+
+
+def bench_packed_table(p: int, n: int, dev):
+    """The reference's packed bench table (bench.py:100-125, its
+    ``build_packed``): entry (row, col) from the hash h = (row * 1103515245
+    + col * 40503) & 0x7FFFFFFF, each field a salted remix of h mod a
+    range (cls in [0, 4), khi and klo in [-1000, 1000), vid below 2^20),
+    int32 products wrapping as in JAX; built on the card 32 rows at a
+    time."""
+    from bullet_tpu_torch.ops.packed import PackedTable
+
+    fields = [torch.empty((p, n), dtype=torch.int32, device=dev) for _ in range(3)]
+    col = torch.arange(n, dtype=torch.int64, device=dev)
+    for r0 in range(0, p, 32):
+        row = torch.arange(r0, min(p, r0 + 32), dtype=torch.int64, device=dev)[:, None]
+        h = (row * 1103515245 + col * 40503) & 0x7FFFFFFF
+
+        def mix(salt, mod):
+            return ((h ^ salt) * 1664525 & 0x7FFFFFFF) % mod
+
+        cls = mix(1, 4)
+        for f, v in zip(fields, (mix(2, 2000) - 1000, mix(3, 2000) - 1000,
+                                 (cls << 28) | mix(4, 1 << 20))):
+            f[r0:r0 + row.shape[0]] = v.to(torch.int32)
+    return PackedTable(*fields)
+
+
+# the reference's packed bench cell (bench.py:136-170): 480 rounds, under
+# the 1024-ring's diameter of 512, as launches of stripe_fuse(3) = 8
+BENCH_ROUNDS, BENCH_FUSE = 480, 8
+
+
+def fused_rounds(p: int, n: int, dev, window, secs: dict):
+    """Phase 5's last window, the reference's packed bench cell
+    (bench.py:95-200): BENCH_ROUNDS ring rounds on a fresh bench table as
+    launches of ``ring_multiround_packed(m = 8)`` (#11, one pipelined pass
+    each), against as many ``ring_round_packed`` on an identical twin;
+    tables bit-identical, each launch's count equal to the sum of its 8
+    single rounds' (wrapped like int32); logs the windowed logical
+    merges/s, 2 P N rounds / s, of both."""
+    from bullet_tpu_torch.ops.packed import _wrap_int32, ring_multiround_packed, ring_round_packed
+
+    rounds = min(BENCH_ROUNDS, (p // 2) // BENCH_FUSE * BENCH_FUSE)
+    table, twin = bench_packed_table(p, n, dev), bench_packed_table(p, n, dev)
+    with window("packed fused rounds", secs):
+        fused = [ring_multiround_packed(table, True, BENCH_FUSE)[1]
+                 for _ in range(rounds // BENCH_FUSE)]
+    with window("packed single rounds", secs):
+        single = [ring_round_packed(twin, True)[1] for _ in range(rounds)]
+    fused, single = torch.stack(fused).tolist(), torch.stack(single).tolist()
+    per_launch = [_wrap_int32(sum(single[i:i + BENCH_FUSE]))
+                  for i in range(0, rounds, BENCH_FUSE)]
+    if fused != per_launch or not all(torch.equal(a, b) for a, b in zip(table, twin)):
+        raise AssertionError("packed fused rounds differ from single rounds")
+    del table, twin
+    torch.cuda.empty_cache()
+    t_fused, t_single = secs["packed fused rounds"], secs["packed single rounds"]
+    log(f"  fused rounds (bench.py's packed cell: {rounds} ring rounds on its hash table, "
+        f"{p}x{n}): {rounds // BENCH_FUSE} launches of m={BENCH_FUSE} in {t_fused:.4f} s, "
+        f"{2 * p * n * rounds / t_fused:.6g} logical merges/s (2 x {p} x {n} x {rounds} / s); "
+        f"{rounds} single rounds on a twin in {t_single:.4f} s, "
+        f"{2 * p * n * rounds / t_single:.6g} merges/s; tables and every launch's count "
+        "identical")
 
 
 # ------------------------------------------------------------------ phase 6
@@ -2098,6 +2309,44 @@ def sharded_equal(sharded, table) -> bool:
     )
 
 
+# the folds that end a mesh step: one launch each
+FOLD_KERNELS = ("compact_counts", "compact_counts fused", "compact_counts window")
+
+
+def launches_per_step(sim, twin, put, max_rounds: int, what: str) -> None:
+    """Launches per mesh step of a sharded sim, counted outside every timed
+    window: ``put(s)`` writes the same batch into the sim and its twin,
+    step(0) applies it, and the sim's cutoff converge runs with its
+    PyTorch operators counted, held equal to the twin's. Logs the port's
+    kernel launches and the launching PyTorch operators (the boundary
+    copies among them) a step, beside what the host's fold added before
+    this change (counted by tools/time_rounds.py): a step's S + 1 zero
+    fills and S adds, a window step's S + 1 zero fills, S adds, S maximums
+    and 2 S copies."""
+    from bullet_tpu_torch import _build
+
+    for s in (sim, twin):
+        put(s)
+        s.step(0)
+    before = dict(_build.LAUNCHES)
+    with OpCount() as ops:
+        got = (sim.run_until_converged(max_rounds=max_rounds), sim.last_residual)
+    kernels = {k: v - before[k] for k, v in _build.LAUNCHES.items() if v != before[k]}
+    want = (twin.run_until_converged(max_rounds=max_rounds), twin.last_residual)
+    if got != want or not sharded_equal(sim.table, twin.table):
+        raise AssertionError(f"{what}: counted converge {got} against the twin's {want}")
+    steps = max(1, sum(kernels.get(k, 0) for k in FOLD_KERNELS))
+    torch_ops = ops.launching()
+    shards = len(sim.table.shards)
+    log(f"  {what}: launches per mesh step over {steps} steps of a cutoff converge: port "
+        f"kernels {kernels} ({sum(kernels.values()) / steps:.2f} a step: the shards' steps and "
+        f"one fold); launching PyTorch operators {torch_ops} "
+        f"({sum(torch_ops.values()) / steps:.2f} a step, most of them the boundary copies); "
+        f"before this change the fold added {2 * shards + 1} operators a step "
+        f"({shards + 1} zero fills, {shards} adds) and {5 * shards + 1} a window step (also "
+        f"{shards} maximums and {2 * shards} copies)")
+
+
 def sharded_main_path(args, dev, window=wall_window):
     """Phase 8: ``SHARDS`` shards on the one card, P x N (default
     1024 x 2^18), lww (full metadata) and lean, against unsharded twins.
@@ -2176,6 +2425,10 @@ def sharded_main_path(args, dev, window=wall_window):
         if (sim.get_bulk(peers, sample) != twin.get_bulk(peers, sample)
                 or sim.get(3, "s") != twin.get(3, "s") or sim.get(0, "s/name") != "carol"):
             raise AssertionError(f"sharded {tag} reads differ from the twin")
+        extra = np.random.default_rng(args.seed + 40)
+        leaf3, val3 = extra.integers(0, n_leaf, more), extra.integers(-700, 700, more)
+        launches_per_step(sim, twin, lambda s: s.put_bulk(peer2, slot_of_leaf[s][leaf3], val3), 12,
+                          f"{tag} sharded")
         for k in SHARD_KERNELS:
             launches[k] += _build.LAUNCHES[k]
         if lean:
@@ -2302,6 +2555,13 @@ def sharded_packed_path(args, dev, window=wall_window, card=""):
         f"{secs['twin packed cutoff converge']:.3f} s); converged() {done} in {secs['mesh packed converged()']:.3f} s; reconcile "
         f"{secs['mesh packed reconcile']:.3f} s (twin {secs['twin packed reconcile']:.3f} s); "
         "tables and reads == the twin")
+    # drawn apart, so that the rank1 data below is the same with or without
+    # this count
+    extra = np.random.default_rng(args.seed + 50)
+    leaves3 = extra.integers(0, min(n_leaf, 1 << 16), more)
+    vals3 = extra.integers(-700, 700, more)
+    launches_per_step(sim, twin, lambda s: s.put_bulk(peers2, slots[s][leaves3], vals3), 70,
+                      "mesh packed")
     packed_launches = dict(_build.LAUNCHES)
     log(f"  launches (packed): {packed_launches}")
     del sim, twin
@@ -2433,7 +2693,10 @@ def main() -> int:
                          (check_frontier_shard, (args.peers // SHARDS, args.capacity))):
         check(dev, shape, errs, times)
         torch.cuda.empty_cache()
-    check_compact_counts(dev, args.capacity // frontier_tile_n(args.capacity), errs, times)
+    # the card's launch floor: an empty kernel (a spin of zero cycles), timed
+    # as device_once times a call
+    floor = device_once(lambda: torch.cuda._sleep(0))[1]
+    check_compact_counts(dev, args.capacity // frontier_tile_n(args.capacity), errs, times, floor)
     check_small_lean_and_sharded_sims(dev)
     torch.cuda.empty_cache()
     # the packed family's per-shard kernels at every field count, on one
@@ -2443,7 +2706,7 @@ def main() -> int:
                                     times, nf)
         torch.cuda.empty_cache()
     check_compact_counts_window(dev, args.packed_capacity // frontier_tile_n(args.packed_capacity),
-                                errs, times)
+                                errs, times, floor)
     for nf in (3, 2, 1):
         check_window_shard(dev, (args.peers // SHARDS, args.packed_capacity), errs, times, nf)
         torch.cuda.empty_cache()
@@ -2480,7 +2743,8 @@ def main() -> int:
     # rank (nf = 2) times, the packed frontier's m = 1 times, the window's
     # at m = 480 and the mesh's fused frontier and window at nf = 3 are in
     # the log above
-    rows = [(name, name, launches[name]) for name in (*DENSE_KERNELS, *PACKED_KERNELS)]
+    rows = [(name, name, launches[name])
+            for name in (*DENSE_KERNELS, *PACKED_KERNELS, FUSED_ROUNDS)]
     rows += [(tag(name, 1), name, rank1_launches[name]) for name in PACKED_KERNELS]
     rows += [("ring_round_lean", "ring_round_lean", lean_launches["ring_round_lean"]),
              ("frontier_round_dense lean", "frontier_round_dense",

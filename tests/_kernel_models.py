@@ -5,7 +5,11 @@ reference (the kernels themselves run only on the card):
 - ``frontier_pipe_model``: ``frontier_pipe_kernel`` of
   ``bullet_tpu_torch/csrc/frontier.cuh``, the pipelined m-round pass of
   the compacting frontier step (#19, #16 and #8 at m = 8), with the
-  order-preserving key encodings it holds values in (``PipeKey``);
+  order-preserving key encodings it holds values in (``PipeKey``), on
+  ``pipe_pass_model``, the pass over whole columns;
+- ``multiround_model``: ``packed_round.cu`` at m rounds (#11): m // 8 of
+  the same passes over every stripe with a total count, then m % 8 single
+  sweeps;
 - ``shard_pipe_model``: ``shard_pipe_kernel`` of
   ``bullet_tpu_torch/csrc/frontier_shard.cu``, the same stages over one
   shard's extended column (#7 and #23 at m = 8);
@@ -103,32 +107,24 @@ class PipeKey:
         return borrow.bool()
 
 
-def frontier_pipe_model(fields, ids, tile, wrap, key, depth):
-    """One compacting frontier step of ``depth`` rounds as the pipelined
-    pass runs it, in place on ``fields``: per column, step e of the
-    extended sequence (p + 2 depth rows, real row (e - depth) mod p) reads
-    input e in ``key``'s encoding (a ring's rows 0..depth - 1 from the
-    encoded copy saved when first read, since the pass has overwritten
-    them; a chain's encoded zero rows outside the central copy), stage k
-    emits round k at row e - k from its two kept rows and stage k - 1's
-    output, compared by ``key.gt``, only the central copy counts (a chain's
-    rows outside it forced to zero), and stage depth's output is decoded
-    and stored at real row e - 2 depth. Returns the next ids array (the
-    compaction of frontier.cuh: last == depth kept in ascending order, the
-    count, the changed total wrapping like int32, the max last round). The
-    kernel's rotation of each stage's history through three register slots
-    moves the same values, and its steps in [2 depth, p + depth] skip the
-    row tests, which hold there; the model keeps both plain."""
-    p, n = fields[0].shape
-    t_total = n // tile
-    count = int(ids[t_total])
-    out = torch.zeros(t_total + (3 if depth > 1 else 2), dtype=torch.int32)
-    if count == 0:
-        return out
-    stripes = ids[:count].to(torch.int64)
-    cols = (stripes[:, None] * tile + torch.arange(tile)).reshape(-1)
-    table = [f[:, cols].clone() for f in fields]
-    zero = key.encode([torch.zeros(cols.numel(), dtype=torch.int32) for _ in fields])
+def pipe_pass_model(table, wrap, key, depth):
+    """One pipelined pass of ``depth`` rounds over whole columns, as
+    ``frontier_pipe_kernel`` of frontier.cuh runs it, in place on
+    ``table`` ([p, cols] tensors): per column, step e of the extended
+    sequence (p + 2 depth rows, real row (e - depth) mod p) reads input e
+    in ``key``'s encoding (a ring's rows 0..depth - 1 from the encoded copy
+    saved when first read, since the pass has overwritten them; a chain's
+    encoded zero rows outside the central copy), stage k emits round k at
+    row e - k from its two kept rows and stage k - 1's output, compared by
+    ``key.gt``, only the central copy counts (a chain's rows outside it
+    forced to zero), and stage depth's output is decoded and stored at real
+    row e - 2 depth. Returns (each column's changed count, int64; each
+    column's bit mask of the rounds that changed it). The kernel's rotation
+    of each stage's history through three register slots moves the same
+    values, and its steps in [2 depth, p + depth] skip the row tests, which
+    hold there; the model keeps both plain."""
+    p, cols = table[0].shape
+    zero = key.encode([torch.zeros(cols, dtype=torch.int32) for _ in table])
     saved = {}
 
     def read(e):
@@ -144,8 +140,8 @@ def frontier_pipe_model(fields, ids, tile, wrap, key, depth):
 
     up = [zero] * depth
     cur = [zero] * depth
-    total = torch.zeros(cols.numel(), dtype=torch.int64)
-    rounds = torch.zeros(cols.numel(), dtype=torch.int64)
+    total = torch.zeros(cols, dtype=torch.int64)
+    rounds = torch.zeros(cols, dtype=torch.int64)
     length = p + 2 * depth
     nxt = read(0)
     for e in range(length):
@@ -169,6 +165,25 @@ def frontier_pipe_model(fields, ids, tile, wrap, key, depth):
         if e >= 2 * depth:
             for t, x in zip(table, key.decode(inp)):
                 t[e - 2 * depth] = x
+    return total, rounds
+
+
+def frontier_pipe_model(fields, ids, tile, wrap, key, depth):
+    """One compacting frontier step of ``depth`` rounds as the pipelined
+    pass runs it (``pipe_pass_model`` on the columns of the stripes in
+    ``ids``), in place on ``fields``. Returns the next ids array (the
+    compaction of frontier.cuh: last == depth kept in ascending order, the
+    count, the changed total wrapping like int32, the max last round)."""
+    p, n = fields[0].shape
+    t_total = n // tile
+    count = int(ids[t_total])
+    out = torch.zeros(t_total + (3 if depth > 1 else 2), dtype=torch.int32)
+    if count == 0:
+        return out
+    stripes = ids[:count].to(torch.int64)
+    cols = (stripes[:, None] * tile + torch.arange(tile)).reshape(-1)
+    table = [f[:, cols].clone() for f in fields]
+    total, rounds = pipe_pass_model(table, wrap, key, depth)
     for f, t in zip(fields, table):
         f[:, cols] = t
     changed = total.reshape(count, tile).sum(1)
@@ -183,6 +198,35 @@ def frontier_pipe_model(fields, ids, tile, wrap, key, depth):
     if depth > 1:
         out[t_total + 2] = int(last.max())
     return out
+
+
+# frontier.cuh's kPipeDepth and kMaxTile
+PIPE_DEPTH = 8
+MAX_TILE = 256
+
+
+def multiround_model(fields, wrap, m, key, count=0):
+    """``ring_multiround_packed`` as packed_round.cu schedules m rounds on
+    the card, in place on ``fields`` ([p, n]): m // 8 pipelined passes
+    (``frontier_pipe_kernel`` with its total count, one block a stripe of
+    256 columns, the ragged last one's columns past n taking no part), then
+    m % 8 single sweeps (bt::sweep_column, the plain round). Every block's
+    sum lands in the count with an unsigned atomicAdd; ``count`` is its
+    value before the call (the wrapper zeroes it). Returns the count as
+    int32, wrapped mod 2^32."""
+    n = fields[0].shape[1]
+    count &= MASK32
+    for _ in range(m // PIPE_DEPTH):
+        for c0 in range(0, n, MAX_TILE):
+            table = [f[:, c0:c0 + MAX_TILE].clone() for f in fields]
+            total, _ = pipe_pass_model(table, wrap, key, PIPE_DEPTH)
+            for f, t in zip(fields, table):
+                f[:, c0:c0 + MAX_TILE] = t
+            count = (count + int(total.sum())) & MASK32
+    if m % PIPE_DEPTH:
+        _, c = pk.packed_round_torch(fields, wrap, m % PIPE_DEPTH)
+        count = (count + int(c)) & MASK32
+    return pk._wrap_int32(count)
 
 
 def shard_pipe_model(fields, tops, bottoms, ids, tile, key, depth):

@@ -32,7 +32,14 @@ from bullet_tpu_torch.convert import (
 from bullet_tpu_torch.ops import packed as pk
 from bullet_tpu_torch.parallel import topology as topo
 
-from _kernel_models import APPLY_BLOCKS_PER_SM, APPLY_THREADS, PipeKey, apply_model, frontier_pipe_model
+from _kernel_models import (
+    APPLY_BLOCKS_PER_SM,
+    APPLY_THREADS,
+    PipeKey,
+    apply_model,
+    frontier_pipe_model,
+    multiround_model,
+)
 
 torch.set_num_threads(2)
 
@@ -212,6 +219,73 @@ def test_multiround_matches_reference(m, wrap):
             jt(f), wrap, m, True)
         assert_same(got, fused)
         assert int(c_fused) == total
+
+
+# the shapes #11's schedule is held at: one peer, a ragged stripe (130 and
+# 1000 columns leave the last 256-column block part empty), a ring shorter
+# than the pass's 16 extension rows, more rows than stages
+MULTIROUND_SHAPES = [(1, 64), (3, 130), (17, 300), (64, 1000)]
+XLA_ROUND = {True: jax.jit(jpk.gossip_round_ring_packed),
+             False: jax.jit(jpk.gossip_round_chain_packed)}
+
+
+@pytest.mark.parametrize("nf", [3, 2, 1])
+@pytest.mark.parametrize("wrap", [True, False])
+@pytest.mark.parametrize("m", [1, 2, 3, 5, 8, 9, 16, 40])
+@pytest.mark.parametrize("shape", MULTIROUND_SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_multiround_schedule_matches_reference(nf, wrap, m, shape):
+    """#11 as the card schedules m rounds (packed_round.cu: m // 8
+    pipelined passes of frontier.cuh's stages over every stripe with a
+    total count, then m % 8 sweeps; ``multiround_model``) and the port's
+    ``ring_multiround_packed`` (the plain version on the CPU), table and
+    summed count, against m of the reference's XLA rounds. None of these
+    shapes is one the reference's fused stripe kernel tiles: the next test
+    holds the schedule against that kernel."""
+    p, n = shape
+    f = family_np(nf, p, n, 90 + 7 * p + m + nf)
+    xla = XLA_ROUND[wrap]
+    want, total = jfam(f), 0
+    for _ in range(m):
+        want, c = xla(want)
+        total += int(c)
+    model = [torch.from_numpy(x.copy()) for x in f]
+    c_model = multiround_model(model, wrap, m, PipeKey(FAMILY[nf]))
+    got, c_got = pk.ring_multiround_packed(FROM_NUMPY[FAMILY[nf]](f, "cpu"), wrap, m)
+    for table, count in ((model, c_model), (got, int(c_got))):
+        for a, b in zip(table, want):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+        assert count == pk._wrap_int32(total)
+
+
+@pytest.mark.parametrize("wrap", [True, False])
+@pytest.mark.parametrize("m", [1, 2, 3])
+def test_multiround_schedule_interpret_kernel(wrap, m):
+    """Where the reference's fused stripe kernel tiles the shape (p % 8 == 0,
+    n % 128 == 0), the schedule's model against it in interpret mode at
+    m <= 3 (sweeps only: its compile grows with m) on every layout."""
+    p, n = 16, 256
+    for nf in (3, 2, 1):
+        f = family_np(nf, p, n, 60 + nf)
+        assert jpk.packed_ring_supported(p, n)
+        fused, c_fused = jpk.ring_multiround_packed_traced(jfam(f), wrap, m, True)
+        model = [torch.from_numpy(x.copy()) for x in f]
+        assert multiround_model(model, wrap, m, PipeKey(FAMILY[nf])) == int(c_fused)
+        for a, b in zip(model, fused):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+def test_multiround_count_wraps_like_int32():
+    """The schedule's count is unsigned atomicAdds into one int32, so a sum
+    past 2^31 wraps as the reference's int32 sum does: started 5 below
+    2^31, the 16 rounds' count lands negative, and equals the wrapped sum
+    of the start and the plain version's count."""
+    f = family_np(3, 64, 1000, 5)
+    _, c_plain = pk.ring_multiround_packed(pt(f), True, 16)
+    start = (1 << 31) - 5
+    model = [torch.from_numpy(x.copy()) for x in f]
+    c_model = multiround_model(model, True, 16, PipeKey("packed"), count=start)
+    assert int(c_plain) > 5
+    assert c_model == pk._wrap_int32(start + int(c_plain)) < 0
 
 
 @pytest.mark.parametrize("wrap", [True, False])

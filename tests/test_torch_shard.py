@@ -523,23 +523,48 @@ def test_frontier_shard_leaves_the_boundary_rows_unwritten(layout):
 @pytest.mark.parametrize("t_total", [1, 7, 64])
 @pytest.mark.parametrize("m", [1, 8])
 @pytest.mark.parametrize("kind", ["random", "zero", "dirty"])
-def test_compact_counts_matches_reference(t_total, m, kind):
-    rng = np.random.default_rng(t_total + m)
+@pytest.mark.parametrize("shards", [1, 2, 4, 8])
+def test_compact_counts_matches_reference(t_total, m, kind, shards):
+    """The fold of S shards' [S, m, t_total] counts and its compaction
+    against the reference's compaction of the numpy sum of the shards'
+    rows (wrapping like its int32 psum); both zero the counts they read."""
+    rng = np.random.default_rng(t_total + m + 100 * shards)
+    size = (shards, m, t_total)
     counts = {
-        "random": rng.integers(-2, 4, (m, t_total)) * (rng.random((m, t_total)) < 0.4),
-        "zero": np.zeros((m, t_total)),
-        "dirty": rng.integers(1, 1 << 30, (m, t_total)),  # sums wrap like int32
+        "random": rng.integers(-2, 4, size) * (rng.random(size) < 0.4),
+        "zero": np.zeros(size),
+        "dirty": rng.integers(1, 1 << 30, size),  # sums wrap like int32
     }[kind].astype(np.int32)
+    summed = counts.sum(0, dtype=np.int64).astype(np.int32)
     if m == 1:
-        want = ref_pk.compact_counts_packed(jnp.asarray(counts[0]), interpret=True)
+        want = ref_pk.compact_counts_packed(jnp.asarray(summed[0]), interpret=True)
     else:
-        want = ref_pk.compact_counts_multiround_packed(jnp.asarray(counts), interpret=True)
+        want = ref_pk.compact_counts_multiround_packed(jnp.asarray(summed), interpret=True)
     want = np.asarray(want)
     for fn in (compact_counts, compact_counts_torch):
-        got = fn(torch.from_numpy(counts)).numpy()
+        rows = torch.tensor(counts)
+        got = fn(rows).numpy()
         k = int(want[t_total])
         np.testing.assert_array_equal(got[:k], want[:k])  # past the count: unspecified
         np.testing.assert_array_equal(got[t_total:], want[t_total:])
+        assert not rows.any()
+
+
+def test_compact_counts_writes_its_out_buffer():
+    """With ``out``, the fold writes the ids into the front of the caller's
+    buffer (t_total + 2 cells at m = 1, + 3 at m > 1) and returns that view;
+    it refuses a buffer too short or of another type."""
+    t_total = 5
+    counts = torch.tensor([[[0, 1, 0, 2, 0]], [[0, 0, 0, -2, 3]]], dtype=torch.int32)
+    out = torch.full((t_total + 3,), -7, dtype=torch.int32)
+    got = compact_counts(counts.clone(), out)
+    assert got.data_ptr() == out.data_ptr() and got.numel() == t_total + 2
+    assert got.tolist() == [1, 4, 0, 0, 0, 2, 4] and int(out[-1]) == -7
+    for bad in (torch.zeros(t_total + 1, dtype=torch.int32), torch.zeros(t_total + 3)):
+        with pytest.raises(ValueError, match="out"):
+            compact_counts(counts.clone(), bad)
+    with pytest.raises(ValueError, match="S >= 1"):
+        compact_counts(counts[0])
 
 
 # ------------------------------------------------- the sharded frontier

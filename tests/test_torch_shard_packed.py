@@ -558,20 +558,29 @@ def test_frontier_shard_window_skips_inactive_stripes_and_checks_slabs():
 @pytest.mark.parametrize("t_total", [1, 7, 64])
 @pytest.mark.parametrize("m", [5, 63])
 @pytest.mark.parametrize("kind", ["random", "zero", "at_m"])
-def test_compact_counts_window_matches_reference(t_total, m, kind):
-    rng = np.random.default_rng(t_total + m)
+@pytest.mark.parametrize("shards", [1, 2, 4, 8])
+def test_compact_counts_window_matches_reference(t_total, m, kind, shards):
+    """The fold of S shards' [S, 2, t_total] window stats against the
+    reference's window compaction of their numpy agreement (row 0 summed,
+    wrapping like its int32 psum; row 1 maxed, its pmax); both zero the
+    stats they read."""
+    rng = np.random.default_rng(t_total + m + 100 * shards)
+    size = (shards, t_total)
     rows = {
-        "random": (rng.integers(-5, 1 << 30, t_total), rng.integers(0, m + 1, t_total)),
-        "zero": (np.zeros(t_total), np.zeros(t_total)),
-        "at_m": (rng.integers(1, 1 << 30, t_total), np.full(t_total, m)),  # sums wrap
+        "random": (rng.integers(-5, 1 << 30, size), rng.integers(0, m + 1, size)),
+        "zero": (np.zeros(size), np.zeros(size)),
+        "at_m": (rng.integers(1, 1 << 30, size), np.full(size, m)),  # sums wrap
     }[kind]
-    stats = np.stack(rows).astype(np.int32)
-    want = np.asarray(ref_pk.compact_counts_window_packed(jnp.asarray(stats), m, interpret=True))
+    stats = np.stack(rows, 1).astype(np.int32)
+    agreed = np.stack([stats[:, 0].sum(0, dtype=np.int64).astype(np.int32), stats[:, 1].max(0)])
+    want = np.asarray(ref_pk.compact_counts_window_packed(jnp.asarray(agreed), m, interpret=True))
     for fn in (pk.compact_counts_window, pk.compact_counts_window_torch):
-        got = fn(torch.from_numpy(stats), m).numpy()
+        shard_stats = torch.tensor(stats)
+        got = fn(shard_stats, m).numpy()
         k = int(want[t_total])
         np.testing.assert_array_equal(got[:k], want[:k])  # past the count: unspecified
         np.testing.assert_array_equal(got[t_total:], want[t_total:])
+        assert not shard_stats.any()
 
 
 # ------------------------------------------------------- exchange rounds
@@ -828,6 +837,53 @@ def test_frontier_shardmap_packed_sparse_seed_and_empty(mode):
         sharded(3, upd), torch.zeros(n // tile, dtype=torch.bool), True, p + 2, **mode)
     assert (rounds, changed) == (0, 0)
     assert_equal(got, upd)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_frontier_shardmap_folds_once_a_step(monkeypatch, mode):
+    """A mesh step's shards write their counts (a window's stats) into
+    their rows of one buffer (``out=``), and one fold a step reads that
+    buffer's S rows and writes the next ids array into one of two buffers
+    in turn, never the array the step read; the loop's result is the
+    classic loop's."""
+    nf, p, n = 3, 64, 512
+    t = family(nf, p, n, 91, absent=0.9)
+    want, r_want, c_want = classic(nf, t, True, 30)
+    folds, shard_outs = [], []
+
+    def spy_fold(fold):
+        def run(rows, *args):
+            folds.append((tuple(rows.shape), rows.data_ptr(), args[-1].data_ptr()))
+            return fold(rows, *args)
+        return run
+
+    def spy_step(step):
+        def run(f, top, bottom, ids, tile, m, out=None):
+            shard_outs.append((out.data_ptr(), ids.data_ptr()))
+            return step(f, top, bottom, ids, tile, m, out=out)
+        return run
+
+    monkeypatch.setattr(sg, "compact_counts", spy_fold(sg.compact_counts))
+    monkeypatch.setattr(sg, "compact_counts_window", spy_fold(sg.compact_counts_window))
+    monkeypatch.setattr(sg, "frontier_shard_round_packed", spy_step(pk.frontier_shard_round_packed))
+    monkeypatch.setattr(sg, "frontier_shard_window", spy_step(pk.frontier_shard_window))
+    tile = frontier_tile_n(n)
+    got, rounds, changed = sg.gossip_frontier_shardmap_packed(
+        sharded(nf, t, k=4), torch.ones(n // tile, dtype=torch.bool), True, 30, **mode)
+    assert_equal(got, want, str(mode))
+    assert (rounds, changed) == (r_want, c_want)
+    assert folds and len(shard_outs) == 4 * len(folds)
+    read = None
+    for i, (shape, rows, ids_out) in enumerate(folds):
+        assert shape[0] == 4 and shape[2] == n // tile
+        step = shard_outs[4 * i: 4 * i + 4]
+        row_bytes = 4 * shape[1] * shape[2]
+        assert [o for o, _ in step] == [rows + k * row_bytes for k in range(4)]
+        assert {ids for _, ids in step} != {ids_out}
+        if read is not None:
+            assert {ids for _, ids in step} == {read}
+        read = ids_out
+    assert len({ids_out for _, _, ids_out in folds}) == min(2, len(folds))
 
 
 def test_frontier_shardmap_packed_rejects_bad_depths():
