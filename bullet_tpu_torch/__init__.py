@@ -11,4 +11,14 @@ imports no JAX.
 from .models.netsim import PeerNetworkSim
 from .ops.merge import TableState
 
-__all__ = ["PeerNetworkSim", "TableState"]
+
+def __getattr__(name):
+    # the predicate DSL resolves on first use, as in the reference package
+    if name in ("P", "Predicate"):
+        from .ops import predicates
+
+        return getattr(predicates, name)
+    raise AttributeError(name)
+
+
+__all__ = ["PeerNetworkSim", "TableState", "P", "Predicate"]

@@ -49,8 +49,10 @@ import torch
 from ..convert import FROM_NUMPY, sharded_from_numpy, table_to_numpy
 from ..ops import packed as pk
 from ..ops import rank as rk
+from ..ops import scans
 from ..ops.apply import OpBatch, apply_ops
 from ..ops.merge import TableState, init_table, lean_fields
+from ..ops.predicates import Predicate, compile_predicate, predicate_params
 from ..ops.ring_kernel import (
     beats_of,
     dense_frontier_available,
@@ -69,7 +71,7 @@ from ..parallel.shardmap_gossip import (
     ring_window_shardmap_packed,
     shardmap_round,
 )
-from ..utils.encode import CLS_ABSENT, VID_NULL
+from ..utils.encode import CLS_ABSENT, CLS_NUMBER, VID_NULL, number_key
 from .table import MISSING, GraphHost, flatten_value
 
 TopologyLike = Union[str, topo.Topology]
@@ -876,8 +878,7 @@ class PeerNetworkSim:
             return "step"
         if self.mesh is not None:
             return "spmd"
-        if (self.device.type == "cuda" and self.layout == "packed"
-                and self._frontier_tracking_valid()):
+        if self._card_routes() and self.layout == "packed" and self._frontier_tracking_valid():
             return "frontier"
         return "window"
 
@@ -984,6 +985,15 @@ class PeerNetworkSim:
                 return name, getattr(self, method)
         raise AssertionError("unreachable: the last row matches every cell")
 
+    def _card_routes(self) -> bool:
+        """Whether the sim takes the card's fused routes: STRIPE_FUSE rounds
+        a frontier step (dense and packed family), HALO_FUSE rounds or an
+        m-round window an exchange on a mesh, and the tracked packed
+        ``fast_forward`` on the frontier. On the CPU the same loops run
+        unfused, as the reference runs interpret mode; either way the
+        tables, round counts and residuals are the same."""
+        return self.device.type == "cuda"
+
     def _frontier_tracking_valid(self) -> bool:
         """True when the dirty-stripe tracking is live for the current
         shape: a fast_forward jump is then not blind."""
@@ -1023,7 +1033,7 @@ class PeerNetworkSim:
         the host. On the CPU the plain version runs unfused."""
         tile_n = self._frontier_tile()
         t_total = self.table[0].shape[1] // tile_n
-        fuse = pk.STRIPE_FUSE if self.device.type == "cuda" else 1
+        fuse = pk.STRIPE_FUSE if self._card_routes() else 1
         self.table, rounds, final_changed = pk.gossip_frontier_packed(
             self.table, self._frontier_seed(t_total),
             self.topology.kind == "ring", max_rounds, fuse=fuse, tile_n=tile_n,
@@ -1043,7 +1053,7 @@ class PeerNetworkSim:
         tile_n = self._frontier_tile()
         t_total = n // tile_n
         window = fuse = 1
-        if self.device.type == "cuda":
+        if self._card_routes():
             window = pk.window_frontier_depth(p // len(self.mesh), n)
             fuse = 1 if window else HALO_FUSE
         self.table, rounds, final_changed = gossip_frontier_shardmap_packed(
@@ -1073,7 +1083,7 @@ class PeerNetworkSim:
 
         tile_n = self._frontier_tile()
         t_total = self._shape()[1] // tile_n
-        fuse = STRIPE_FUSE if self.device.type == "cuda" else 1
+        fuse = STRIPE_FUSE if self._card_routes() else 1
         self.table, rounds, final_changed = gossip_frontier_dense(
             self.table, self._frontier_seed(t_total),
             self.topology.kind == "ring", self.mode, max_rounds,
@@ -1090,7 +1100,7 @@ class PeerNetworkSim:
         runs unfused, as the reference's interpret mode does."""
         tile_n = self._frontier_tile()
         t_total = self._shape()[1] // tile_n
-        fuse = HALO_FUSE if self.device.type == "cuda" else 1
+        fuse = HALO_FUSE if self._card_routes() else 1
         self.table, rounds, final_changed = gossip_frontier_shardmap_dense(
             self.table, self._frontier_seed(t_total), self.topology.kind == "ring",
             self.mode, self.lean_gossip, max_rounds, fuse=fuse, tile_n=tile_n,
@@ -1307,6 +1317,214 @@ class PeerNetworkSim:
             out_arr[present] = self.host.values.decode_batch(uniq)[inverse]
         return out_arr.tolist()
 
+    # --------------------------------------------------------------- queries
+
+    def _mask_paths_row(self, row_mask: torch.Tensor, parents: bool = False) -> List[str]:
+        """A hit mask [N] as sorted path strings: only the hit indices cross
+        to the host, then one batched path pass. ``parents=True`` maps each
+        hit to its parent path (the field form's result shape, bullet-js
+        node-path results)."""
+        hits = torch.nonzero(row_mask).flatten().cpu().numpy()
+        if parents:
+            hits = self.host.paths.parents_batch(hits)
+        return sorted(self.host.paths.paths_batch(hits))
+
+    def equals(self, peer: int, base: str, field: Optional[str], value: Any = MISSING):
+        """Equals scan over one peer's row (bullet-js query ``equals``):
+        the children of ``base`` whose ``field`` (or, with no field, whose
+        own value) is ``value``."""
+        if value is MISSING:
+            field, value = None, field
+        res = self._equals_mask(peer, base, field, value)
+        return [] if res is None else self._mask_paths_row(*res)
+
+    def count(self, peer: int, base: str, field, value: Any = MISSING) -> int:
+        """Match count on the device (bullet-js query ``count``): one
+        scalar crosses to the host, not the mask. Accepts a Predicate in
+        place of (field, value)."""
+        if isinstance(field, Predicate):
+            res = self._predicate_mask(peer, base, field)
+            return 0 if res is None else int(res[1])
+        if value is MISSING:
+            field, value = None, field
+        res = self._equals_mask(peer, base, field, value)
+        return 0 if res is None else int(scans.count_mask(res[0]))
+
+    def _equals_mask(self, peer: int, base: str, field: Optional[str], value: Any):
+        """(mask [N], whether hits map to their parents) of an equals probe
+        at ``peer``, on the row's device; None when nothing can match (an
+        unknown base or field, a rank1 value never ranked)."""
+        base_pid = self.host.paths.lookup(base)
+        if base_pid is None:
+            return None
+        # the probe interns before the sync: a re-key or growth it causes
+        # reaches the table before the scan
+        _, _, _, vid = self.host.encode_value(value)
+        self._sync_device_state()
+        if self.layout == "rank1":
+            # value identity is one rank compare (ranks are a bijection
+            # over vids): no RowView rebuild
+            probe = self._probe_rank(vid)
+            if probe == 0:
+                return None  # value never ranked: never applied anywhere
+            row = self._rank_row(peer)
+            field_mask, leaf_mask = scans.equals_field_mask_rank, scans.equals_leaf_mask_rank
+        else:
+            probe, row = vid, self._peer_row(peer)
+            field_mask, leaf_mask = scans.equals_field_mask_row, scans.equals_leaf_mask_row
+        struct = self.host.struct(_row_device(row))
+        if field is None:
+            return leaf_mask(row, struct, base_pid, probe), False
+        fid = self.host.seg_lookup(field)
+        if fid < 0:
+            return None
+        return field_mask(row, struct, base_pid, fid, probe), True
+
+    def _probe_rank(self, vid: int) -> int:
+        """The query probe's rank for a vid (rank1): 0 if the vid was never
+        ranked, i.e. the value was never applied on any peer, so an equality
+        scan cannot match (live ranks are >= 1). A vid past the index's
+        length is such a vid."""
+        if vid < len(self.rank_index._rank_of):
+            return self.rank_index.rank_of(vid)
+        return 0
+
+    def range(self, peer: int, base: str, field, lo=MISSING, hi=MISSING):
+        """Numeric range scan over one peer's row, inclusive at both ends
+        (bullet-js query ``range``)."""
+        if hi is MISSING:
+            field, lo, hi = None, field, lo
+        base_pid = self.host.paths.lookup(base)
+        if base_pid is None:
+            return []
+        keys = (*number_key(float(lo)), *number_key(float(hi)))
+        self._sync_device_state()
+        if self.layout == "rank1":
+            # keys in [lo, hi] of the number class form one contiguous rank
+            # run (ranks are lexicographic in (cls, khi, klo, vid))
+            bounds = self.rank_index.rank_bounds(CLS_NUMBER, *keys)
+            if bounds is None:
+                return []
+            row = self._rank_row(peer)
+            field_mask, leaf_mask = scans.range_field_mask_rank, scans.range_leaf_mask_rank
+        else:
+            bounds, row = keys, self._peer_row(peer)
+            field_mask, leaf_mask = scans.range_field_mask_row, scans.range_leaf_mask_row
+        struct = self.host.struct(_row_device(row))
+        if field is None:
+            return self._mask_paths_row(leaf_mask(row, struct, base_pid, *bounds))
+        fid = self.host.seg_lookup(field)
+        if fid < 0:
+            return []
+        return self._mask_paths_row(field_mask(row, struct, base_pid, fid, *bounds),
+                                    parents=True)
+
+    def filter(self, peer: int, base: str, fn) -> List[str]:
+        """Child scan with a predicate (bullet-js query ``filter``): a
+        :class:`~bullet_tpu_torch.ops.predicates.Predicate` runs on the
+        device as one mask program, never decoding the subtree; any other
+        callable ``fn(value, key)`` (or ``fn(value)``) scans the decoded
+        children on the host."""
+        if isinstance(fn, Predicate):
+            res = self._predicate_mask(peer, base, fn)
+            return [] if res is None else self._mask_paths_row(res[0])
+        data = self.get(peer, base)
+        if not isinstance(data, dict):
+            return []
+        return sorted(f"{base}/{key}" for key, value in data.items() if _pred(fn, value, key))
+
+    def _predicate_mask(self, peer: int, base: str, pred):
+        """(mask bool [N] over path ids, count int32 0-d), both on the row's
+        device, for a Predicate; None when ``base`` was never interned."""
+        base_pid = self.host.paths.lookup(base)
+        if base_pid is None:
+            return None
+        # the probes resolve before the sync: encoding may intern new
+        # values or re-key strings (the order equals() keeps)
+        params = predicate_params(pred, self.host.seg_lookup, self.host.encode_value)
+        self._sync_device_state()
+        row = self._peer_row(peer)
+        device = _row_device(row)
+        return compile_predicate(pred)(
+            row, self.host.struct(device), base_pid,
+            torch.tensor(params, dtype=torch.int32, device=device),
+        )
+
+    def find(self, peer: int, base: str, fn) -> Optional[str]:
+        """The first child (sorted by path for a Predicate, in key order
+        for a callable) satisfying ``fn``, or None."""
+        if isinstance(fn, Predicate):
+            hits = self.filter(peer, base, fn)
+            return hits[0] if hits else None
+        data = self.get(peer, base)
+        if isinstance(data, dict):
+            for key, value in data.items():
+                if _pred(fn, value, key):
+                    return f"{base}/{key}"
+        return None
+
+    def map(self, peer: int, base: str, fn: Callable) -> List[Any]:
+        """``fn(value, key)`` (or ``fn(value)``) of every child of ``base``."""
+        data = self.get(peer, base)
+        if not isinstance(data, dict):
+            return []
+        return [_pred(fn, value, key) for key, value in data.items()]
+
+    def _row_home(self, peer: int):
+        """(table, row): the table holding ``peer``'s row (on a mesh its
+        owning shard, on that shard's device) and the row's index there."""
+        if isinstance(self.table, ShardedTable):
+            shard, local = self.table.owner(peer)
+            return self.table.shards[int(shard)], int(local)
+        return self.table, peer
+
+    def _rank_row(self, peer: int) -> torch.Tensor:
+        """One rank1 replica row, int32 [N], where it lives."""
+        table, row = self._row_home(peer)
+        return table.rank[row]
+
+    def _peer_row(self, peer: int) -> scans.RowView:
+        """One replica row as a query RowView, for every layout, on the
+        device of the table or shard that holds it. The packed family
+        rebuilds the value keys: rank through the interner's key tables,
+        rank1 by decoding its ranks through the RankIndex's inverse
+        first (an empty index: an all-absent view)."""
+        table, row = self._row_home(peer)
+        if self.layout == "dense":
+            return scans.peer_row(table, row)
+        if self.layout == "packed":
+            cv = table.cv[row]
+            return scans.RowView(cls=cv >> pk.CV_SHIFT, khi=table.khi[row], klo=table.klo[row],
+                                 vid=cv & pk.VID_MASK)
+        device = table[0].device
+        if self.layout == "rank":
+            cv = table.cv[row]
+            vid = cv & pk.VID_MASK
+            cls = cv >> pk.CV_SHIFT
+            present = cls > 0
+            _c, khi_map, klo_map = self.host.key_tables()
+            khi_map, klo_map = self._device_lut(khi_map, device), self._device_lut(klo_map, device)
+            return scans.RowView(
+                cls=cls,
+                khi=torch.where(present, rk._lookup(khi_map, vid), 0),
+                klo=torch.where(present, rk._lookup(klo_map, vid), 0),
+                vid=vid,
+            )
+        rank = table.rank[row]
+        if len(self.rank_index) == 0:
+            z = torch.zeros_like(rank)
+            return scans.RowView(cls=z, khi=z, klo=z, vid=z)
+        cls_map, khi_map, klo_map = (self._device_lut(m, device) for m in self.host.key_tables())
+        sranks, svids = (self._device_lut(a, device) for a in self.rank_index.inverse_arrays())
+        present, vid = rk.decode_vids_rank1(rank, sranks, svids)
+        vid = torch.where(present, vid, 0)
+        return scans.RowView(
+            cls=torch.where(present, rk._lookup(cls_map, vid), 0),
+            khi=torch.where(present, rk._lookup(khi_map, vid), 0),
+            klo=torch.where(present, rk._lookup(klo_map, vid), 0),
+            vid=vid,
+        )
+
     # ---------------------------------------------------------- subscriptions
 
     def peer(self, index: int):
@@ -1478,3 +1696,16 @@ class PeerNetworkSim:
         return all(
             bool((s[f] == first[f][0:1].to(s[f].device)).all()) for s in shards for f in fields
         )
+
+
+def _pred(fn, value, key):
+    """``fn(value, key)``, or ``fn(value)`` for a one-argument callable."""
+    try:
+        return fn(value, key)
+    except TypeError:
+        return fn(value)
+
+
+def _row_device(row) -> torch.device:
+    """The device of a query row: a RowView or a rank1 row tensor."""
+    return (row.vid if isinstance(row, scans.RowView) else row).device

@@ -2,13 +2,14 @@
 
 Mirrors the bullet-js ``BulletNode`` chainable API, so code written against
 the host db layer ports to the engine by swapping ``bullet.get(path)`` for
-``sim.peer(p).get(path)``. The query facade of the reference package's
-SimPeer waits for the port of the query scans.
+``sim.peer(p).get(path)``.
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable, Optional
+
+from .table import MISSING
 
 
 class SimPeer:
@@ -23,6 +24,28 @@ class SimPeer:
 
     def value(self) -> Any:
         return self.sim.get(self.index)
+
+    # the peer-scoped query facade (the bullet-js Bullet query facades)
+    def equals(self, base: str, field, value: Any = MISSING):
+        args = (field,) if value is MISSING else (field, value)
+        return self.sim.equals(self.index, base, *args)
+
+    def range(self, base: str, field, lo=MISSING, hi=MISSING):
+        args = (field, lo) if hi is MISSING else (field, lo, hi)
+        return self.sim.range(self.index, base, *args)
+
+    def filter(self, base: str, fn: Callable):
+        return self.sim.filter(self.index, base, fn)
+
+    def find(self, base: str, fn: Callable):
+        return self.sim.find(self.index, base, fn)
+
+    def map(self, base: str, fn: Callable):
+        return self.sim.map(self.index, base, fn)
+
+    def count(self, base: str, field, value: Any = MISSING) -> int:
+        args = (field,) if value is MISSING else (field, value)
+        return self.sim.count(self.index, base, *args)
 
 
 class SimNode:

@@ -8,8 +8,7 @@ reconstruction for reads, capacity growth, and re-keying after a
 string-rank rebalance.
 
 The interners are the port's own copies of the reference package's
-numpy/native ones (``utils/``, ``native/``). ``struct()``, the device view
-of the path structure, waits for the port of the query scans.
+numpy/native ones (``utils/``, ``native/``).
 """
 
 from __future__ import annotations
@@ -17,7 +16,9 @@ from __future__ import annotations
 from typing import Any, Dict, Iterator, List, Tuple
 
 import numpy as np
+import torch
 
+from ..ops.scans import PathStruct
 from ..utils.encode import ValueInterner
 from ..utils.paths import PathInterner
 
@@ -49,13 +50,17 @@ class GraphHost:
         self._native_paths = not isinstance(self.paths, PathInterner)
         self.values = ValueInterner()
         self.capacity = capacity
-        # per-slot structure (numpy); in native
-        # mode these export in bulk from C++ instead of growing in place
+        # per-slot structure (numpy, mirrored per device on demand); in
+        # native mode these export in bulk from C++ instead of growing in
+        # place
         self._parent = np.full(capacity, -1, dtype=np.int32)
         self._parent2 = np.full(capacity, -1, dtype=np.int32)
         self._seg = np.full(capacity, -1, dtype=np.int32)
         self._seg_ids: Dict[str, int] = {}
         self._np_dirty = True
+        # struct() per device, emptied whenever the paths or the capacity
+        # change
+        self._structs: Dict[torch.device, PathStruct] = {}
         self.values.on_rebalance(self._mark_rekey)
         self.needs_rekey = False
 
@@ -83,7 +88,7 @@ class GraphHost:
                         self.paths.parent(parent) if parent >= 0 else -1
                     )
                     self._seg[new_pid] = self._seg_id(self.paths.segment(new_pid))
-            self._np_dirty = True
+            self._paths_changed()
         return pid
 
     def intern_batch(self, paths) -> np.ndarray:
@@ -95,7 +100,7 @@ class GraphHost:
             slots = self.paths.intern_batch(paths)
             if len(self.paths) != before:
                 self._grow_to(len(self.paths))
-                self._np_dirty = True
+                self._paths_changed()
             return slots
         memo: Dict[str, int] = {}
         slots = np.empty(len(paths), dtype=np.int32)
@@ -119,7 +124,11 @@ class GraphHost:
                 grown[: old.shape[0]] = old
                 setattr(self, name, grown)
         self.capacity = new_cap
+        self._paths_changed()
+
+    def _paths_changed(self) -> None:
         self._np_dirty = True
+        self._structs.clear()
 
     def encode_value(self, value: Any) -> Tuple[int, int, int, int]:
         return self.values.encode(value)
@@ -138,8 +147,20 @@ class GraphHost:
             self._parent, self._parent2, self._seg = parent, parent2, seg
         self._np_dirty = False
 
+    def struct(self, device) -> PathStruct:
+        """The path structure on ``device`` (cached per device until the
+        paths or the capacity change; a mesh whose devices repeat keeps
+        one copy per distinct device)."""
+        device = torch.device(device)
+        cached = self._structs.get(device)
+        if cached is None:
+            cached = self._structs[device] = PathStruct(*(
+                torch.from_numpy(a.copy()).to(device) for a in self.struct_np()))
+        return cached
+
     def struct_np(self):
-        """(parent, parent2, seg) as host numpy arrays (tree assembly)."""
+        """(parent, parent2, seg) as host numpy arrays (tree assembly): no
+        device transfers, unlike struct()."""
         self._refresh_struct_host()
         return self._parent, self._parent2, self._seg
 

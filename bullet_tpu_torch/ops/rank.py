@@ -291,6 +291,30 @@ class RankIndex:
         the rank1 layout (ranks increase along the key-sorted vids)."""
         return self._sranks.astype(dtype), self._svids.astype(dtype)
 
+    def rank_bounds(self, cls, lo_khi, lo_klo, hi_khi, hi_klo):
+        """(lo_rank, hi_rank) covering exactly the ranked vids whose
+        (cls, khi, klo) key lies in the inclusive key interval: the rank1
+        layout's range-query bounds (ranks are lexicographic in the keys,
+        so the matching vids form one contiguous rank run). None if the
+        interval holds no ranked vid. Bounds need not be interned."""
+        k1lo, k2lo = self._fuse(cls, lo_khi, lo_klo)
+        k1hi, k2hi = self._fuse(cls, hi_khi, hi_klo)
+        # first stored key >= lo
+        p = int(np.searchsorted(self._sk1, k1lo, side="left"))
+        q = int(np.searchsorted(self._sk1, k1lo, side="right"))
+        if p != q:  # refine within the equal-k1 run
+            p += int(np.searchsorted(self._sk2[p:q], k2lo, side="left"))
+        # last stored key <= hi (exclusive upper position)
+        r = int(np.searchsorted(self._sk1, k1hi, side="left"))
+        s = int(np.searchsorted(self._sk1, k1hi, side="right"))
+        if r != s:
+            r += int(np.searchsorted(self._sk2[r:s], k2hi, side="right"))
+        else:
+            r = s
+        if p >= r:
+            return None
+        return int(self._sranks[p]), int(self._sranks[r - 1])
+
     def decode_ranks(self, ranks: np.ndarray) -> np.ndarray:
         """Host-side rank -> vid decode (current epoch). Rank 0 (absent)
         and any rank with no exact inverse entry decode to -1: a stale rank

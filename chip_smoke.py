@@ -94,13 +94,25 @@ Phases, in order; any failure raises and exits nonzero:
    restored copy converged by gossip_frontier_shardmap_packed with
    fuse=HALO_FUSE, and fast_forward(480) (the spmd route: the window
    join's shard form, two passes) against
-   step(480) on the twin, with its windowed logical merges/s.
+   step(480) on the twin, with its windowed logical merges/s;
+10. the queries: records shaped as the upstream query fixture (users,
+   products, leaf-form scores; about 29 N / 32 paths) written at random peers,
+   some fields again from others, on packed and rank1 sims at P x N
+   (default 1024 x 2^20), a dense sim at 1024 x 2^18 and a 4-shard packed
+   mesh on the one card beside its unsharded twin; after step(1) and after
+   the converge, equals, range, count (field and leaf forms), filter,
+   find and count with Predicates, and a SimPeer call at peers 0, P/2 and
+   P - 1, each held exactly against a host oracle (``get`` of the
+   subtree, then ``Predicate.evaluate`` in Python) and the twin; each
+   query's host-inclusive ms, its PyTorch operators, the oracle's get +
+   scan ms and the row's byte bound are printed.
 
 Every kernel's launch count over the phase that drives its path (4 for
 the dense kernels, 5 and 6 for the packed-family ones, 5 for the m-round
 pass, 7 for the lean
-ones, 8 for the sharded ones, 9 for the packed family's mesh kernels)
-must be > 0. The last two lines are a JSON
+ones, 8 for the sharded ones, 9 for the packed family's mesh kernels; 10
+checks the kernels its step(1) and converges run) must be > 0. The last
+two lines are a JSON
 object describing the kernels and the contract line
 {"ok": true, "device": {...}}. Imports nothing of JAX."""
 
@@ -2628,6 +2640,209 @@ def sharded_packed_path(args, dev, window=wall_window, card=""):
     return packed_launches, rank1_launches, rate
 
 
+# ----------------------------------------------------------------- phase 10
+
+ROLES = ("admin", "user", "editor")
+CATEGORIES = ("electronics", "accessories", "furniture", "books")
+# the bytes a replica entry stores: dense 7 fields, packed 3, rank1 1
+ENTRY_BYTES = {"dense": 28, "packed": 12, "rank1": 4}
+# the kernels phase 10 runs before it queries: the dense sim's step(1) and
+# converge, the packed and rank1 sims' apply, step(1) and converge, the
+# mesh's windowed converge and its fold
+QUERY_PATH_KERNELS = ("ring_round", "frontier_round_dense", "apply_packed", "packed_round",
+                      "frontier_round_packed", "frontier_shard_window", "compact_counts window")
+
+
+def query_batches(rng, p: int, n: int):
+    """Phase 10's writes for a table of n slots, the shape of the upstream
+    query fixture (examples/query_example.py): n/8 users {name, age,
+    active, role}, n/32 products {name, price, stock, category} and n/8
+    leaf-form scores, at most 29 n / 32 + 3 paths (the table never grows);
+    every record at one random peer; 4% of the users lack an age and 2%
+    carry a bool one (JS coercion); then 3% of the roles, ages and prices
+    written again from other peers. A list of (peers, paths, values)
+    put_bulk calls: numeric arrays, or lists of strings or bools."""
+    users, products, scores = n >> 3, n >> 5, n >> 3
+    up, pp, sp = (rng.integers(0, p, k).astype(np.int32) for k in (users, products, scores))
+    uid, pid = np.arange(users), np.arange(products)
+
+    def paths(base, ids, field=None):
+        return [f"{base}/{i}/{field}" if field else f"{base}/{i}" for i in ids.tolist()]
+
+    def pick(choices, k):
+        return [choices[i] for i in rng.integers(0, len(choices), k).tolist()]
+
+    ages = rng.integers(18, 81, users)
+    draw = rng.random(users)
+    numeric, boolean = draw >= 0.06, (draw >= 0.04) & (draw < 0.06)
+    out = [
+        (up, paths("users", uid, "name"), [f"name{i}" for i in rng.integers(0, 4096, users)]),
+        (up[numeric], paths("users", uid[numeric], "age"), ages[numeric]),
+        (up[boolean], paths("users", uid[boolean], "age"), pick((True, False), int(boolean.sum()))),
+        (up, paths("users", uid, "active"), pick((True, False), users)),
+        (up, paths("users", uid, "role"), pick(ROLES, users)),
+        (pp, paths("products", pid, "name"), [f"product{i % 1000}" for i in pid.tolist()]),
+        (pp, paths("products", pid, "price"), np.round(rng.uniform(1, 2000, products), 2)),
+        (pp, paths("products", pid, "stock"), rng.integers(0, 500, products)),
+        (pp, paths("products", pid, "category"), pick(CATEGORIES, products)),
+        (sp, paths("scores", np.arange(scores)), rng.integers(0, 1000, scores)),
+    ]
+    again = rng.choice(users, users * 3 // 100, replace=False)
+    out.append((rng.integers(0, p, len(again)).astype(np.int32), paths("users", again, "role"),
+                pick(ROLES, len(again))))
+    again = rng.choice(uid[numeric], len(again), replace=False)
+    out.append((rng.integers(0, p, len(again)).astype(np.int32), paths("users", again, "age"),
+                rng.integers(18, 81, len(again))))
+    again = rng.choice(products, products * 3 // 100, replace=False)
+    out.append((rng.integers(0, p, len(again)).astype(np.int32), paths("products", again, "price"),
+                np.round(rng.uniform(1, 2000, len(again)), 2)))
+    return out
+
+
+def query_plan(P):
+    """(label, the call, its base, the predicate that decides it on the
+    host, the answer's kind: a sorted path list, a count or the first
+    hit)."""
+    busy = (P["age"] >= 30) & (P["role"] == "user")
+    return [
+        ("equals users role admin", lambda s, q: s.equals(q, "users", "role", "admin"),
+         "users", P["role"] == "admin", "list"),
+        ("equals users active True", lambda s, q: s.equals(q, "users", "active", True),
+         "users", P["active"] == True, "list"),  # noqa: E712 - the DSL
+        ("range users age 30..39", lambda s, q: s.range(q, "users", "age", 30, 39),
+         "users", P["age"].between(30, 39), "list"),
+        ("range products price 100..500",
+         lambda s, q: s.range(q, "products", "price", 100.0, 500.0),
+         "products", P["price"].between(100.0, 500.0), "list"),
+        ("equals scores 500 (leaf)", lambda s, q: s.equals(q, "scores", 500),
+         "scores", P.value() == 500, "list"),
+        ("range scores 100..199 (leaf)", lambda s, q: s.range(q, "scores", 100, 199),
+         "scores", P.value().between(100, 199), "list"),
+        ("count scores 500 (leaf)", lambda s, q: s.count(q, "scores", 500),
+         "scores", P.value() == 500, "count"),
+        ("count users role user", lambda s, q: s.count(q, "users", "role", "user"),
+         "users", P["role"] == "user", "count"),
+        ("filter (age >= 30) & (role == user)", lambda s, q: s.filter(q, "users", busy),
+         "users", busy, "list"),
+        ("count ~has(age)", lambda s, q: s.count(q, "users", ~P.has("age")),
+         "users", ~P.has("age"), "count"),
+        ("find products price < 50", lambda s, q: s.find(q, "products", P["price"] < 50.0),
+         "products", P["price"] < 50.0, "find"),
+        ("SimPeer count role editor", lambda s, q: s.peer(q).count("users", "role", "editor"),
+         "users", P["role"] == "editor", "count"),
+    ]
+
+
+def host_answer(sim, peer: int, base: str, pred, kind: str, cache: dict):
+    """The host oracle: ``pred.evaluate`` of every child of ``base`` the
+    path interner knows, its value decoded at ``peer`` by ``get`` (None
+    where the peer's row holds none of it: a negation matches such a child,
+    as on the device). Returns (answer, get seconds, scan seconds); the
+    decoded subtree is cached in ``cache`` by (peer, base)."""
+    got = cache.get((peer, base))
+    t_get = 0.0
+    if got is None:
+        start = time.perf_counter()
+        data = sim.get(peer, base)
+        t_get = time.perf_counter() - start
+        pid = sim.host.paths.lookup(base)
+        kids = np.flatnonzero(sim.host.struct_np()[0] == pid)
+        keys = [sim.host.paths.segment(int(k)) for k in kids]
+        got = cache[(peer, base)] = (data if isinstance(data, dict) else {}, keys)
+    data, keys = got
+    start = time.perf_counter()
+    hits = sorted(f"{base}/{k}" for k in keys if pred.evaluate(data.get(k)))
+    answer = {"list": hits, "count": len(hits), "find": hits[0] if hits else None}[kind]
+    return answer, t_get, time.perf_counter() - start
+
+
+def run_queries(tag: str, sims, peers, card: str):
+    """Every query of ``query_plan`` at each of ``peers`` on ``sims[0]``
+    (the others, a twin, must answer the same), held against the host
+    oracle; logs each query's host-inclusive ms at each peer, its PyTorch
+    operators (counted on a second call), the oracle's get + scan ms and
+    the row's byte bound. Raises on any difference."""
+    from bullet_tpu_torch import P
+
+    sim = sims[0]
+    n = sim._shape()[1]
+    row_bound = 1e3 * n * ENTRY_BYTES[sim.layout] / HBM_BYTES_PER_S
+    cache: dict = {}
+    for label, call, base, pred, kind in query_plan(P):
+        ms, host_ms, counted = [], [], set()
+        for q in peers:
+            secs: dict = {}
+            with wall_window("query", secs):
+                got = call(sim, q)
+            ms.append(1e3 * secs["query"])
+            with OpCount() as ops:
+                again = call(sim, q)
+            counted.add(sum(ops.counts.values()))
+            want, t_get, t_scan = host_answer(sim, q, base, pred, kind, cache)
+            host_ms.append(1e3 * (t_get + t_scan))
+            twins = [call(t, q) for t in sims[1:]]
+            if got != want or again != got or any(t != got for t in twins):
+                raise AssertionError(f"phase 10 {tag} {label} at peer {q}: {str(got)[:200]} "
+                                     f"against the oracle's {str(want)[:200]}")
+        size = len(got) if isinstance(got, list) else got
+        log(f"    {label}: {size} at peer {peers[-1]}; ms "
+            f"{' / '.join(f'{t:.3f}' for t in ms)}; operators {sorted(counted)}; "
+            f"get + scan ms {' / '.join(f'{t:.1f}' for t in host_ms)}; "
+            f"row bound {row_bound:.3g} ms")
+    log(f"    ({tag}: peers {' / '.join(map(str, peers))}, {card})")
+
+
+def query_path(args, dev, card: str):
+    """Phase 10: the queries on the card, on packed and rank1 sims at
+    P x N (default 1024 x 2^20), a dense sim at 1024 x 2^18 and a 4-shard
+    packed mesh on the one card against its unsharded twin; each after
+    step(1) (rows differ from peer to peer) and after the converge.
+    Returns the launches of the whole phase."""
+    from bullet_tpu_torch import PeerNetworkSim, _build
+
+    p = args.peers
+    peers = (0, p // 2, p - 1)
+    _build.reset_launches()
+    cells = (("packed", args.packed_capacity, False), ("rank1", args.rank1_capacity, False),
+             ("dense", args.capacity, False), ("packed", args.packed_capacity, True))
+    for layout, n, mesh in cells:
+        rng = np.random.default_rng(args.seed + 10)
+        batches = query_batches(rng, p, n)
+        tag = f"{layout} {p} x {n}" + (f", {SHARDS} shards on one card" if mesh else "")
+        make = [dict(mesh_devices=[dev] * SHARDS, use_shard_map=True), {}] if mesh else [{}]
+        sims = [PeerNetworkSim(p, capacity=n, topology="ring", layout=layout, device=dev, **kw)
+                for kw in make]
+        secs: dict = {}
+        with wall_window("load", secs):
+            for s in sims:
+                for batch in batches:
+                    s.put_bulk(*batch)
+        with wall_window("step(1)", secs):
+            residual = [s.step(1) for s in sims]
+        if sims[0].capacity != n or len(set(residual)) != 1:
+            raise AssertionError(f"phase 10 {tag}: capacity {sims[0].capacity}, residuals "
+                                 f"{residual}")
+        log(f"  {tag}: {len(sims[0].host.paths)} paths, {sum(len(b[0]) for b in batches)} "
+            f"writes in {len(batches)} put_bulk calls, loaded in {secs['load']:.2f} s; "
+            f"step(1) residual {residual[0]}")
+        run_queries(f"{tag}, after step(1)", sims, peers, card)
+        with wall_window("converge", secs):
+            rounds = [s.run_until_converged() for s in sims]
+        if len(set(rounds)) != 1 or any(s.last_residual for s in sims):
+            raise AssertionError(f"phase 10 {tag}: converge {rounds}")
+        log(f"  {tag}: run_until_converged [{sims[0]._convergence_strategy()[0]}] "
+            f"{rounds[0]} rounds")
+        run_queries(f"{tag}, converged", sims, peers, card)
+        del sims
+        torch.cuda.empty_cache()
+    launches = dict(_build.LAUNCHES)
+    log(f"  launches (phase 10): {launches}")
+    missing = [k for k in QUERY_PATH_KERNELS if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"phase 10 never launched: {missing}")
+    return launches
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2732,6 +2947,10 @@ def main() -> int:
     log(f"phase 9: the packed family on a mesh, {SHARDS} shards on one card, ring "
         f"{args.peers} x {args.packed_capacity}")
     mesh_packed, mesh_rank1, _ = sharded_packed_path(args, dev, card=smi)
+    torch.cuda.empty_cache()
+    log(f"phase 10: queries on packed and rank1 {args.peers} x {args.packed_capacity}, dense "
+        f"{args.peers} x {args.capacity} and a {SHARDS}-shard packed mesh, {smi}")
+    query_path(args, dev, smi)
 
     # one row per kernel at the layout its main path drives (dense: phase
     # 4, packed: phase 5), one per packed-family kernel at rank1 (phase 6),

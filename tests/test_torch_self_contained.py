@@ -15,11 +15,17 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+import random
+
 from bullet_tpu import native as ref_native
+from bullet_tpu.ops import predicates as ref_pred
+from bullet_tpu.ops import rank as ref_rank
 from bullet_tpu.parallel import topology as ref_topo
 from bullet_tpu.utils import encode as ref_encode
 from bullet_tpu.utils import paths as ref_paths
 from bullet_tpu_torch import native as port_native
+from bullet_tpu_torch.ops import predicates as port_pred
+from bullet_tpu_torch.ops import rank as port_rank
 from bullet_tpu_torch.parallel import topology as port_topo
 from bullet_tpu_torch.utils import encode as port_encode
 from bullet_tpu_torch.utils import paths as port_paths
@@ -66,7 +72,8 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     assert len(files) > 20
     names = {str(f.relative_to(REPO)) for f in files}
     assert {"bullet_tpu_torch/ops/rank.py", "bullet_tpu_torch/ops/packed.py",
-            "bullet_tpu_torch/models/netsim.py", "bullet_tpu_torch/convert.py"} <= names
+            "bullet_tpu_torch/models/netsim.py", "bullet_tpu_torch/convert.py",
+            "bullet_tpu_torch/ops/scans.py", "bullet_tpu_torch/ops/predicates.py"} <= names
     bad = {str(f.relative_to(REPO)): v for f in files if (v := violations(f))}
     assert not bad, bad
 
@@ -200,3 +207,84 @@ def test_native_matches_reference(monkeypatch):
     vals = rng.normal(0, 1e9, 1000)
     for a, b in zip(port_native.number_keys(vals), ref_native.number_keys(vals)):
         np.testing.assert_array_equal(a, b)
+
+
+def _fuzz_tree(mod, rng, depth=3):
+    """A random predicate from ``mod``'s DSL (``rng`` replays it)."""
+    probes = [-5, 0, 0.5, 2, 1e300, -0.0, float("nan"), float("inf"), True, False, "x", "",
+              None, [1, "a"], 7]
+
+    def atom():
+        f = rng.choice(["a", "b", None])
+        fld = mod.P.value() if f is None else mod.P[f]
+        r = rng.random()
+        if r < 0.35:
+            op = rng.choice(["__lt__", "__le__", "__gt__", "__ge__"])
+            return getattr(fld, op)(rng.choice([x for x in probes if isinstance(x, (int, float))]))
+        if r < 0.5:
+            return fld.between(rng.choice([-3, 0, 1.5, float("nan")]), rng.choice([-1, 2, 9]))
+        if r < 0.8:
+            return fld == rng.choice(probes)
+        if r < 0.9:
+            return fld != rng.choice(probes)
+        return mod.P.has(f or "b")
+
+    def tree(d):
+        if d == 0 or rng.random() < 0.3:
+            return atom()
+        r = rng.random()
+        if r < 0.4:
+            return tree(d - 1) & tree(d - 1)
+        if r < 0.8:
+            return tree(d - 1) | tree(d - 1)
+        return ~tree(d - 1)
+
+    return tree(depth)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_predicate_host_half_matches_reference(seed):
+    """The port's copy of the predicate AST gives the reference's
+    signatures, ``evaluate`` results, key intervals and params."""
+    values = [None, 3, -0.0, 2.5, float("nan"), True, "x", [1, "a"],
+              {"a": 1, "b": "x"}, {"a": None}, {"a": {"deep": 1}, "b": True},
+              {"a": float("inf"), "b": -5}, {"b": [1, "a"]}, {"a": 1e300}]
+    for k in range(40):
+        ref = _fuzz_tree(ref_pred, random.Random(1000 * seed + k))
+        port = _fuzz_tree(port_pred, random.Random(1000 * seed + k))
+        assert port.signature() == ref.signature()
+        assert [port.evaluate(v) for v in values] == [ref.evaluate(v) for v in values]
+        for pa, ra in zip(port.atoms(), ref.atoms()):
+            if ra.kind == "rng":
+                assert pa.key_interval() == ra.key_interval()
+        ref_vals, port_vals = ref_encode.ValueInterner(), port_encode.ValueInterner()
+        segs = {"a": 3, "b": -1}
+        want = ref_pred.predicate_params(ref, segs.get, ref_vals.encode)
+        assert port_pred.predicate_params(port, segs.get, port_vals.encode) == want
+        assert [port_vals.encode(v) for v in ("x", 7)] == [ref_vals.encode(v) for v in ("x", 7)]
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_rank_bounds_match_reference(seed):
+    """RankIndex.rank_bounds on the same inserts, over random key
+    intervals of every class (bounds interned or not, empty and inverted
+    intervals)."""
+    rng = np.random.default_rng(seed)
+    ref, port = ref_rank.RankIndex(), port_rank.RankIndex()
+    n = 0
+    for _ in range(3):
+        k = int(rng.integers(5, 60))
+        cls = rng.integers(1, 5, k)
+        khi = rng.integers(-4, 4, k)
+        klo = rng.integers(-4, 4, k)
+        vids = np.arange(n, n + k)
+        n += k
+        for index in (ref, port):
+            index.insert_batch(vids, cls, khi, klo)
+    for _ in range(200):
+        c = int(rng.integers(0, 6))
+        lo = [int(x) for x in rng.integers(-5, 5, 2)]
+        hi = [int(x) for x in rng.integers(-5, 5, 2)]
+        assert port.rank_bounds(c, *lo, *hi) == ref.rank_bounds(c, *lo, *hi), (c, lo, hi)
+    assert port_rank.RankIndex().rank_bounds(2, 0, 0, 1, 1) is None
+    assert ref_rank.RankIndex().rank_bounds(2, 0, 0, 1, 1) is None
