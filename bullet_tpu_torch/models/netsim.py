@@ -34,6 +34,12 @@ family's ``fast_forward`` takes one window per exchange of m-row slabs.
 A data mesh (no ``use_shard_map``) never runs the frontier. A packed
 family's op apply and reconcile run per shard.
 
+Batch ingress (``models/ingress.py``) sits between the drain and the
+apply: traced put transforms and the schemas' veto mask run on the
+device over the whole drained batch (on a mesh, before it is split by
+shard; on the packed family, before the host's reduction), put hooks and
+the strict schema checks on the host at ``put``/``put_bulk``.
+
 Convergence is deterministic: the merge is a join-semilattice, so
 ``run_until_converged`` reaches the unique fixed point in at most
 diameter + 1 rounds, with the same round count as the reference.
@@ -72,6 +78,7 @@ from ..parallel.shardmap_gossip import (
     shardmap_round,
 )
 from ..utils.encode import CLS_ABSENT, CLS_NUMBER, VID_NULL, number_key
+from .ingress import EngineHooks, EngineValidation, invalid_op_mask, traced_pipeline, veto_ops
 from .table import MISSING, GraphHost, flatten_value
 
 TopologyLike = Union[str, topo.Topology]
@@ -357,12 +364,18 @@ class PeerNetworkSim:
             [] for _ in range(num_peers)
         ]
         self._pending_bulk: List[Tuple[np.ndarray, ...]] = []
+        # scalar-put fast path: enabled until any hook or schema registers
+        self._fast_put_ok = True
         # scalar-put fast-path memoization (see _put_scalar_fast)
         self._slot_cache: Dict[str, int] = {}
         self._enc_num_cache: Dict[Any, Tuple[int, int, int, int]] = {}
         self._enc_str_cache: Dict[str, Tuple[int, int, int, int]] = {}
         self._enc_str_epoch = -1
         self._subs: List[dict] = []
+        # batch-ingress pipeline (SURVEY §7 stage 5): middleware hooks +
+        # schema validation, both zero-cost until something registers
+        self.validation = EngineValidation(self)
+        self.hooks = EngineHooks(self)
         # frontier bookkeeping (ring/chain): per-stripe dirty flags known
         # only between a completed frontier convergence and the next
         # non-frontier mutation; None = unknown -> start all-dirty
@@ -370,6 +383,7 @@ class PeerNetworkSim:
         self.stats = {
             "ops_enqueued": 0,
             "ops_applied": 0,
+            "ops_rejected": 0,
             "gossip_rounds": 0,
             "windowed_rounds": 0,
             "merged_entries": 0,
@@ -381,12 +395,16 @@ class PeerNetworkSim:
 
     def put(self, peer: int, path: str, value: Any) -> bool:
         """Queue a local put at ``peer`` (applied on the next step). Object
-        values decompose into leaves. Returns True (put hooks and schemas,
-        which could veto, are not ported yet)."""
-        if type(value) is not dict:
+        values decompose into leaves. Put hooks may veto or rewrite the put;
+        on a schema-bound path the host validator checks it, with typed
+        errors to the error handlers. Returns False iff the put was vetoed
+        or rejected."""
+        if self._fast_put_ok and type(value) is not dict:
             # hot scalar path: memoized path->slot and numeric
-            # value->encoding; the common numeric-hit case is inlined here,
-            # misses and other types take the helper
+            # value->encoding, no hook/flatten machinery. The flag is
+            # cleared for good by any hook or schema registration
+            # (ingress.py _disable_fast_put). The common numeric-hit case
+            # is inlined here; misses and other types take the helper
             enc = None
             t = type(value)
             if t is float or t is int:
@@ -401,6 +419,12 @@ class PeerNetworkSim:
                     self.stats["ops_enqueued"] += 1
                     return True
             return self._put_scalar_fast(peer, path, value)
+        if self.hooks.active:
+            cont, path, value = self.hooks.run_put(peer, path, value)
+            if not cont:
+                return False
+        if self.validation.active and not self.validation.check_put(path, value):
+            return False
         leaves = list(flatten_value(path, value))
         if any(not leaf_path for leaf_path, _ in leaves):
             raise ValueError(
@@ -429,6 +453,7 @@ class PeerNetworkSim:
                 self._clock_list[peer] = c
                 self._pending[peer].append((slot, cls, khi, klo, vid, c))
                 self.stats["ops_enqueued"] += 1
+        self.hooks.queue_after_put(peer, path, value)
         return True
 
     # scalar-fast-path cache bound: keeps pathological workloads (e.g.
@@ -437,7 +462,7 @@ class PeerNetworkSim:
     _FAST_CACHE_MAX = 1 << 20
 
     def _put_scalar_fast(self, peer: int, path: str, value: Any) -> bool:
-        """Hot scalar ``put`` for a non-dict value.
+        """Hot scalar ``put``: no hooks, no validation, non-dict value.
 
         Two memoizations carry the speedup: path -> slot (the interner is
         append-only, so slots are stable), and numeric value -> encoding
@@ -492,13 +517,38 @@ class PeerNetworkSim:
         ``peers`` — int array [K], or a single int to load every row into
         one peer; ``values`` — numeric array [K] (the fast path) or any list
         of leaf values; ``paths`` — list of K path strings, or an int32
-        array of pre-interned slot ids (see ``intern_path``)."""
+        array of pre-interned slot ids (see ``intern_path``), the raw
+        device feed, which skips every host hook by design.
+
+        With hooks or schemas registered: put hooks run per row, the strict
+        schema constraints the device mask cannot express drop rows here
+        (with typed errors), and afterPut/"write" delivery is queued for the
+        rows that pass; the type, range and enum veto runs on the device
+        at the next apply (see ``_ingress``)."""
         peers = np.asarray(peers, dtype=np.int32)
         if peers.ndim == 0:
             peers = np.full(len(paths), int(peers), dtype=np.int32)
-        if len(peers) == 0:
+        k = len(peers)
+        if k == 0:
             return
         pre_interned = isinstance(paths, np.ndarray) and paths.dtype.kind == "i"
+        if self.hooks._put and not pre_interned:
+            # host put hooks see bulk rows too (veto/mutate parity with
+            # scalar puts); this per-row pass runs only while hooks are
+            # registered
+            kept_p, kept_paths, kept_vals = [], [], []
+            vals_seq = values.tolist() if isinstance(values, np.ndarray) else values
+            for p, path, value in zip(peers, paths, vals_seq):
+                cont, path, value = self.hooks.run_put(int(p), path, value)
+                if cont:
+                    kept_p.append(int(p))
+                    kept_paths.append(path)
+                    kept_vals.append(value)
+            if not kept_p:
+                return
+            peers = np.asarray(kept_p, dtype=np.int32)
+            paths, values = kept_paths, kept_vals
+            k = len(peers)
         slots = (
             paths.astype(np.int32) if pre_interned
             else self.host.intern_batch(paths)
@@ -509,6 +559,8 @@ class PeerNetworkSim:
         if isinstance(values, np.ndarray) and values.dtype.kind in "ifu":
             from ..utils.encode import bulk_encode_numbers
 
+            raw_vals: Any = values
+            numeric = True
             cls, khi, klo, vid = bulk_encode_numbers(self.host.values, values)
         else:
             from ..utils.encode import bulk_encode_values
@@ -516,7 +568,51 @@ class PeerNetworkSim:
             raw_vals = (
                 values.tolist() if isinstance(values, np.ndarray) else list(values)
             )
+            numeric = False
             cls, khi, klo, vid = bulk_encode_values(self.host.values, raw_vals)
+
+        # strict schema constraints the device mask can't express (integer
+        # integralness, boolean identity, string/array length) drop here,
+        # while the raw values are still in hand; the type/range/enum veto
+        # stays on the device
+        if self.validation.active:
+            drop = self.validation.strict_bulk_mask(slots, raw_vals)
+            if drop is not None and drop.any():
+                for i in np.nonzero(drop)[0]:
+                    path = self.host.paths.path(int(slots[i]))
+                    val = float(raw_vals[i]) if numeric else raw_vals[i]
+                    # re-run the host checker for the exact typed error
+                    self.validation.host.check_write(path, val)
+                keep = ~drop
+                peers, slots, cls, khi, klo, vid = (
+                    a[keep] for a in (peers, slots, cls, khi, klo, vid)
+                )
+                raw_vals = (
+                    raw_vals[keep] if numeric
+                    else [v for v, kp in zip(raw_vals, keep) if kp]
+                )
+                self.stats["ops_rejected"] += int(drop.sum())
+                k = len(peers)
+                if k == 0:
+                    return
+
+        # afterPut hooks + "write" events fire for accepted rows, as for
+        # scalar puts (merge losers fire too: the reference's
+        # afterPut-after-setData contract, bullet-middleware.js:112-131).
+        # With schemas bound each row re-checks silently, so rows the
+        # device mask will veto don't claim a write happened (the device
+        # path owns their typed errors). O(K) Python, only while afterPut
+        # hooks or listeners are registered.
+        if not pre_interned and (self.hooks._after_put or self.hooks._events):
+            check = self.validation.host.check_write if self.validation.active else None
+            upaths = {int(s): self.host.paths.path(int(s)) for s in np.unique(slots)}
+            for i in range(k):
+                path = upaths[int(slots[i])]
+                val = float(raw_vals[i]) if numeric else raw_vals[i]
+                if check is not None and not check(path, val, report=False):
+                    continue
+                self.hooks.queue_after_put(int(peers[i]), path, val)
+
         self._enqueue_bulk(peers, slots, cls, khi, klo, vid)
         if self.layout in RANK_FAMILY:
             # rank the new values now, while the batch is hot; a respread's
@@ -548,11 +644,16 @@ class PeerNetworkSim:
 
     def remove(self, peer: int, path: str) -> bool:
         """Put null at ``path`` and every known descendant leaf. In
-        reference mode null loses to greater scalars; lww deletes."""
+        reference mode null loses to greater scalars; lww deletes. Delete
+        hooks may veto (bullet-middleware.js:137-186)."""
+        if self.hooks.active and not self.hooks.run_delete(peer, path):
+            return False
         pid = self.host.intern_path(path)
         self.put(peer, path, None)
         for slot in self.host.leaf_slots_under(pid):
             self.put(peer, self.host.paths.path(slot), None)
+        if self.hooks.active:
+            self.hooks.fire_after_delete(peer, path)
         return True
 
     # ----------------------------------------------------------------- step
@@ -730,9 +831,20 @@ class PeerNetworkSim:
         drained = self._drain_ops()
         if drained is None:
             return 0
-        self._mark_dirty(drained[0])
+        if self.hooks._traced_put:
+            self._frontier_dirty = None  # transforms may move slots
+        else:
+            self._mark_dirty(drained[0])
+        ingressed = None
+        if self.hooks._traced_put or self.validation.active:
+            # ingress sees the whole batch on the sim's device (a mesh's
+            # first), before it is split by shard
+            ingressed = self._ingress(
+                OpBatch(*(torch.from_numpy(f).to(self.device) for f in drained)))
 
         def upload(rows: slice, device) -> OpBatch:
+            if ingressed is not None:
+                return OpBatch(*(f[rows].to(device) for f in ingressed))
             return OpBatch(*(torch.from_numpy(f[rows]).to(device) for f in drained))
 
         if isinstance(self.table, ShardedTable):
@@ -753,13 +865,14 @@ class PeerNetworkSim:
         return int(applied)
 
     def _apply_pending_packed(self) -> int:
-        """Packed-family apply: host lattice pre-reduction per (peer, slot),
-        then ONE upload of the [2 + nf, K] winners and one flat apply (the
-        kernel on the card) — no dense batch; on a mesh, one of each per
-        shard, with the winners of its peers at their local rows. The rank
-        layouts stamp each op with its value's rank first. Unlike the
-        reference, ops are never staged on the device at put time (that hid
-        a TPU link's latency)."""
+        """Packed-family apply: flat ingress (traced transforms + the
+        validation veto, on the device), host lattice pre-reduction per
+        (peer, slot), then ONE upload of the [2 + nf, K] winners and one
+        flat apply (the kernel on the card) — no dense batch; on a mesh, one
+        of each per shard, with the winners of its peers at their local
+        rows. The rank layouts stamp each op with its value's rank first.
+        Unlike the reference, ops are never staged on the device at put
+        time (that hid a TPU link's latency)."""
         flat = self._drain_flat()
         if flat is None:
             return 0
@@ -768,6 +881,13 @@ class PeerNetworkSim:
                 f"{self.layout} layout caps distinct values at 2^28; interner "
                 f"holds {len(self.host.values)} — use layout='dense'"
             )
+        if self.hooks._traced_put or (
+            self.validation.active and self.validation.rules() is not None
+        ):
+            # ingress before the reduction: a vetoed op must not hide the
+            # valid op it would have beaten, and rank stamping must see the
+            # vids the transforms wrote
+            flat = self._ingress_flat(flat)
         if self.layout in RANK_FAMILY:
             peer, slot, cls, _khi, _klo, vid = flat
             # rank stamping sees every new vid, and a device table coherent
@@ -800,6 +920,43 @@ class PeerNetworkSim:
         self.table, applied = pk.apply_flat_packed(
             self.table, torch.from_numpy(ops).to(self.device))
         return int(applied)
+
+    def _ingress(self, ops: OpBatch) -> OpBatch:
+        """Batch-ingress pipeline between drain and apply (SURVEY §7 stage
+        5), on the ops' device: the traced put transforms, then the compiled
+        schema rules veto invalid ops (cls=0 ⇒ guaranteed loser); rejected
+        ops produce host-side typed errors."""
+        transforms = tuple(self.hooks._traced_put)
+        rules = self.validation.rules() if self.validation.active else None
+        if not transforms and rules is None:
+            return ops
+        struct = self.host.struct(ops.slot.device)
+        if transforms:
+            ops = traced_pipeline(transforms)(ops, struct)
+        if rules is not None:
+            invalid = invalid_op_mask(ops, struct, rules)
+            rejected = self.validation.report_rejections(ops, invalid)
+            if rejected:
+                ops = veto_ops(ops, invalid)
+                self.stats["ops_rejected"] += rejected
+        return ops
+
+    def _ingress_flat(self, flat):
+        """``_ingress`` over the drained flat ops (peer, slot, cls, khi,
+        klo, vid), numpy [K] each: one upload of the five op fields to the
+        sim's device (ctr zero, as the reference's flat batch), and back
+        the fields the pipeline may have changed — all five after a
+        transform, else cls, and only if an op was vetoed."""
+        peer = flat[0]
+        up = torch.from_numpy(np.stack(flat[1:])).to(self.device)
+        ops = OpBatch(*up, ctr=torch.zeros_like(up[0]))
+        out = self._ingress(ops)
+        if self.hooks._traced_put:
+            back = torch.stack([f.to(torch.int32) for f in out[:5]]).cpu().numpy()
+            return (peer, *back)
+        if out.cls is ops.cls:
+            return flat
+        return (peer, flat[1], out.cls.cpu().numpy(), *flat[3:])
 
     def _frontier_tile(self) -> int:
         """Stripe width the frontier convergence path would use at the
@@ -848,6 +1005,7 @@ class PeerNetworkSim:
         self._maybe_rekey()
         self.tick += 1
         self.stats["ops_applied"] += self._apply_pending()
+        self.hooks.fire_after_puts()
         residual = 0
         if rounds:
             self._frontier_dirty = None  # untracked gossip advances stripes
@@ -911,6 +1069,7 @@ class PeerNetworkSim:
         self._maybe_rekey()
         self.tick += 1
         self.stats["ops_applied"] += self._apply_pending()
+        self.hooks.fire_after_puts()
         # re-resolve: the apply refreshed the dirty-stripe tracking
         route = self._fast_forward_route()
         wrap = self.topology.kind == "ring"
@@ -959,6 +1118,7 @@ class PeerNetworkSim:
         self._maybe_rekey()
         self.tick += 1
         self.stats["ops_applied"] += self._apply_pending()
+        self.hooks.fire_after_puts()
         if max_rounds is None:
             max_rounds = max(2 * self.topology.diameter + 2, 4)
         _, runner = self._convergence_strategy()
@@ -1132,6 +1292,7 @@ class PeerNetworkSim:
         self._maybe_rekey()
         self.tick += 1
         self.stats["ops_applied"] += self._apply_pending()
+        self.hooks.fire_after_puts()
         if not self.topology.is_connected():
             self._reconcile_weak()
         elif self.layout in PACKED_FAMILY:
@@ -1274,7 +1435,15 @@ class PeerNetworkSim:
 
     def get(self, peer: int, path: str = "") -> Any:
         """Read a value/subtree at ``peer`` (device gather + host tree
-        rebuild). Missing paths return None."""
+        rebuild). Missing paths return None. Get hooks may rewrite the
+        path; afterGet hooks may rewrite the data
+        (bullet-middleware.js:27-68)."""
+        if self.hooks.active:
+            path = self.hooks.rewrite_get(peer, path)
+            return self.hooks.rewrite_after_get(peer, path, self._get_raw(peer, path))
+        return self._get_raw(peer, path)
+
+    def _get_raw(self, peer: int, path: str = "") -> Any:
         if path:
             pid = self.host.paths.lookup(path)
             if pid is None:
@@ -1298,14 +1467,21 @@ class PeerNetworkSim:
         ``peers`` is an int array [K] or a single int; ``paths`` is a list
         of K path strings or an int32 array of pre-interned slot ids.
         Returns K leaf values (None for null, absent, unknown, or interior
-        paths)."""
+        paths). Get hooks (path rewrite + afterGet data rewrite) apply per
+        pair when registered, to path strings only."""
+        path_strs = None
         if isinstance(paths, np.ndarray) and paths.dtype.kind == "i":
             slots = paths.astype(np.int32)
             valid = slots >= 0
         else:
-            slots = self.host.paths.lookup_batch(list(paths))
+            paths = list(paths)
+            if self.hooks.active:
+                prow = np.broadcast_to(np.asarray(peers, dtype=np.int32), (len(paths),))
+                paths = [self.hooks.rewrite_get(int(pr), p) for pr, p in zip(prow, paths)]
+            slots = self.host.paths.lookup_batch(paths)
             valid = slots >= 0
             slots = np.where(valid, slots, 0).astype(np.int32)
+            path_strs = paths
         k = len(slots)
         peers_arr = np.broadcast_to(np.asarray(peers, dtype=np.int32), (k,))
         self._sync_device_state()
@@ -1315,7 +1491,11 @@ class PeerNetworkSim:
         if present.any():
             uniq, inverse = np.unique(vid[present], return_inverse=True)
             out_arr[present] = self.host.values.decode_batch(uniq)[inverse]
-        return out_arr.tolist()
+        out: List[Any] = out_arr.tolist()
+        if self.hooks.active and path_strs is not None:
+            out = [self.hooks.rewrite_after_get(int(pr), p, v)
+                   for pr, p, v in zip(peers_arr, path_strs, out)]
+        return out
 
     # --------------------------------------------------------------- queries
 
@@ -1524,6 +1704,49 @@ class PeerNetworkSim:
             klo=torch.where(present, rk._lookup(klo_map, vid), 0),
             vid=vid,
         )
+
+    # ------------------------------------------- facade: validation + hooks
+
+    def define_schema(self, name: str, schema: dict) -> "PeerNetworkSim":
+        """Register a named schema (bullet-validation.js:54-63)."""
+        self.validation.define_schema(name, schema)
+        return self
+
+    def apply_schema(self, base_path: str, schema_name: str) -> "PeerNetworkSim":
+        """Bind a schema to a base path; writes under it validate at batch
+        ingress — host typed checks for ``put``, the device mask for bulk
+        batches."""
+        self.validation.apply_schema(base_path, schema_name)
+        return self
+
+    def remove_schema(self, base_path: str) -> "PeerNetworkSim":
+        self.validation.remove_schema(base_path)
+        return self
+
+    def on_validation_error(self, error_type: str, handler) -> "PeerNetworkSim":
+        self.validation.on_error(error_type, handler)
+        return self
+
+    def validate(self, schema_name: str, data: Any) -> bool:
+        return self.validation.validate(schema_name, data)
+
+    def use(self, operation: str, fn: Callable) -> "PeerNetworkSim":
+        """Register a middleware hook (put/afterPut/get/afterGet/delete/
+        afterDelete — bullet-middleware.js:198-209)."""
+        self.hooks.use(operation, fn)
+        return self
+
+    def use_traced_put(self, fn: Callable) -> "PeerNetworkSim":
+        """Register a pure OpBatch transform run on the device over every
+        drained batch (see ``EngineHooks.use_traced_put``)."""
+        self.hooks.use_traced_put(fn)
+        return self
+
+    def on_event(self, event: str, listener: Callable) -> "PeerNetworkSim":
+        """Subscribe to engine events ("write", "read", "delete", "error",
+        "all" — bullet-middleware.js:278-313)."""
+        self.hooks.on_event(event, listener)
+        return self
 
     # ---------------------------------------------------------- subscriptions
 

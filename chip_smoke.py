@@ -105,13 +105,33 @@ Phases, in order; any failure raises and exits nonzero:
    P - 1, each held exactly against a host oracle (``get`` of the
    subtree, then ``Predicate.evaluate`` in Python) and the twin; each
    query's host-inclusive ms, its PyTorch operators, the oracle's get +
-   scan ms and the row's byte bound are printed.
+   scan ms and the row's byte bound are printed;
+11. batch ingress, the earlier phases' sims freed: the two schemas of
+   examples/validation_example.py (bullet-js's validation example) bound
+   to users and products, records of phase 10's shape (2^17 users, 2^15
+   products at random peers) with a known share of values that break
+   them (ages out of range, non-integral or boolean, roles outside the
+   enum, strings in verified, usernames of bad length, negative prices;
+   and 1% second ages at the same peer that would win were they not
+   vetoed). A packed 1024 x 2^20 sim with the schemas beside a twin given
+   only the ops an independent Python oracle keeps: ops_rejected and the
+   error handler's count equal to the oracle's, tables exact after
+   step(1), the converge and reconcile, reads. A rank1 1024 x 2^20 sim
+   with a traced put transform in torch that caps prices at 1000 beside a
+   twin given the capped values. A dense 1024 x 2^18 sim with host hooks
+   (a put hook that vetoes secret/... and rewrites alias/..., afterPut and
+   "write" counters, a get hook and an afterGet transform), scalar and
+   bulk puts against Python's expected results. A 4-shard rank1 mesh with
+   the schemas beside its unsharded twin. Each prints put_bulk's host
+   seconds, step(1) against the twin's, the ingress round trip and
+   report_rejections.
 
 Every kernel's launch count over the phase that drives its path (4 for
 the dense kernels, 5 and 6 for the packed-family ones, 5 for the m-round
 pass, 7 for the lean
 ones, 8 for the sharded ones, 9 for the packed family's mesh kernels; 10
-checks the kernels its step(1) and converges run) must be > 0. The last
+checks the kernels its step(1) and converges run, 11 those each of its
+sims drives) must be > 0. The last
 two lines are a JSON
 object describing the kernels and the contract line
 {"ok": true, "device": {...}}. Imports nothing of JAX."""
@@ -120,6 +140,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import itertools
 import json
 import subprocess
@@ -2843,6 +2864,524 @@ def query_path(args, dev, card: str):
     return launches
 
 
+# ----------------------------------------------------------------- phase 11
+
+# the two schemas of examples/validation_example.py:19-52 (bullet-js's
+# validation example), bound to users and products
+USER_SCHEMA = {
+    "type": "object",
+    "required": ["username", "email"],
+    "properties": {
+        "username": {"type": "string", "min": 3, "max": 20},
+        "email": {"type": "string", "format": "email"},
+        "age": {"type": "integer", "min": 13, "max": 120},
+        "role": {"type": "string", "enum": ["admin", "user", "editor"]},
+        "verified": {"type": "boolean"},
+        "profile": {
+            "type": "object",
+            "properties": {
+                "bio": {"type": "string", "max": 100},
+                "website": {"type": "string", "format": "url"},
+            },
+        },
+    },
+}
+PRODUCT_SCHEMA = {
+    "type": "object",
+    "required": ["name", "price"],
+    "properties": {
+        "name": {"type": "string"},
+        "price": {"type": "number", "min": 0},
+        "sku": {"type": "string", "pattern": r"^[A-Z]{3}-\d{4}$"},
+        "even_stock": {"type": "integer", "validators": [lambda v: v % 2 == 0]},
+    },
+}
+USER_ROLES = ("admin", "user", "editor")
+# phase 11's traced transform caps the prices here
+PRICE_CAP = 1000.0
+# the kernels each phase 11 sim drives: its apply, step(1), converge and
+# reconcile (the dense apply is plain PyTorch)
+INGRESS_KERNELS = {
+    "packed": ("apply_packed", "packed_round", "frontier_round_packed", "reconcile_packed"),
+    "rank1": ("apply_packed", "packed_round", "frontier_round_packed", "reconcile_packed"),
+    "dense": ("ring_round", "frontier_round_dense", "merge"),
+    "mesh": ("apply_packed", "frontier_shard packed", "frontier_shard_window",
+             "compact_counts window", "reconcile_packed"),
+}
+
+
+def ingress_batches(rng, p: int, n: int):
+    """Phase 11's writes for a table of n slots, in phase 10's shape: n/8
+    users {username, age, role, verified} and n/32 products {name, price,
+    stock, category}, every record at one random peer, with a known share
+    of values that break the schemas: ages outside [13, 120] 2%,
+    non-integral ages 1%, booleans in age 1%, roles outside the enum 1%,
+    strings in verified 1%, usernames shorter than 3 or longer than 20 1%,
+    negative prices 1%; then 1% of the users written again at the same
+    peer with age 500, which would win its (peer, slot) were it not vetoed.
+    A list of (field, peers, paths, values) put_bulk calls: numeric arrays,
+    or lists."""
+    users, products = n >> 3, n >> 5
+    up, pp = (rng.integers(0, p, k).astype(np.int32) for k in (users, products))
+    uid, pid = np.arange(users), np.arange(products)
+
+    def paths(base, ids, field):
+        return [f"{base}/{i}/{field}" for i in ids.tolist()]
+
+    def pick(choices, k):
+        return [choices[i] for i in rng.integers(0, len(choices), k).tolist()]
+
+    def share(k, *fractions):
+        draw = rng.random(k)
+        edges = np.cumsum((0.0,) + fractions)
+        return [(draw >= lo) & (draw < hi) for lo, hi in zip(edges[:-1], edges[1:])]
+
+    names = [f"user{i}" for i in rng.integers(0, 1 << 20, users).tolist()]
+    short, long_ = share(users, 0.005, 0.005)
+    for i in np.flatnonzero(short).tolist():
+        names[i] = "ab"
+    for i in np.flatnonzero(long_).tolist():
+        names[i] = "u" * 21
+    ages = rng.integers(13, 121, users).astype(np.float64)
+    out_of_range, fraction, boolean = share(users, 0.02, 0.01, 0.01)
+    ages[out_of_range] = np.where(rng.random(int(out_of_range.sum())) < 0.5,
+                                  rng.integers(0, 13, int(out_of_range.sum())),
+                                  rng.integers(121, 300, int(out_of_range.sum())))
+    ages[fraction] += 0.5
+    numeric = ~boolean
+    roles = pick(USER_ROLES, users)
+    for i in np.flatnonzero(share(users, 0.01)[0]).tolist():
+        roles[i] = "superuser"
+    verified = pick((True, False), users)
+    for i in np.flatnonzero(share(users, 0.01)[0]).tolist():
+        verified[i] = "yes"
+    prices = np.round(rng.uniform(1, 2000, products), 2)
+    negative = share(products, 0.01)[0]
+    prices[negative] = -prices[negative]
+    again = rng.choice(uid[numeric], users // 100, replace=False)
+    return [
+        ("username", up, paths("users", uid, "username"), names),
+        ("age", up[numeric], paths("users", uid[numeric], "age"), ages[numeric]),
+        ("age", up[boolean], paths("users", uid[boolean], "age"),
+         pick((True, False), int(boolean.sum()))),
+        ("role", up, paths("users", uid, "role"), roles),
+        ("verified", up, paths("users", uid, "verified"), verified),
+        ("name", pp, paths("products", pid, "name"), [f"product{i % 1000}" for i in pid.tolist()]),
+        ("price", pp, paths("products", pid, "price"), prices),
+        ("stock", pp, paths("products", pid, "stock"), rng.integers(0, 500, products)),
+        ("category", pp, paths("products", pid, "category"), pick(CATEGORIES, products)),
+        ("age", up[again], paths("users", again, "age"), np.full(len(again), 500.0)),
+    ]
+
+
+def oracle_keep(field: str, values) -> np.ndarray:
+    """The independent oracle: which values pass the schemas' type,
+    min/max, enum, integer, boolean and length constraints (the ones the
+    bulk path enforces), decided in Python, value by value."""
+    def number(v):
+        return isinstance(v, (int, float, np.integer, np.floating)) and not isinstance(v, bool)
+
+    rules = {
+        "username": lambda v: isinstance(v, str) and 3 <= len(v) <= 20,
+        "age": lambda v: number(v) and float(v) == int(v) and 13 <= v <= 120,
+        "role": lambda v: isinstance(v, str) and v in USER_ROLES,
+        "verified": lambda v: isinstance(v, bool),
+        "price": lambda v: number(v) and v >= 0,
+    }
+    rule = rules.get(field, lambda v: True)
+    seq = values.tolist() if isinstance(values, np.ndarray) else values
+    return np.fromiter((rule(v) for v in seq), dtype=bool, count=len(seq))
+
+
+def bind_schemas(sim, errors: list):
+    sim.define_schema("user", USER_SCHEMA)
+    sim.define_schema("product", PRODUCT_SCHEMA)
+    sim.apply_schema("users", "user")
+    sim.apply_schema("products", "product")
+    sim.on_validation_error("all", errors.append)
+
+
+def kept_rows(batch, keep):
+    """The (peers, paths, values) of ``batch``'s rows where ``keep``."""
+    _, peers, paths, values = batch
+    vals = values[keep] if isinstance(values, np.ndarray) else [
+        v for v, k in zip(values, keep.tolist()) if k]
+    return peers[keep], [q for q, k in zip(paths, keep.tolist()) if k], vals
+
+
+def pre_intern(twin, batch):
+    """What the sim's put_bulk interns of a batch whose rows the twin does
+    not all get: its paths, then its values, in the sim's order, so that
+    both sims hold the same slot and value ids."""
+    from bullet_tpu_torch.utils.encode import bulk_encode_numbers, bulk_encode_values
+
+    _, _, paths, values = batch
+    twin.host.intern_batch(paths)
+    if isinstance(values, np.ndarray):
+        bulk_encode_numbers(twin.host.values, values)
+    else:
+        bulk_encode_values(twin.host.values, list(values))
+
+
+def timed_method(obj, name: str, secs: dict, sync: bool) -> None:
+    """Replace ``obj.name`` by a wrapper that adds its wall seconds (the
+    device drained at both ends) to ``secs[name]``."""
+    real = getattr(obj, name)
+    secs.setdefault(name, 0.0)
+
+    def run(*a, **kw):
+        if sync:
+            torch.cuda.synchronize()
+        start = time.perf_counter()
+        try:
+            return real(*a, **kw)
+        finally:
+            if sync:
+                torch.cuda.synchronize()
+            secs[name] += time.perf_counter() - start
+
+    setattr(obj, name, run)
+
+
+def tables_same(a, b) -> bool:
+    """Two sims' tables equal, field by field, on the device (a sharded
+    one against its unsharded twin's rows)."""
+    from bullet_tpu_torch.parallel.mesh import ShardedTable
+
+    if isinstance(a.table, ShardedTable):
+        return sharded_equal(a.table, b.table)
+    return all(torch.equal(f, g) for f, g in zip(a.table, b.table))
+
+
+def check_reads(tag: str, sims, paths, peers, want) -> None:
+    """get_bulk of ``paths`` at each of ``peers`` on every sim equals
+    ``want`` (one value a path: every peer holds it once converged)."""
+    for q in peers:
+        for s in sims:
+            got = s.get_bulk(np.full(len(paths), q, dtype=np.int32), paths)
+            if got != want:
+                bad = next(i for i, (g, w) in enumerate(zip(got, want)) if g != w)
+                raise AssertionError(f"phase 11 {tag}: {paths[bad]} at peer {q} reads "
+                                     f"{got[bad]!r}, want {want[bad]!r}")
+
+
+def ingress_pair(tag, layout, p, n, dev, batches, window, card, mesh=False):
+    """A sim with the schemas beside a twin: without them and given only
+    the ops the oracle keeps, or (``mesh``) a 4-shard sim beside an
+    unsharded twin that both carry the schemas and get every op. Holds
+    ops_rejected and the error handler's count to the oracle's, then the
+    tables exactly after step(1), the converge and reconcile; reads a
+    sample at three peers against the oracle's values. Logs put_bulk's
+    host seconds, step(1) against the twin's, the ingress round trip and
+    report_rejections. Returns the kernels it launched, with counts."""
+    from bullet_tpu_torch import PeerNetworkSim, _build
+
+    sync = dev.type == "cuda"
+    errors, twin_errors = [], []
+    extra = dict(mesh_devices=[dev] * SHARDS, use_shard_map=True) if mesh else {}
+    sim = PeerNetworkSim(p, capacity=n, topology="ring", layout=layout, device=dev, **extra)
+    twin = PeerNetworkSim(p, capacity=n, topology="ring", layout=layout, device=dev)
+    bind_schemas(sim, errors)
+    if mesh:
+        bind_schemas(twin, twin_errors)
+    else:
+        for base in ("users", "products"):
+            twin.intern_path(base)
+    secs: dict = {}
+    for name in ("_ingress_flat", "_ingress"):
+        timed_method(sim, name, secs, sync)
+    timed_method(sim.validation, "report_rejections", secs, sync)
+    before = dict(_build.LAUNCHES)
+    keeps = [oracle_keep(b[0], b[3]) for b in batches]
+    with window("put_bulk", secs):
+        for batch in batches:
+            sim.put_bulk(*batch[1:])
+    with window("twin put_bulk", secs):
+        for batch, keep in zip(batches, keeps):
+            if mesh:
+                twin.put_bulk(*batch[1:])
+            else:
+                pre_intern(twin, batch)
+                twin.put_bulk(*kept_rows(batch, keep))
+    rejected = int(sum(len(k) - int(k.sum()) for k in keeps))
+    # put_bulk drops what the device cannot judge; the step vetoes the rest
+    strict = sim.stats["ops_rejected"]
+    if len(sim.host.values) != len(twin.host.values) or len(sim.host.paths) != len(
+            twin.host.paths):
+        raise AssertionError(f"phase 11 {tag}: the twin interned other ids")
+    with window("step(1)", secs):
+        residual = sim.step(1)
+    with window("twin step(1)", secs):
+        twin_residual = twin.step(1)
+    got = (sim.stats["ops_rejected"], len(errors), sim.stats["ops_applied"], residual)
+    want = (rejected, rejected, twin.stats["ops_applied"], twin_residual)
+    if got != want or not tables_same(sim, twin):
+        raise AssertionError(f"phase 11 {tag}: after step(1) (rejected, errors, applied, "
+                             f"residual) {got}, want {want}, tables equal "
+                             f"{tables_same(sim, twin)}")
+    if mesh and twin.stats["ops_rejected"] != rejected:
+        raise AssertionError(f"phase 11 {tag}: the twin rejected {twin.stats['ops_rejected']}")
+    with window("converge", secs):
+        rounds = sim.run_until_converged()
+    twin_rounds = twin.run_until_converged()
+    if rounds != twin_rounds or sim.last_residual or not tables_same(sim, twin):
+        raise AssertionError(f"phase 11 {tag}: converge {rounds} against {twin_rounds}")
+    route = sim._convergence_strategy()[0]
+    sim.reconcile()
+    twin.reconcile()
+    if not tables_same(sim, twin) or not sim.tables_equal():
+        raise AssertionError(f"phase 11 {tag}: reconcile")
+    # every path's one kept value (the collisions' second write is vetoed)
+    rng = np.random.default_rng(11)
+    want_of = {}
+    for batch, keep in zip(batches, keeps):
+        vals = batch[3].tolist() if isinstance(batch[3], np.ndarray) else batch[3]
+        for q, v, k in zip(batch[2], vals, keep.tolist()):
+            if k:
+                want_of[q] = v
+            else:
+                want_of.setdefault(q, None)
+    all_paths = sorted(want_of)
+    sample = [all_paths[i] for i in rng.choice(len(all_paths), min(4096, len(all_paths)),
+                                               replace=False)]
+    check_reads(tag, (sim, twin), sample, (0, p // 2, p - 1), [want_of[q] for q in sample])
+    launches = {k: v - before[k] for k, v in _build.LAUNCHES.items() if v != before[k]}
+    # the flat path's timer holds the inner _ingress's
+    ingress_s = secs["_ingress_flat"] or secs["_ingress"]
+    report_s = secs["report_rejections"]
+    vetoed = rejected - strict
+    log(f"  {tag}: {sum(len(b[1]) for b in batches)} writes in {len(batches)} put_bulk calls, "
+        f"{rejected} rejected ({sim.stats['ops_rejected']} counted, {len(errors)} typed "
+        f"errors; {strict} dropped at put_bulk, {vetoed} vetoed on the device); put_bulk "
+        f"{secs['put_bulk']:.3f} s host (twin {secs['twin put_bulk']:.3f} s); step(1) "
+        f"{1e3 * secs['step(1)']:.1f} ms with ingress against the twin's "
+        f"{1e3 * secs['twin step(1)']:.1f} ms; ingress round trip (upload, transforms, mask, "
+        f"download) {1e3 * (ingress_s - report_s):.1f} ms, report_rejections "
+        f"{1e3 * report_s:.1f} ms ({1e6 * report_s / max(vetoed, 1):.1f} us a vetoed op); "
+        f"converge [{route}] {rounds} rounds {secs['converge']:.2f} s; {card}")
+    return launches
+
+
+def ingress_clamp_pair(tag, p, n, dev, batches, window, card):
+    """A rank1 sim with a traced put transform in torch that caps every
+    price at PRICE_CAP through its encoded key and vid, beside a twin given
+    the prices capped in numpy; both intern the same values in the same
+    order (the twin its raw prices too), so their rank tables must be
+    equal."""
+    from bullet_tpu_torch import PeerNetworkSim, _build
+    from bullet_tpu_torch.utils.encode import CLS_NUMBER, number_key
+
+    sync = dev.type == "cuda"
+    sim = PeerNetworkSim(p, capacity=n, topology="ring", layout="rank1", device=dev)
+    twin = PeerNetworkSim(p, capacity=n, topology="ring", layout="rank1", device=dev)
+    cap_hi, cap_lo = number_key(PRICE_CAP)
+    cap_vid = sim.host.encode_value(PRICE_CAP)[3]
+    twin.host.encode_value(PRICE_CAP)
+    price_sid = sim.host._seg_id("price")
+    twin.host._seg_id("price")
+
+    def clamp(ops, struct):
+        is_price = struct.seg[ops.slot.long()] == price_sid
+        big = is_price & (ops.cls == CLS_NUMBER) & (
+            (ops.khi > cap_hi) | ((ops.khi == cap_hi) & (ops.klo > cap_lo)))
+        return ops._replace(khi=torch.where(big, cap_hi, ops.khi),
+                            klo=torch.where(big, cap_lo, ops.klo),
+                            vid=torch.where(big, cap_vid, ops.vid))
+
+    sim.use_traced_put(clamp)
+    secs: dict = {}
+    timed_method(sim, "_ingress_flat", secs, sync)
+    before = dict(_build.LAUNCHES)
+    with window("put_bulk", secs):
+        for batch in batches:
+            sim.put_bulk(*batch[1:])
+    capped = 0
+    with window("twin put_bulk", secs):
+        for field, peers, paths, values in batches:
+            if field == "price":
+                pre_intern(twin, (field, peers, paths, values))
+                capped = int((values > PRICE_CAP).sum())
+                values = np.minimum(values, PRICE_CAP)
+            twin.put_bulk(peers, paths, values)
+    with window("step(1)", secs):
+        residual = sim.step(1)
+    with window("twin step(1)", secs):
+        twin_residual = twin.step(1)
+    if (residual, sim.stats["ops_applied"]) != (twin_residual, twin.stats["ops_applied"]) or \
+            not tables_same(sim, twin):
+        raise AssertionError(f"phase 11 {tag}: step(1) {residual} against {twin_residual}")
+    with window("converge", secs):
+        rounds = sim.run_until_converged()
+    if rounds != twin.run_until_converged() or not tables_same(sim, twin):
+        raise AssertionError(f"phase 11 {tag}: converge")
+    sim.reconcile()
+    twin.reconcile()
+    if not tables_same(sim, twin):
+        raise AssertionError(f"phase 11 {tag}: reconcile")
+    _, _, paths, values = next(b for b in batches if b[0] == "price")
+    want = np.minimum(values, PRICE_CAP).tolist()
+    check_reads(tag, (sim,), paths[:4096], (0, p // 2, p - 1), want[:4096])
+    launches = {k: v - before[k] for k, v in _build.LAUNCHES.items() if v != before[k]}
+    log(f"  {tag}: traced transform capped {capped} prices at {PRICE_CAP:g}; put_bulk "
+        f"{secs['put_bulk']:.3f} s host (twin {secs['twin put_bulk']:.3f} s); step(1) "
+        f"{1e3 * secs['step(1)']:.1f} ms with the transform against the twin's "
+        f"{1e3 * secs['twin step(1)']:.1f} ms; ingress round trip (upload, transform, "
+        f"download) {1e3 * secs['_ingress_flat']:.1f} ms; converge {rounds} rounds "
+        f"{secs['converge']:.2f} s; {card}")
+    return launches
+
+
+def ingress_hooks(tag, p, n, dev, window, card):
+    """A dense sim with host hooks: a put hook that vetoes secret/… and
+    rewrites alias/… to real/…, afterPut and "write" counters, a get hook
+    that rewrites alias/… reads to real/… and an afterGet transform that
+    doubles the numbers it reads there; scalar and bulk puts, each held
+    against the result computed in Python."""
+    from bullet_tpu_torch import PeerNetworkSim, _build
+
+    rng = np.random.default_rng(12)
+    sim = PeerNetworkSim(p, capacity=n, topology="ring", device=dev)
+    count = Counter()
+
+    def put_hook(path, data):
+        if path.startswith("secret/"):
+            return False
+        if path.startswith("alias/"):
+            return {"path": "real/" + path[6:], "data": data}
+        return None
+
+    def after_put(path, data, peer):
+        count["afterPut"] += 1
+
+    def after_get(path, data):
+        if path.startswith("real/") and isinstance(data, (int, float)):
+            return 2 * data
+        return None
+
+    sim.use("put", put_hook)
+    sim.use("afterPut", after_put)
+    sim.use("get", lambda path, data: "real/" + path[6:] if path.startswith("alias/") else None)
+    sim.use("afterGet", after_get)
+    sim.on_event("write", lambda d: count.__setitem__("write", count["write"] + 1))
+    users, k = n >> 3, n >> 6
+    uid = np.arange(users)
+    batches = [
+        (rng.integers(0, p, users).astype(np.int32), [f"users/{i}/name" for i in uid.tolist()],
+         [f"user{i}" for i in rng.integers(0, 1 << 20, users).tolist()]),
+        (rng.integers(0, p, users).astype(np.int32), [f"users/{i}/age" for i in uid.tolist()],
+         rng.integers(13, 121, users).astype(np.float64)),
+        (rng.integers(0, p, k).astype(np.int32), [f"secret/{i}" for i in range(k)],
+         rng.uniform(0, 1, k)),
+        (rng.integers(0, p, k).astype(np.int32), [f"alias/{i}" for i in range(k)],
+         np.round(rng.uniform(0, 100, k), 3)),
+    ]
+    want = {}
+    accepted = 0
+    secs: dict = {}
+    with window("put_bulk", secs):
+        for peers, paths, values in batches:
+            sim.put_bulk(peers, paths, values)
+    for peers, paths, values in batches:
+        vals = values.tolist() if isinstance(values, np.ndarray) else values
+        for q, v in zip(paths, vals):
+            if q.startswith("secret/"):
+                want[q] = None
+                continue
+            accepted += 1
+            if q.startswith("alias/"):
+                # stored at real/…; read there or through alias/…, doubled
+                want["real/" + q[6:]] = want[q] = 2 * v
+            else:
+                want[q] = v
+    scalar_ok = []
+    with window("scalar puts", secs):
+        for i in range(1000):
+            q = ("secret/s", "alias/s", "scalar/")[i % 3] + str(i)
+            v = float(i) + 0.25
+            scalar_ok.append(sim.put(int(rng.integers(p)), q, v))
+            if q.startswith("secret/"):
+                want[q] = None
+                continue
+            accepted += 1
+            if q.startswith("alias/"):
+                want["real/" + q[6:]] = want[q] = 2 * v
+            else:
+                want[q] = v
+    if scalar_ok != [i % 3 != 0 for i in range(1000)]:
+        raise AssertionError(f"phase 11 {tag}: put's return values")
+    if count["afterPut"] or count["write"]:
+        raise AssertionError(f"phase 11 {tag}: afterPut fired before the step")
+    before = dict(_build.LAUNCHES)
+    with window("step(1)", secs):
+        sim.step(1)
+    if (count["afterPut"], count["write"]) != (accepted, accepted):
+        raise AssertionError(f"phase 11 {tag}: afterPut {count['afterPut']}, write "
+                             f"{count['write']}, want {accepted}")
+    with window("converge", secs):
+        rounds = sim.run_until_converged()
+    sim.reconcile()
+    if not sim.tables_equal():
+        raise AssertionError(f"phase 11 {tag}: reconcile")
+    paths = sorted(want)
+    sample = [paths[i] for i in rng.choice(len(paths), min(4096, len(paths)), replace=False)]
+    check_reads(tag, (sim,), sample, (0, p // 2, p - 1), [want[q] for q in sample])
+    for q in sample[:64]:
+        if sim.get(p - 1, q) != want[q]:
+            raise AssertionError(f"phase 11 {tag}: get {q}")
+    launches = {k: v - before[k] for k, v in _build.LAUNCHES.items() if v != before[k]}
+    log(f"  {tag}: {sum(len(b[0]) for b in batches)} bulk rows and 1000 scalar puts through "
+        f"the put hook, {accepted} accepted, afterPut and write fired {accepted} times at the "
+        f"step; put_bulk {secs['put_bulk']:.3f} s host, scalar puts "
+        f"{1e3 * secs['scalar puts']:.1f} ms, step(1) {1e3 * secs['step(1)']:.1f} "
+        f"ms (the afterPut delivery included), converge {rounds} rounds "
+        f"{secs['converge']:.2f} s; {card}")
+    return launches
+
+
+def free(dev) -> None:
+    """Return the freed sims' memory to the card."""
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def ingress_path(args, dev, card: str, window=wall_window):
+    """Phase 11: batch ingress at full width. Packed P x N (default
+    1024 x 2^20) with both schemas beside a twin given only the ops the
+    oracle keeps; rank1 P x N with a traced transform in torch beside a
+    twin given the capped values; dense P x 2^18 with host hooks against
+    Python's expected results; a 4-shard rank1 mesh with the schemas
+    beside its unsharded twin. Raises if a sim disagrees or a kernel of
+    its path was never launched."""
+    rng = np.random.default_rng(args.seed + 11)
+    p = args.peers
+    packed_batches = ingress_batches(rng, p, args.packed_capacity)
+    launches = {}
+    launches["packed"] = ingress_pair(
+        f"packed {p} x {args.packed_capacity}, schemas", "packed", p, args.packed_capacity, dev,
+        packed_batches, window, card)
+    free(dev)
+    rank1_batches = ingress_batches(rng, p, args.rank1_capacity)
+    launches["rank1"] = ingress_clamp_pair(
+        f"rank1 {p} x {args.rank1_capacity}, traced transform", p, args.rank1_capacity, dev,
+        rank1_batches, window, card)
+    free(dev)
+    launches["dense"] = ingress_hooks(f"dense {p} x {args.capacity}, host hooks", p,
+                                      args.capacity, dev, window, card)
+    free(dev)
+    launches["mesh"] = ingress_pair(
+        f"rank1 {p} x {args.rank1_capacity}, {SHARDS} shards on one card, schemas", "rank1",
+        p, args.rank1_capacity, dev, rank1_batches, window, card, mesh=True)
+    free(dev)
+    log(f"  launches (phase 11): {launches}")
+    if dev.type == "cuda":
+        missing = [f"{sim} {k}" for sim, names in INGRESS_KERNELS.items() for k in names
+                   if launches[sim].get(k, 0) <= 0]
+        if missing:
+            raise AssertionError(f"phase 11 never launched: {missing}")
+    return launches
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2951,6 +3490,11 @@ def main() -> int:
     log(f"phase 10: queries on packed and rank1 {args.peers} x {args.packed_capacity}, dense "
         f"{args.peers} x {args.capacity} and a {SHARDS}-shard packed mesh, {smi}")
     query_path(args, dev, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 11: batch ingress on packed and rank1 {args.peers} x {args.packed_capacity}, "
+        f"dense {args.peers} x {args.capacity} and a {SHARDS}-shard rank1 mesh, {smi}")
+    ingress_path(args, dev, smi)
 
     # one row per kernel at the layout its main path drives (dense: phase
     # 4, packed: phase 5), one per packed-family kernel at rank1 (phase 6),

@@ -2,14 +2,17 @@
 chip_smoke.py or a script in tools/, imports the JAX package or JAX, or
 finds the JAX package's files through ``bullet_tpu.__file__``; and the
 port's own copies of the framework-free modules (utils/encode, utils/paths,
-parallel/topology, the native host runtime) give the reference's results
+parallel/topology, the native host runtime, the host db layer, whose code
+must be the reference's, docstrings apart) give the reference's results
 on the same seeded inputs, native against native also in a process that
 lost the race to build the reference's library (tests/_native_libs.py).
 The reference modules are imported here, by the test, never by the
 port."""
 
 import ast
+import copy
 import os
+import re
 from pathlib import Path
 
 import numpy as np
@@ -34,6 +37,9 @@ from _native_libs import load_native
 
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("bullet_tpu", "jax", "jaxlib")
+# the host db layer, copied whole: the port's files are the reference's
+# code, docstrings apart
+DB_MODULES = sorted(p.name for p in (REPO / "bullet_tpu" / "db").glob("*.py"))
 
 
 def port_files():
@@ -73,7 +79,10 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     names = {str(f.relative_to(REPO)) for f in files}
     assert {"bullet_tpu_torch/ops/rank.py", "bullet_tpu_torch/ops/packed.py",
             "bullet_tpu_torch/models/netsim.py", "bullet_tpu_torch/convert.py",
-            "bullet_tpu_torch/ops/scans.py", "bullet_tpu_torch/ops/predicates.py"} <= names
+            "bullet_tpu_torch/ops/scans.py", "bullet_tpu_torch/ops/predicates.py",
+            "bullet_tpu_torch/__init__.py", "bullet_tpu_torch/__main__.py",
+            "bullet_tpu_torch/models/ingress.py"} <= names
+    assert {f"bullet_tpu_torch/db/{m}" for m in DB_MODULES} <= names
     bad = {str(f.relative_to(REPO)): v for f in files if (v := violations(f))}
     assert not bad, bad
 
@@ -288,3 +297,201 @@ def test_rank_bounds_match_reference(seed):
         assert port.rank_bounds(c, *lo, *hi) == ref.rank_bounds(c, *lo, *hi), (c, lo, hi)
     assert port_rank.RankIndex().rank_bounds(2, 0, 0, 1, 1) is None
     assert ref_rank.RankIndex().rank_bounds(2, 0, 0, 1, 1) is None
+
+
+# ------------------------------------------------------------ the db copy
+
+
+def _code_only(path: Path) -> str:
+    """The module's AST without docstrings (module, class and function)."""
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef)):
+            body = node.body
+            if body and isinstance(body[0], ast.Expr) and isinstance(
+                    getattr(body[0], "value", None), ast.Constant) and isinstance(
+                    body[0].value.value, str):
+                node.body = body[1:] or [ast.Pass()]
+    return ast.dump(tree)
+
+
+@pytest.mark.parametrize("module", DB_MODULES)
+def test_db_copy_is_the_reference_code(module):
+    """Each copied db module is the reference's code: only docstrings
+    (which name the package and bullet-js's sources) differ."""
+    assert len(DB_MODULES) == 13
+    port = REPO / "bullet_tpu_torch" / "db" / module
+    assert _code_only(port) == _code_only(REPO / "bullet_tpu" / "db" / module)
+    assert not violations(port)
+
+
+class _Owner:
+    """The few attributes the db components read from their Bullet."""
+
+    def __init__(self):
+        self.id = "node-a"
+        self.log, self.meta, self.store = [], {}, {}
+
+
+def _tree(rng, depth=3):
+    if depth == 0 or rng.random() < 0.3:
+        return [int(rng.integers(-3, 3)), "s" + str(int(rng.integers(3))), True, None,
+                float(rng.integers(-8, 8)) / 4, [1, "a"]][int(rng.integers(6))]
+    return {f"k{int(rng.integers(4))}": _tree(rng, depth - 1)
+            for _ in range(int(rng.integers(1, 4)))}
+
+
+def test_db_crt_matches_reference():
+    from bullet_tpu.db import crt as ref
+    from bullet_tpu_torch.db import crt as port
+
+    rng = np.random.default_rng(11)
+
+    def clock():
+        if rng.random() < 0.1:
+            return None
+        return {n: int(rng.integers(0, 3)) for n in ("node-a", "b", "c") if rng.random() < 0.7}
+
+    resolvers = (ref.BulletCRT(_Owner()), port.BulletCRT(_Owner()))
+    for i in range(300):
+        c1, c2, v1, v2 = clock(), clock(), _tree(rng, 2), _tree(rng, 2)
+        assert port.compare_vector_clocks(c1, c2) == ref.compare_vector_clocks(c1, c2)
+        if c1 is not None and c2 is not None:
+            assert port.merge_vector_clocks(c1, c2) == ref.merge_vector_clocks(c1, c2)
+        key = f"p{i % 7}"
+        want, got = (r.resolve(key, dict(c1 or {}), c2 and dict(c2), v1, v2) for r in resolvers)
+        assert vars(got) == vars(want), i
+    assert resolvers[1].vector_clocks == resolvers[0].vector_clocks
+
+
+def test_db_validation_matches_reference():
+    from bullet_tpu.db import validation as ref
+    from bullet_tpu_torch.db import validation as port
+
+    schema = {"type": "object", "properties": {
+        "name": {"type": "string", "required": True, "min": 2, "max": 6},
+        "age": {"type": "integer", "min": 0, "max": 99},
+        "kind": {"enum": ["a", "b", 1]},
+        "email": {"type": "string", "format": "email"},
+        "site": {"type": "string", "format": "url"},
+        "tags": {"type": "array", "max": 2},
+        "geo": {"type": "object", "properties": {"lat": {"type": "number", "min": -90}}},
+    }}
+    rng = np.random.default_rng(12)
+    pool = ["ab", "abcdefg", "x", 5, 5.5, -1, 120, True, None, "a", 1, "a@b.co", "a@",
+            "http://x.io", "nope", [1], [1, 2, 3], {"lat": -100}, {"lat": 3}]
+    logs = ([], [])
+    vals = []
+    for log, mod in zip(logs, (ref, port)):
+        v = mod.BulletValidation(None)
+        v.define_schema("s", schema)
+        v.apply_schema("users", "s")
+        v.on_error("all", log.append)
+        vals.append(v)
+    for i in range(400):
+        data = {f: pool[int(rng.integers(len(pool)))] for f in schema["properties"]
+                if rng.random() < 0.6}
+        path = ["users/u1", "users/u1/age", "users/u1/geo", "other/x"][int(rng.integers(4))]
+        if path.count("/") == 2:
+            data = data.get(path.rsplit("/", 1)[1], pool[int(rng.integers(len(pool)))])
+        assert vals[1].check_write(path, data) == vals[0].check_write(path, data), (i, data)
+    assert [(e.type, str(e), e.is_fatal) for e in logs[1]] == [
+        (e.type, str(e), e.is_fatal) for e in logs[0]]
+    assert len(logs[0]) > 50
+
+
+def test_db_query_and_serializer_match_reference():
+    import bullet_tpu
+    import bullet_tpu_torch
+
+    rng = np.random.default_rng(13)
+    users = {f"u{i}": {"name": f"n{int(rng.integers(4))}", "age": int(rng.integers(0, 60)),
+                       "ok": bool(rng.integers(2)), "deep": _tree(rng, 2)} for i in range(30)}
+    out = []
+    for bt in (bullet_tpu, bullet_tpu_torch):
+        b = bt.create({"storage": False, "disable_network": True})
+        try:
+            for uid, data in users.items():
+                b.get(f"users/{uid}").put(data)
+            b.index("users", "name")
+            got = [sorted(n.path for n in b.equals("users", "name", f"n{k}")) for k in range(5)]
+            got += [sorted(n.path for n in b.range("users", "age", lo, lo + 15))
+                    for lo in (0, 20, 50)]
+            got.append(b.count("users", "ok", True))
+            stamp = re.compile(r"\d{4}-\d\d-\d\dT[\d:.]+Z?|\"timestamp\": ?\d+")
+            exports = [stamp.sub("", getattr(b, f"export_to_{f}")("users"))
+                       for f in ("json", "csv", "xml")]
+            b2 = bt.create({"storage": False, "disable_network": True})
+            try:
+                b2.import_from_json(b.export_to_json("users"), "copy")
+                b2.import_from_csv(b.export_to_csv("users"), "csv")
+                got += [b2.get("copy").value(), b2.get("csv").value()]
+            finally:
+                b2.close()
+            out.append((got, exports))
+        finally:
+            b.close()
+    assert out[1] == out[0]
+
+
+def test_db_middleware_matches_reference():
+    import bullet_tpu
+    import bullet_tpu_torch
+
+    out = []
+    for bt in (bullet_tpu, bullet_tpu_torch):
+        b = bt.create({"storage": False, "disable_network": True})
+        log = []
+        try:
+            b.middleware.rewrite_path(r"^old/(\w+)", "new/$1")
+            b.middleware.transform("nums", lambda d: d * 3 if isinstance(d, int) else d, "write")
+            b.middleware.access_control("locked", lambda op, path, data: op == "read")
+            b.on("all", lambda event, data: log.append(event))
+            r = np.random.default_rng(14)
+            for i in range(60):
+                base = ["old", "new", "nums", "locked", "free"][int(r.integers(5))]
+                path = f"{base}/k{int(r.integers(4))}"
+                if r.random() < 0.6:
+                    b.get(path).put(int(r.integers(9)))
+                else:
+                    log.append(("read", path, b.get(path).value()))
+            out.append((b.store, log))
+        finally:
+            b.close()
+    assert out[1] == out[0]
+
+
+def test_db_storage_matches_reference():
+    from bullet_tpu.db import storage as ref
+    from bullet_tpu_torch.db import storage as port
+
+    rng = np.random.default_rng(15)
+    for _ in range(100):
+        a, c = _tree(rng), _tree(rng)
+        if not isinstance(a, dict) or not isinstance(c, dict):
+            continue
+        got = [s._has_store_changes(a, c) for s in (ref.BulletStorage(_Owner()),
+                                                    port.BulletStorage(_Owner()))]
+        assert got[1] == got[0]
+        merged = [s._deep_merge(copy.deepcopy(a), c) for s in (ref.BulletStorage(_Owner()),
+                                                               port.BulletStorage(_Owner()))]
+        assert merged[1] == merged[0]
+
+
+def test_db_ws_framing_matches_reference():
+    import io
+
+    from bullet_tpu.db import ws as ref
+    from bullet_tpu_torch.db import ws as port
+
+    rng = np.random.default_rng(16)
+    for n in [0, 1, 125, 126, 127, 65535, 65536, 70000]:
+        payload = rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+        for opcode in (port.OP_TEXT, 0x2, 0x9):
+            frame = port.encode_frame(payload, opcode)
+            assert frame == ref.encode_frame(payload, opcode)
+            assert port.read_frame(io.BytesIO(frame)) == ref.read_frame(io.BytesIO(frame))
+            masked = ref.encode_frame(payload, opcode, mask=True)
+            assert port.read_frame(io.BytesIO(masked)) == (opcode, True, payload)
+    key = "dGhlIHNhbXBsZSBub25jZQ=="
+    assert port.accept_key(key) == ref.accept_key(key) == "s3pPLMBiTxaQ9kYGzzhZRbK+xOo="
