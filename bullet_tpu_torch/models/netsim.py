@@ -34,6 +34,12 @@ family's ``fast_forward`` takes one window per exchange of m-row slabs.
 A data mesh (no ``use_shard_map``) never runs the frontier. A packed
 family's op apply and reconcile run per shard.
 
+The db facade goes through this package's own db layer: the
+serializer's ``export_to_*``/``import_from_*`` through a scratch
+``Bullet`` and ``models/bridge.py``, ``save_checkpoint``/
+``load_checkpoint`` through ``models/checkpoint.py``; the live bridges of
+``models/bridge.py`` keep their lock and stages on the sim.
+
 Batch ingress (``models/ingress.py``) sits between the drain and the
 apply: traced put transforms and the schemas' veto mask run on the
 device over the whole drained batch (on a mesh, before it is split by
@@ -47,6 +53,7 @@ diameter + 1 rounds, with the same round count as the reference.
 
 from __future__ import annotations
 
+import threading
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -270,6 +277,25 @@ def _grown(table, capacity: int):
     return grown
 
 
+def _pad_flat_ops(reduced, p: int, n: int, min_bucket: int = 64):
+    """Pad a reduced flat op batch (rows peer, slot, then the fields) to a
+    power-of-two length of at least ``min_bucket``: the batches of
+    ``warm_apply_buckets``. Padding rows never change state: peer ``p - 1``
+    at slots ``n + i``, outside the table, which the apply drops, with all
+    value fields zero (cls 0 / rank 0, a loser); ascending slots keep the
+    (peer, slot) pairs sorted and unique. A batch already at its bucket
+    comes back as it is."""
+    k = len(reduced[0])
+    bucket = max(min_bucket, 1 << max(k - 1, 1).bit_length())
+    if bucket == k:
+        return reduced
+    pad = bucket - k
+    peer = np.concatenate([reduced[0], np.full(pad, p - 1, dtype=np.int32)])
+    slot = np.concatenate([reduced[1], (n + np.arange(pad)).astype(np.int32)])
+    rest = tuple(np.concatenate([r, np.zeros(pad, dtype=r.dtype)]) for r in reduced[2:])
+    return (peer, slot, *rest)
+
+
 class PeerNetworkSim:
     """P simulated peers over a topology, tables resident on ``device``.
 
@@ -364,6 +390,13 @@ class PeerNetworkSim:
             [] for _ in range(num_peers)
         ]
         self._pending_bulk: List[Tuple[np.ndarray, ...]] = []
+        # live-bridge fabric (models/bridge.py): ONE lock serializes every
+        # bridge pump/flush/view query against this sim, and the stage
+        # registry lets any pump drain EVERY attached bridge's staged
+        # writes, so a sim with several bridges converges over all their
+        # streams whichever handle flushes
+        self._bridge_lock = threading.Lock()
+        self._bridge_stages: List[Tuple[Any, int]] = []
         # scalar-put fast path: enabled until any hook or schema registers
         self._fast_put_ok = True
         # scalar-put fast-path memoization (see _put_scalar_fast)
@@ -920,6 +953,34 @@ class PeerNetworkSim:
         self.table, applied = pk.apply_flat_packed(
             self.table, torch.from_numpy(ops).to(self.device))
         return int(applied)
+
+    def warm_apply_buckets(self, max_ops: int = 1 << 16) -> int:
+        """Serving warm-up: one apply of an all-padding batch (see
+        ``_pad_flat_ops``) for every power-of-two bucket from 64 up to
+        ``max_ops``, on every shard, so a live mirror's first queries find
+        the kernel library loaded and the allocator's blocks sized (the
+        reference compiles one program a bucket here; the port compiles
+        nothing per batch size). Nothing lands: padding lies outside the
+        table, and a launch that applies an op raises. Packed family only
+        (the serving layouts); returns the number of buckets, 0 on dense."""
+        if self.layout not in PACKED_FAMILY:
+            return 0
+        self._sync_device_state()
+        shards = self.table.shards if isinstance(self.table, ShardedTable) else [self.table]
+        rows, n = shards[0][0].shape
+        nf = len(shards[0])
+        empty = tuple(np.zeros(0, dtype=np.int32) for _ in range(2 + nf))
+        warmed, bucket = 0, 64
+        while bucket <= max_ops:
+            ops = np.stack(_pad_flat_ops(empty, rows, n, min_bucket=bucket))
+            for shard in shards:
+                dev_ops = torch.from_numpy(ops).to(shard[0].device)
+                _, applied = pk.apply_flat_packed(shard, dev_ops)
+                if int(applied) != 0:
+                    raise RuntimeError(f"warm_apply_buckets: padding landed ({int(applied)} ops)")
+            warmed += 1
+            bucket <<= 1
+        return warmed
 
     def _ingress(self, ops: OpBatch) -> OpBatch:
         """Batch-ingress pipeline between drain and apply (SURVEY §7 stage
@@ -1747,6 +1808,91 @@ class PeerNetworkSim:
         "all" — bullet-middleware.js:278-313)."""
         self.hooks.on_event(event, listener)
         return self
+
+    # -------------------------------------------------- facade: serialization
+
+    def _scratch_bullet(self, peer: Optional[int] = None):
+        """A throwaway storage-less, network-less Bullet of this package;
+        seeded with ``peer``'s replica when given (the serializer works on
+        a Bullet's store)."""
+        from .. import create
+
+        b = create({"storage": False, "disable_network": True})
+        if peer is not None:
+            from .bridge import dump_sim_into_bullet
+
+            dump_sim_into_bullet(self, b, peer=peer)
+        return b
+
+    def export_to_json(self, peer: int, path: str = "", options=None) -> str:
+        """Serialize a peer's replica in the db layer's formats (the
+        bullet-serializer.js envelope) through a scratch Bullet."""
+        b = self._scratch_bullet(peer)
+        try:
+            return b.export_to_json(path, options)
+        finally:
+            b.close()
+
+    def export_to_csv(self, peer: int, path: str, options=None) -> str:
+        b = self._scratch_bullet(peer)
+        try:
+            return b.export_to_csv(path, options)
+        finally:
+            b.close()
+
+    def export_to_xml(self, peer: int, path: str, options=None) -> str:
+        b = self._scratch_bullet(peer)
+        try:
+            return b.export_to_xml(path, options)
+        finally:
+            b.close()
+
+    def _import_via_bullet(self, peer: int, importer) -> dict:
+        """Run ``importer`` on a scratch Bullet; only if it succeeds, queue
+        its store's leaves as puts at ``peer``."""
+        b = self._scratch_bullet()
+        try:
+            result = importer(b)
+            if result.get("success"):
+                from .bridge import load_bullet_into_sim
+
+                load_bullet_into_sim(b, self, peer=peer)
+            return result
+        finally:
+            b.close()
+
+    def import_from_json(self, peer: int, json_str: str, target_path=None,
+                         options=None) -> dict:
+        """Parse the db layer's JSON format and queue its leaves as puts at
+        ``peer`` (step/run_until_converged applies them)."""
+        return self._import_via_bullet(
+            peer, lambda b: b.import_from_json(json_str, target_path, options))
+
+    def import_from_csv(self, peer: int, csv_str: str, target_path: str,
+                        options=None) -> dict:
+        return self._import_via_bullet(
+            peer, lambda b: b.import_from_csv(csv_str, target_path, options))
+
+    def import_from_xml(self, peer: int, xml_str: str, target_path: str,
+                        options=None) -> dict:
+        return self._import_via_bullet(
+            peer, lambda b: b.import_from_xml(xml_str, target_path, options))
+
+    # ------------------------------------------------------------ checkpoints
+
+    def save_checkpoint(self, directory: str, backend: str = "npz") -> None:
+        """``state.npz`` + ``meta.json`` under ``directory``, in the
+        reference package's format (see ``models/checkpoint.py``)."""
+        from .checkpoint import save_checkpoint
+
+        save_checkpoint(self, directory, backend=backend)
+
+    @staticmethod
+    def load_checkpoint(directory: str, mesh_devices=None, *, device="cuda"):
+        """A working sim from a checkpoint of either package, on ``device``."""
+        from .checkpoint import load_checkpoint
+
+        return load_checkpoint(directory, mesh_devices, device=device)
 
     # ---------------------------------------------------------- subscriptions
 

@@ -124,14 +124,35 @@ Phases, in order; any failure raises and exits nonzero:
    bulk puts against Python's expected results. A 4-shard rank1 mesh with
    the schemas beside its unsharded twin. Each prints put_bulk's host
    seconds, step(1) against the twin's, the ingress round trip and
-   report_rejections.
+   report_rejections;
+12. the serving path, the earlier phases' sims freed: two port Bullets
+   on 127.0.0.1 (a serving and a writer peer), the serving one mirrored
+   by attach_live_bridge into a rank1 P x N ring (default 1024 x 2^20)
+   preloaded at peer 0 with phase 10's records and converged;
+   warm_apply_buckets(2^16); benchmarks/serving_bench.py's flood (4000
+   records over TCP: writes/s), the mirror lag (the first count through
+   the view, exact), idle p50/p95 of equals, range and count over 60
+   rounds, loaded p50/p95/p99 of count under a writer thread's price
+   overwrites (paced, beside the reference's 50 ms p95 bound, which is
+   not asserted); the counts, ranges (against scans of the serving
+   store, and after the load of the maxima the mirror keeps) and the
+   store exact, flush() converging every peer; sim_from_bullet of the
+   serving store, its dump into a fresh Bullet, export_to_json, CSV and
+   XML imports into a rank1 sim, each against the serving Bullet; a
+   StepObserver's summary and a profile_trace of one converge that must
+   hold the port's kernels; checkpoint round trips of packed and rank1
+   P x 2^16 (phase 10's records cut to a sixteenth) on the card: tables
+   bit-equal (rank1: the value ids), reads, a second batch converged
+   alike, the packed one also loaded onto 4 shards against the
+   unsharded load; save and load seconds and bytes on disk.
 
 Every kernel's launch count over the phase that drives its path (4 for
 the dense kernels, 5 and 6 for the packed-family ones, 5 for the m-round
 pass, 7 for the lean
 ones, 8 for the sharded ones, 9 for the packed family's mesh kernels; 10
 checks the kernels its step(1) and converges run, 11 those each of its
-sims drives) must be > 0. The last
+sims drives, 12 the apply, the frontiers and the count-only round of its
+serving path) must be > 0. The last
 two lines are a JSON
 object describing the kernels and the contract line
 {"ok": true, "device": {...}}. Imports nothing of JAX."""
@@ -143,8 +164,11 @@ import contextlib
 import gc
 import itertools
 import json
+import os
+import shutil
 import subprocess
 import sys
+import threading
 import time
 
 from collections import Counter
@@ -3382,6 +3406,370 @@ def ingress_path(args, dev, card: str, window=wall_window):
     return launches
 
 
+# ----------------------------------------------------------------- phase 12
+
+# the serving bench's flood (benchmarks/serving_bench.py:57-160): records
+# cat/itemNNNNN {price, tier}, one in four gold, then 60 rounds of idle
+# queries and 60 counts under a writer thread's price overwrites
+SERVING_WRITES = 4000
+SERVING_ROUNDS = 60
+# the reference's loaded-count p95 bound (benchmarks/serving_bench.py:144-150),
+# printed beside the measured p95, not asserted
+SERVING_P95_BOUND_MS = 50.0
+# the loaded flood's pace, a share of the first flood's wire rate: an
+# unpaced writer fills its link's bounded outbox (10,000 frames) within a
+# fraction of a second and the db layer drops the link (ROADMAP Queue 3)
+LOADED_PACE = 0.5
+# every wait of phase 12 ends by this many seconds or raises
+SERVING_DEADLINE_S = 120.0
+# the kernels phase 12 drives: the views' apply and the warm-up (#9/#10),
+# flush's converge (#19/#20), converged()'s count-only round (#14) and
+# sim_from_bullet's dense converge (#8)
+SERVING_KERNELS = ("apply_packed", "frontier_round_packed", "packed_round",
+                   "frontier_round_dense")
+# the port's kernels in a device trace, by the names of their __global__
+# functions (csrc/*.cu)
+PORT_KERNEL_NAMES = (
+    "apply_packed_kernel", "compact_counts_kernel", "compact_counts_window_kernel",
+    "frontier_compact_kernel", "frontier_pipe_kernel", "frontier_round_kernel",
+    "frontier_shard_kernel", "frontier_shard_window_kernel", "merge_kernel",
+    "packed_round_kernel", "reconcile_packed_kernel", "ring_round_kernel", "shard_pipe_kernel",
+    "shard_sweep_kernel", "window_kernel",
+)
+# phase 12's checkpoints: P x 2^16 with phase 10's records cut to a sixteenth
+CHECKPOINT_CAPACITY = 1 << 16
+# phase 12's files (checkpoints, the trace) go under the checkout's build/
+PHASE12_DIR = "build/phase12"
+
+
+def wait_for(pred, what: str, timeout: float = SERVING_DEADLINE_S) -> None:
+    """Poll ``pred`` until it holds; raise TimeoutError at the deadline."""
+    start = time.perf_counter()
+    while not pred():
+        if time.perf_counter() - start > timeout:
+            raise TimeoutError(f"phase 12: {what} not within {timeout:.0f} s")
+        time.sleep(0.005)
+
+
+def percentiles(samples, qs=(50, 95, 99)):
+    """The ms at each percentile of ``samples`` (seconds)."""
+    return {q: 1e3 * float(np.percentile(np.asarray(samples), q)) for q in qs}
+
+
+def price_scan(prices: dict, lo: float, hi: float):
+    """The sorted cat paths whose price lies in [lo, hi]: the host scan the
+    views' range is held to."""
+    return sorted(f"cat/{k}" for k, v in prices.items() if lo <= v <= hi)
+
+
+def serving_mirror(args, dev, card: str) -> None:
+    """Phase 12 (a), (c) and (d): two port Bullets on 127.0.0.1, a writer
+    and a serving peer, the serving peer mirrored into a rank1 P x N ring
+    (preloaded at peer 0 with phase 10's records and converged) through
+    ``attach_live_bridge``, the bench's flood and queries through the
+    view, the checks after it, then the bridge and serializer against the
+    serving store and a device trace of one converge."""
+    from bullet_tpu_torch import PeerNetworkSim, create
+    from bullet_tpu_torch.models.bridge import attach_live_bridge
+    from bullet_tpu_torch.utils.observe import StepObserver, profile_trace
+
+    p, n = args.peers, args.rank1_capacity
+    rng = np.random.default_rng(args.seed + 12)
+    secs: dict = {}
+    sim = PeerNetworkSim(p, capacity=n, topology="ring", layout="rank1", device=dev)
+    with wall_window("preload", secs):
+        for _, paths, values in query_batches(rng, p, n):
+            sim.put_bulk(np.zeros(len(paths), dtype=np.int32), paths, values)
+        rounds = sim.run_until_converged()
+    log(f"  (a) rank1 {p} x {n} preloaded at peer 0 with {len(sim.host.paths)} paths, "
+        f"converged in {rounds} rounds, {secs['preload']:.2f} s")
+    options = {"storage": False, "host": "127.0.0.1", "port": 0, "connect_sync_delay": 600}
+    serving = create(dict(options))
+    writer = handle = None
+    try:
+        writer = create(dict(options, peers=[f"tcp://127.0.0.1:{serving.network.port}"]))
+        handle = attach_live_bridge(serving, sim, peer=0)
+        obs = StepObserver.attach(sim)
+        view = handle.view()
+        with wall_window("warm", secs):
+            warmed = sim.warm_apply_buckets(1 << 16)
+        wait_for(lambda: serving.network.peers and writer.network.peers, "the peers' handshake")
+        w = SERVING_WRITES
+        start = time.perf_counter()
+        for i in range(w):
+            writer.get(f"cat/item{i:05d}").put(
+                {"price": float(i % 1000), "tier": "gold" if i % 4 == 0 else "std"})
+        wait_for(lambda: len(serving.store.get("cat", {})) == w, "the flood")
+        wire = w / (time.perf_counter() - start)
+        backlog = handle.backlog()
+        gold = (w + 3) // 4
+        start = time.perf_counter()
+        got = view.count("cat", "tier", "gold")
+        lag = time.perf_counter() - start
+        if got != gold:
+            raise AssertionError(f"phase 12: the mirror counts {got} gold, want {gold}")
+        prices = {k: v["price"] for k, v in serving.store["cat"].items()}
+        if view.range("cat", "price", 100.0, 200.0) != price_scan(prices, 100.0, 200.0):
+            raise AssertionError("phase 12: the mirror's range differs from the store's scan")
+        idle = {"equals": [], "range": [], "count": []}
+        for _ in range(SERVING_ROUNDS):
+            for name, call in (("equals", lambda: view.equals("cat", "tier", "gold")),
+                               ("range", lambda: view.range("cat", "price", 100.0, 200.0)),
+                               ("count", lambda: view.count("cat", "tier", "std"))):
+                start = time.perf_counter()
+                call()
+                idle[name].append(time.perf_counter() - start)
+
+        stop, wrote, top = threading.Event(), [0], dict(prices)
+        rate = LOADED_PACE * wire
+
+        def flood():
+            i, begun = 0, time.perf_counter()
+            while not stop.is_set():
+                ahead = i - rate * (time.perf_counter() - begun)
+                if ahead > 0:
+                    time.sleep(ahead / rate)
+                key, price = f"item{i % w:05d}", float((i * 7) % 1000)
+                writer.get(f"cat/{key}/price").put(price)
+                top[key] = max(top[key], price)
+                wrote[0] = i = i + 1
+
+        thread = threading.Thread(target=flood, name="phase12-writer", daemon=True)
+        thread.start()
+        loaded = []
+        try:
+            for _ in range(SERVING_ROUNDS):
+                start = time.perf_counter()
+                got = view.count("cat", "tier", "gold")
+                loaded.append(time.perf_counter() - start)
+                if got != gold:
+                    raise AssertionError(f"phase 12: {got} gold under load, want {gold}")
+        finally:
+            stop.set()
+            thread.join(timeout=10)
+        if thread.is_alive():
+            raise TimeoutError("phase 12: the writer thread did not stop")
+        if not (writer.network.peers and serving.network.peers):
+            raise AssertionError("phase 12: the db dropped the writer's link under the load")
+        wait_for(lambda: serving.store["cat"] == writer.store["cat"],
+                 "the serving store catching up with the writer")
+        if view.count("cat", "tier", "gold") != gold:
+            raise AssertionError("phase 12: the gold count after the load")
+        # the mirror keeps each price's maximum (reference mode's value
+        # order), the db its last write: each against its own scan
+        if view.range("cat", "price", 100.0, 200.0) != price_scan(top, 100.0, 200.0):
+            raise AssertionError("phase 12: the mirror's range after the load")
+        store_prices = {k: v["price"] for k, v in serving.store["cat"].items()}
+        last = {f"item{j % w:05d}": float((j * 7) % 1000) for j in range(wrote[0])}
+        if store_prices != {**prices, **last}:
+            raise AssertionError("phase 12: the serving store's prices after the load")
+        with wall_window("flush", secs):
+            flushed = handle.flush()
+        if not (sim.tables_equal() and sim.converged()):
+            raise AssertionError("phase 12: the mirror did not converge on flush()")
+        for q in (p // 2, p - 1):
+            if sim.get(q, "cat/item00004") != serving.store["cat"]["item00004"] | {
+                    "price": top["item00004"]}:
+                raise AssertionError(f"phase 12: peer {q} after flush()")
+        idle_ms = {k: percentiles(v, (50, 95)) for k, v in idle.items()}
+        loaded_ms = percentiles(loaded)
+        log(f"  (a) warm_apply_buckets(2^16): {warmed} buckets in {secs['warm']:.3f} s; "
+            f"{w} records over TCP at {wire:.0f} writes/s, backlog {backlog} at the first "
+            f"query; mirror lag (the first count, {gold} gold) {1e3 * lag:.1f} ms")
+        log("  (a) idle ms p50 / p95: " + "; ".join(
+            f"{k} {v[50]:.3f} / {v[95]:.3f}" for k, v in idle_ms.items()))
+        log(f"  (a) loaded count ms p50 / p95 / p99: {loaded_ms[50]:.3f} / {loaded_ms[95]:.3f}"
+            f" / {loaded_ms[99]:.3f} (the reference's bound on p95: "
+            f"{SERVING_P95_BOUND_MS:.0f} ms, not asserted) under {wrote[0]} price overwrites "
+            f"paced at {rate:.0f}/s ({wrote[0] / sum(loaded):.0f}/s of query time); flush() "
+            f"{flushed} rounds in {secs['flush']:.3f} s, tables_equal; {card}")
+
+        bridge_and_serializer(serving, p, dev)
+
+        for i in range(16):  # (d): writes for one traced converge
+            serving.get(f"cat/late{i}").put({"price": 1000.0 + i, "tier": "gold"})
+        trace_dir = f"{PHASE12_DIR}/trace"
+        shutil.rmtree(trace_dir, ignore_errors=True)
+        with profile_trace(trace_dir):
+            traced = handle.flush()
+        kernels = trace_kernels(trace_dir)
+        shutil.rmtree(trace_dir, ignore_errors=True)
+        if not kernels:
+            raise AssertionError("phase 12: the trace holds no kernel of the port")
+        summary = obs.summary()
+        log(f"  (d) profile_trace around flush() ({traced} rounds): {sum(kernels.values())} "
+            f"events of the port's kernels {dict(kernels)}")
+        log(f"  (d) StepObserver: {summary['events']} events, {summary['steps']} steps, "
+            f"{summary['total_wall_s']:.3f} s, last residual {summary['last_residual']}, "
+            f"stats {summary['stats']}")
+        obs.detach()
+    finally:
+        if handle is not None:
+            handle.detach()
+        for b in (writer, serving):
+            if b is not None:
+                b.close()
+
+
+def trace_kernels(trace_dir: str) -> Counter:
+    """The port's kernel events in the Chrome traces under ``trace_dir``,
+    counted by kernel."""
+    import glob
+
+    found: Counter = Counter()
+    for path in glob.glob(f"{trace_dir}/trace_*.json"):
+        with open(path) as f:
+            for event in json.load(f).get("traceEvents", []):
+                if event.get("cat") != "kernel":
+                    continue
+                name = str(event.get("name", ""))
+                for kernel in PORT_KERNEL_NAMES:
+                    if kernel in name:
+                        found[kernel] += 1
+    return found
+
+
+def bridge_and_serializer(serving, p: int, dev) -> None:
+    """Phase 12 (c): a dense sim from the serving store, dumped at its last
+    peer into a fresh Bullet; its export; the serving store's CSV and XML
+    imported into a rank1 sim; each against the serving Bullet."""
+    from bullet_tpu_torch import PeerNetworkSim, create
+    from bullet_tpu_torch.models.bridge import dump_sim_into_bullet, sim_from_bullet
+
+    secs: dict = {}
+    with wall_window("sim_from_bullet", secs):
+        mirror = sim_from_bullet(serving, p, device=dev)
+    fresh, scratch = (create({"storage": False, "disable_network": True}) for _ in range(2))
+    try:
+        with wall_window("dump", secs):
+            dumped = dump_sim_into_bullet(mirror, fresh, peer=p - 1)
+        if fresh.store != serving.store:
+            raise AssertionError("phase 12: the dump differs from the serving store")
+        exported = json.loads(mirror.export_to_json(p - 1, "cat"))["data"]
+        if exported != json.loads(serving.export_to_json("cat"))["data"]:
+            raise AssertionError("phase 12: the sim's export differs from the serving Bullet's")
+        csv, xml = serving.export_to_csv("cat"), serving.export_to_xml("cat")
+        imported = PeerNetworkSim(p, capacity=1 << 15, topology="ring", layout="rank1",
+                                  device=dev)
+        with wall_window("import", secs):
+            results = [imported.import_from_csv(0, csv, "csv"),
+                       imported.import_from_xml(p // 2, xml, "xml")]
+            rounds = imported.run_until_converged()
+        scratch.import_from_csv(csv, "csv")
+        scratch.import_from_xml(xml, "xml")
+        for target in ("csv", "xml"):
+            if imported.get(p - 1, target) != scratch.get(target).value():
+                raise AssertionError(f"phase 12: the {target} import reads back otherwise")
+        if not all(r["success"] for r in results) or not imported.tables_equal():
+            raise AssertionError(f"phase 12: the imports {results}")
+    finally:
+        fresh.close()
+        scratch.close()
+    log(f"  (c) sim_from_bullet: dense {p} x {mirror.capacity} in "
+        f"{secs['sim_from_bullet']:.2f} s; {dumped} leaves dumped at peer {p - 1} in "
+        f"{secs['dump']:.2f} s, store equal; export_to_json equal; CSV and XML imported "
+        f"into rank1 {p} x {imported.capacity}, converged in {rounds} rounds "
+        f"({secs['import']:.2f} s), read back equal")
+
+
+def rank1_vids(sim) -> torch.Tensor:
+    """A rank1 sim's [P, N] value ids (-1 where absent), decoded on the
+    device through its own RankIndex."""
+    from bullet_tpu_torch.ops.rank import decode_vids_rank1
+
+    sim._sync_rank_index()
+    sr, sv = (torch.from_numpy(a).to(sim.device) for a in sim.rank_index.inverse_arrays())
+    present, vid = decode_vids_rank1(sim.table.rank, sr, sv)
+    return torch.where(present, vid, -1)
+
+
+def same_state(a, b) -> bool:
+    """Two sims hold the same entries: their tables bit-equal, except on
+    rank1, whose ranks are each sim's own RankIndex's (a load re-spreads
+    them, as the reference's does), where the decoded value ids are."""
+    if a.layout == "rank1":
+        return torch.equal(rank1_vids(a), rank1_vids(b))
+    return tables_same(a, b)
+
+
+def checkpoint_round_trips(args, dev, card: str) -> None:
+    """Phase 12 (b): packed and rank1 P x 2^16 rings (phase 10's records cut
+    to a sixteenth), converged, saved, loaded on the card: tables bit-equal,
+    sampled gets equal, and the loaded sim given a second batch converges to
+    the saved sim's table given the same batch; the packed checkpoint also
+    loaded onto a 4-shard mesh against the unsharded load."""
+    from bullet_tpu_torch import PeerNetworkSim
+
+    p, n = args.peers, CHECKPOINT_CAPACITY
+    for layout in ("packed", "rank1"):
+        rng = np.random.default_rng(args.seed + 120)
+        secs: dict = {}
+        sim = PeerNetworkSim(p, capacity=n, topology="ring", layout=layout, device=dev)
+        for batch in query_batches(rng, p, n):
+            sim.put_bulk(*batch)
+        sim.run_until_converged()
+        directory = f"{PHASE12_DIR}/{layout}"
+        shutil.rmtree(directory, ignore_errors=True)
+        with wall_window("save", secs):
+            sim.save_checkpoint(directory)
+        on_disk = sum(os.path.getsize(f"{directory}/{f}") for f in os.listdir(directory))
+        with wall_window("load", secs):
+            loaded = PeerNetworkSim.load_checkpoint(directory, device=dev)
+        if not same_state(loaded, sim):
+            raise AssertionError(f"phase 12 (b) {layout}: the loaded table differs")
+        raw = tables_same(loaded, sim)
+        paths = [sim.host.paths.path(int(i))
+                 for i in rng.integers(0, len(sim.host.paths), 256)]
+        for q in (0, p - 1):
+            peers = np.full(len(paths), q, dtype=np.int32)
+            if loaded.get_bulk(peers, paths) != sim.get_bulk(peers, paths):
+                raise AssertionError(f"phase 12 (b) {layout}: reads at peer {q}")
+        mesh_note = ""
+        if layout == "packed":
+            with wall_window("mesh load", secs):
+                mesh = PeerNetworkSim.load_checkpoint(directory, [dev] * SHARDS, device=dev)
+            if not tables_same(mesh, loaded):
+                raise AssertionError("phase 12 (b): the mesh load differs from the unsharded")
+            mesh_note = f", on {SHARDS} shards {secs['mesh load']:.2f} s, equal"
+            del mesh
+        second = query_batches(np.random.default_rng(args.seed + 121), p, n)
+        rounds = []
+        for s in (sim, loaded):
+            for batch in second:
+                s.put_bulk(*batch)
+            rounds.append(s.run_until_converged())
+        if not same_state(loaded, sim) or len(set(rounds)) != 1:
+            raise AssertionError(f"phase 12 (b) {layout}: the second batch {rounds}")
+        table_bytes = sum(f.numel() * f.element_size() for f in sim.table)
+        log(f"  (b) {layout} {p} x {n}: save {secs['save']:.2f} s, load {secs['load']:.2f} s"
+            f"{mesh_note}; {on_disk / 1e6:.1f} MB on disk for a {table_bytes / 1e6:.1f} MB "
+            f"table ({table_bytes / secs['save'] / 1e9:.3f} GB/s saved, "
+            f"{table_bytes / secs['load'] / 1e9:.3f} GB/s loaded); "
+            f"{'value ids' if layout == 'rank1' else 'tables'} bit-equal (raw fields "
+            f"{'equal' if raw else 'differ'}), reads equal, a second batch converged alike in "
+            f"{rounds[0]} rounds; {card}")
+        shutil.rmtree(directory, ignore_errors=True)
+        del sim, loaded
+        free(dev)
+
+
+def serving_path(args, dev, card: str) -> dict:
+    """Phase 12: the serving path. Returns its launches; raises if a check
+    fails or a kernel it drives was never launched."""
+    from bullet_tpu_torch import _build
+
+    _build.reset_launches()
+    serving_mirror(args, dev, card)
+    free(dev)
+    checkpoint_round_trips(args, dev, card)
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    log(f"  launches (phase 12): {launches}")
+    missing = [k for k in SERVING_KERNELS if launches.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"phase 12 never launched: {missing}")
+    return launches
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3495,6 +3883,11 @@ def main() -> int:
     log(f"phase 11: batch ingress on packed and rank1 {args.peers} x {args.packed_capacity}, "
         f"dense {args.peers} x {args.capacity} and a {SHARDS}-shard rank1 mesh, {smi}")
     ingress_path(args, dev, smi)
+    free(dev)
+    log(f"phase 12: the serving path, a live mirror on rank1 {args.peers} x "
+        f"{args.rank1_capacity} over TCP on localhost, checkpoints, the bridge, the "
+        f"serializer, the observer and a trace, {smi}")
+    serving_path(args, dev, smi)
 
     # one row per kernel at the layout its main path drives (dense: phase
     # 4, packed: phase 5), one per packed-family kernel at rank1 (phase 6),

@@ -81,10 +81,33 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
             "bullet_tpu_torch/models/netsim.py", "bullet_tpu_torch/convert.py",
             "bullet_tpu_torch/ops/scans.py", "bullet_tpu_torch/ops/predicates.py",
             "bullet_tpu_torch/__init__.py", "bullet_tpu_torch/__main__.py",
-            "bullet_tpu_torch/models/ingress.py"} <= names
+            "bullet_tpu_torch/models/ingress.py", "bullet_tpu_torch/models/bridge.py",
+            "bullet_tpu_torch/models/checkpoint.py", "bullet_tpu_torch/utils/observe.py"} <= names
     assert {f"bullet_tpu_torch/db/{m}" for m in DB_MODULES} <= names
     bad = {str(f.relative_to(REPO)): v for f in files if (v := violations(f))}
     assert not bad, bad
+
+
+def test_bridge_and_serializer_make_the_ports_db_objects():
+    """The sim's scratch Bullet (its serializer facade) and the Bullets a
+    bridge reads and writes are the port's own, never the reference's."""
+    import bullet_tpu_torch
+    from bullet_tpu_torch import PeerNetworkSim
+    from bullet_tpu_torch.models.bridge import dump_sim_into_bullet, sim_from_bullet
+
+    sim = PeerNetworkSim(2, capacity=64, device="cpu")
+    scratch = sim._scratch_bullet()
+    db = bullet_tpu_torch.create({"storage": False, "disable_network": True})
+    try:
+        assert type(scratch).__module__ == type(db).__module__ == "bullet_tpu_torch.db.core"
+        db.get("a").put({"b": 1})
+        mirror = sim_from_bullet(db, 2, device="cpu")
+        assert type(mirror).__module__ == "bullet_tpu_torch.models.netsim"
+        assert dump_sim_into_bullet(mirror, scratch, peer=1) == 1
+        assert scratch.store == db.store
+    finally:
+        scratch.close()
+        db.close()
 
 
 def test_the_scan_catches_each_form(tmp_path):
