@@ -60,6 +60,10 @@ def __getattr__(name):
         from .ops import predicates
 
         return getattr(predicates, name)
+    if name in ("initialize_multihost", "global_mesh", "is_multihost", "host_info"):
+        from .parallel import multihost
+
+        return getattr(multihost, name)
     raise AttributeError(name)
 
 
@@ -80,4 +84,8 @@ __all__ = [
     "TableState",
     "P",
     "Predicate",
+    "initialize_multihost",
+    "global_mesh",
+    "is_multihost",
+    "host_info",
 ]

@@ -83,14 +83,16 @@ TABLE_TYPES = {"dense": TableState, "packed": PackedTable, "rank": RankTable,
 
 def sharded_from_numpy(fields: Sequence, mesh: Mesh, layout: str = "dense") -> ShardedTable:
     """A layout's int32 [P, N] arrays -> a port ShardedTable over ``mesh``
-    (copies; P must split evenly over the mesh)."""
+    (copies; P must split evenly over the mesh). On a mesh of processes
+    each process passes the whole arrays and keeps its own shards."""
     ctor = TABLE_TYPES[layout]
     return shard_fields(_checked(fields, len(ctor._fields)), mesh, ctor)
 
 
 def table_to_numpy(table) -> Tuple[np.ndarray, ...]:
     """A port table of any layout, sharded or not -> its int32 numpy arrays
-    (copies)."""
+    (copies). On a mesh of processes a collective: every process gets the
+    whole table (see ``ShardedTable.to_numpy``)."""
     if isinstance(table, ShardedTable):
         return table.to_numpy()
     return tuple(f.detach().to("cpu", copy=True).numpy() for f in table)

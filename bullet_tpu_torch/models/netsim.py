@@ -34,6 +34,20 @@ family's ``fast_forward`` takes one window per exchange of m-row slabs.
 A data mesh (no ``use_shard_map``) never runs the frontier. A packed
 family's op apply and reconcile run per shard.
 
+A mesh may span processes (``parallel/multihost.py``: ``global_mesh()``,
+or ``mesh_devices=k`` once ``torch.distributed`` runs a world larger than
+one). Every process then runs the same program: it builds the sim with the
+same arguments and calls the same methods in the same order with the
+same arguments (puts included: ingress, the host's interners, the
+RankIndex and the dirty stripes see the whole batch in every process,
+which applies only its own shards' ops), and holds only its own shards.
+Every method that reads or writes rows or counts across shards (step,
+fast_forward, run_until_converged, converged, reconcile, get, get_bulk,
+the queries, snapshot, restore, tables_equal) is then a collective, as it
+is under the reference's multi-controller runtime, and returns the same
+value in every process: counts and round counts are summed over the
+processes, and a row is read from its owner.
+
 The db facade goes through this package's own db layer: the
 serializer's ``export_to_*``/``import_from_*`` through a scratch
 ``Bullet`` and ``models/bridge.py``, ``save_checkpoint``/
@@ -73,7 +87,13 @@ from ..ops.ring_kernel import (
 )
 from ..parallel import topology as topo
 from ..parallel.gossip import gossip_round, gossip_round_mesh, until_converged
-from ..parallel.mesh import ShardedTable, pad_peers_to_mesh, resolve_mesh
+from ..parallel.mesh import (
+    ShardedTable,
+    all_sum_int,
+    disjoint_sum,
+    pad_peers_to_mesh,
+    resolve_mesh,
+)
 from ..parallel.shardmap_gossip import (
     HALO_FUSE,
     data_mesh_round,
@@ -305,10 +325,12 @@ class PeerNetworkSim:
     capacity : int — leaf-slot capacity (grows by doubling)
     topology : "ring" | "chain" | "mesh" | "star" | "bridge" | Topology
     mode : "reference" (converged-state parity) | "lww" (Lamport LWW)
-    mesh_devices : int | sequence of devices | None — shard the peer axis
-        over a mesh (every layout): the first k devices of ``device``'s
-        type (k virtual shards on the CPU), or the devices given, which may
-        repeat. P is padded up to a multiple of the mesh size
+    mesh_devices : int | sequence of devices | Mesh | None — shard the peer
+        axis over a mesh (every layout): the first k devices of
+        ``device``'s type (k virtual shards on the CPU; across processes,
+        the first k of the global mesh), the devices given, which may
+        repeat, or a ``Mesh`` (``multihost.global_mesh()``). P is padded up
+        to a multiple of the mesh size
     use_kernels : bool | None — take the kernel routes (the compacting
         frontier in ``run_until_converged``, the lean round); default: the
         device is CUDA. A CUDA sim always takes them; on the CPU they run
@@ -324,7 +346,7 @@ class PeerNetworkSim:
         "rank1" (1 field, 4 B/entry; see ops/rank.py); the packed family
         runs in reference mode only
     device : where the tables live ("cuda", the default; "cpu"; a
-        torch.device); with an explicit mesh, its first device
+        torch.device); on a mesh, the device of this process's first shard
     """
 
     def __init__(
@@ -359,7 +381,7 @@ class PeerNetworkSim:
         self.mesh = resolve_mesh(mesh_devices, device) if mesh_devices else None
         if self.mesh is not None:
             num_peers = pad_peers_to_mesh(num_peers, self.mesh)
-            device = self.mesh[0]
+            device = self.mesh.home
         self.device = torch.device(device)
         if use_kernels is None:
             use_kernels = self.device.type == "cuda"
@@ -755,7 +777,8 @@ class PeerNetworkSim:
         init = init.get(self.layout, init_table)
         if self.mesh is not None:
             rows = num_peers // len(self.mesh)
-            return ShardedTable([init(rows, capacity, d) for d in self.mesh], self.mesh)
+            return ShardedTable([init(rows, capacity, d) if self.mesh.owns(i) else None
+                                 for i, d in enumerate(self.mesh)], self.mesh)
         return init(num_peers, capacity, self.device)
 
     def _shape(self) -> Tuple[int, int]:
@@ -882,16 +905,17 @@ class PeerNetworkSim:
 
         if isinstance(self.table, ShardedTable):
             # each shard applies its own peers' ops, as the reference
-            # shards the op batch by peer
+            # shards the op batch by peer; the count is summed over the
+            # processes
             b, applied = self.table.rows, 0
-            shards = []
-            for i, (shard, dev) in enumerate(zip(self.table.shards, self.table.mesh)):
-                shard, a = apply_ops(shard, upload(slice(i * b, (i + 1) * b), dev), self.tick,
-                                     mode=self.mode, first_peer=i * b)
-                shards.append(shard)
+            shards = list(self.table.shards)
+            for i, shard in self.table.local():
+                dev = self.table.mesh[i]
+                shards[i], a = apply_ops(shard, upload(slice(i * b, (i + 1) * b), dev),
+                                         self.tick, mode=self.mode, first_peer=i * b)
                 applied += int(a)
             self.table = ShardedTable(shards, self.table.mesh)
-            return applied
+            return all_sum_int(self.table.mesh, applied)
         self.table, applied = apply_ops(
             self.table, upload(slice(None), self.device), self.tick, mode=self.mode
         )
@@ -939,16 +963,18 @@ class PeerNetworkSim:
         self._mark_dirty(reduced[1])
         ops = np.stack(reduced)
         if isinstance(self.table, ShardedTable):
-            # the winners are sorted by peer: each shard's are one run
+            # the winners are sorted by peer: each shard's are one run; the
+            # count is summed over the processes
             b, applied = self.table.rows, 0
             cuts = np.searchsorted(ops[0], np.arange(len(self.table.shards) + 1) * b)
-            for i, (shard, dev) in enumerate(zip(self.table.shards, self.table.mesh)):
+            for i, shard in self.table.local():
                 if cuts[i] == cuts[i + 1]:
                     continue
                 local = ops[:, cuts[i]:cuts[i + 1]].copy()
                 local[0] -= i * b
+                dev = self.table.mesh[i]
                 applied += int(pk.apply_flat_packed(shard, torch.from_numpy(local).to(dev))[1])
-            return applied
+            return all_sum_int(self.table.mesh, applied)
         # one flat apply for the whole family: the wrapper dispatches on nf
         self.table, applied = pk.apply_flat_packed(
             self.table, torch.from_numpy(ops).to(self.device))
@@ -957,8 +983,9 @@ class PeerNetworkSim:
     def warm_apply_buckets(self, max_ops: int = 1 << 16) -> int:
         """Serving warm-up: one apply of an all-padding batch (see
         ``_pad_flat_ops``) for every power-of-two bucket from 64 up to
-        ``max_ops``, on every shard, so a live mirror's first queries find
-        the kernel library loaded and the allocator's blocks sized (the
+        ``max_ops``, on every shard of this process, so a live mirror's
+        first queries find the kernel library loaded and the allocator's
+        blocks sized (the
         reference compiles one program a bucket here; the port compiles
         nothing per batch size). Nothing lands: padding lies outside the
         table, and a launch that applies an op raises. Packed family only
@@ -966,7 +993,10 @@ class PeerNetworkSim:
         if self.layout not in PACKED_FAMILY:
             return 0
         self._sync_device_state()
-        shards = self.table.shards if isinstance(self.table, ShardedTable) else [self.table]
+        if isinstance(self.table, ShardedTable):
+            shards = [s for _, s in self.table.local()]
+        else:
+            shards = [self.table]
         rows, n = shards[0][0].shape
         nf = len(shards[0])
         empty = tuple(np.zeros(0, dtype=np.int32) for _ in range(2 + nf))
@@ -1420,10 +1450,14 @@ class PeerNetworkSim:
         reference mode resolves by value and doesn't need it)."""
         if self.mode != "lww":
             return
-        shards = self.table.shards if isinstance(self.table, ShardedTable) else [self.table]
-        row_max = np.concatenate(
-            [s.ctr.max(dim=1).values.cpu().numpy() for s in shards]
-        ).astype(np.int64)
+        if isinstance(self.table, ShardedTable):
+            # every process's peers' clocks: each shard's row maxima
+            t = self.table
+            row_max = disjoint_sum(
+                t.mesh, {i: s.ctr.max(dim=1).values for i, s in t.local()}, (t.rows,)
+            ).flatten().cpu().numpy().astype(np.int64)
+        else:
+            row_max = self.table.ctr.max(dim=1).values.cpu().numpy().astype(np.int64)
         self._clock_sync_np()
         np.maximum(self._clock, row_max, out=self._clock)
         self._clock_list = self._clock.tolist()
@@ -1464,7 +1498,7 @@ class PeerNetworkSim:
         if self.layout == "rank1":
             vid = self.rank_index.decode_ranks(self._gather(peers, slots, (0,))[0])
             return vid >= 0, vid
-        one = self.table.shards[0] if isinstance(self.table, ShardedTable) else self.table
+        one = self.table.first if isinstance(self.table, ShardedTable) else self.table
         cv = self._gather(peers, slots, (len(one) - 1,))[0]  # cv is the last field
         return (cv >> pk.CV_SHIFT) != CLS_ABSENT, cv & pk.VID_MASK
 
@@ -1713,10 +1747,10 @@ class PeerNetworkSim:
 
     def _row_home(self, peer: int):
         """(table, row): the table holding ``peer``'s row (on a mesh its
-        owning shard, on that shard's device) and the row's index there."""
+        owning shard, on that shard's device; across processes a copy of
+        the row that its owner broadcast) and the row's index there."""
         if isinstance(self.table, ShardedTable):
-            shard, local = self.table.owner(peer)
-            return self.table.shards[int(shard)], int(local)
+            return self.table.row_table(peer)
         return self.table, peer
 
     def _rank_row(self, peer: int) -> torch.Tensor:
@@ -1988,7 +2022,10 @@ class PeerNetworkSim:
     def snapshot(self) -> dict:
         """Host checkpoint of device state, in the reference package's
         snapshot format. Pending puts are FLUSHED (applied) first, so a
-        snapshot captures every put issued before it."""
+        snapshot captures every put issued before it. On a mesh of
+        processes every process gets the whole table on its host: each
+        shard's owner broadcasts it (the table's bytes to every process,
+        through a shard-sized buffer on the home device)."""
         if any(self._pending) or self._pending_bulk:
             self.step(rounds=0)
         self._sync_device_state()
@@ -2017,7 +2054,8 @@ class PeerNetworkSim:
         abandoned post-snapshot timeline. The host interners are not part
         of a snapshot. A rank or rank1 snapshot from another RankIndex
         epoch is re-keyed to the current one (through cv, or through the
-        snapshot's own ``rank_inverse``)."""
+        snapshot's own ``rank_inverse``). On a mesh of processes each
+        process takes its own shards' rows of the snapshot's whole table."""
         for ops in self._pending:
             ops.clear()
         self._pending_bulk.clear()
@@ -2060,11 +2098,16 @@ class PeerNetworkSim:
         # rank, the rank rank1
         fields = {"dense": (3, 0), "packed": (2,), "rank": (1,), "rank1": (0,)}[self.layout]
         t = self.table
-        shards = t.shards if isinstance(t, ShardedTable) else [t]
-        first = shards[0]
-        return all(
-            bool((s[f] == first[f][0:1].to(s[f].device)).all()) for s in shards for f in fields
+        if not isinstance(t, ShardedTable):
+            return all(bool((t[f] == t[f][0:1]).all()) for f in fields)
+        # peer 0's row (from its owner), against this process's shards; the
+        # verdicts summed over the processes
+        first, row = t.row_table(0)
+        differ = sum(
+            not bool((s[f] == first[f][row:row + 1].to(s[f].device)).all())
+            for _, s in t.local() for f in fields
         )
+        return all_sum_int(t.mesh, differ) == 0
 
 
 def _pred(fn, value, key):

@@ -248,6 +248,11 @@ class RankIndex:
     (sorted ranks, vids) that a rank1 table needs to decode its stale
     ranks.
 
+    On a mesh of processes every process holds its own copy, fed the same
+    puts in the same order; the index is a pure function of that
+    sequence, so every process takes the same respreads at the same puts
+    (tests/test_torch_multihost.py compares the copies).
+
     Keys are stored as two fused int64 columns (k1 = cls * 2^32 | khi_u,
     k2 = klo_u; the bias-mapped unsigned halves recombine order-exactly),
     so an insert position is a searchsorted on k1 refined within the

@@ -8,7 +8,8 @@ Ring and chain rounds run ``ring_round`` (``ring_round_lean`` for lean
 gossip where the reference takes its lean kernel) and the mesh and generic
 rounds run ``merge_tables``: the CUDA kernels on CUDA tensors, their plain
 PyTorch versions on CPU tensors. ``parallel/shardmap_gossip.py`` holds the
-same rounds on a sharded table.
+same rounds on a sharded table, a data mesh's (no ``use_shard_map``) and
+a mesh of processes' among them.
 """
 
 from __future__ import annotations

@@ -3,12 +3,19 @@
 The port of ``bullet_tpu.parallel.shardmap_gossip``: per-shard local merges
 plus hand-placed exchanges between the shards of a ``ShardedTable``, for
 the dense layout (full or lean) and the packed family (packed, rank,
-rank1). The reference ran one ``shard_map`` program under a single
-controller; here one process drives every shard. Its ``ppermute``
-becomes a ``copy_`` of the boundary rows into the neighbour shard's
-device, its ``psum`` of the frontier's counts (``pmax``) a fold of the
-shards' rows of one buffer on the mesh's first device inside the
-compaction's launch, its ``all_gather`` a copy of the rows a shard needs.
+rank1). The reference ran one ``shard_map`` program, under one
+controller or, across hosts, its multi-controller runtime; here one
+process drives its own shards, and a mesh may span processes
+(``parallel/multihost.py``). The reference's ``ppermute`` becomes a
+``copy_`` of the boundary rows into the neighbour shard's device, or a
+send to the process that owns it (``mesh.transfer``); its ``psum`` of
+the frontier's counts (``pmax``) a fold of the shards' rows of one
+buffer, summed over the processes (rows are disjoint) and folded inside
+the compaction's launch on every process alike; its ``all_gather`` a
+transfer of the rows a shard needs. Counts are summed over the
+processes, so every process returns the same counts and round counts
+and takes the same branches: every function here is a collective on a
+mesh of processes.
 
 * ring/chain — one exchanged boundary row each way, chain ends zeroed;
   the per-shard frontier kernel at m = 1 over every stripe, in place,
@@ -58,7 +65,7 @@ from ..ops.packed import (
 )
 from ..ops.ring_kernel import frontier_shard_round, frontier_tile_n
 from .gossip import lean_round_applies
-from .mesh import Mesh, ShardedTable
+from .mesh import Mesh, ShardedTable, all_sum, as_mesh, disjoint_sum, transfer
 
 # rounds one boundary exchange buys the fused frontier (the reference's
 # HALO_FUSE: the 8-row boundary snapshots)
@@ -69,38 +76,52 @@ HALO_FUSE = 8
 Merge = Callable[[object, Sequence[torch.Tensor]], Tuple[object, torch.Tensor]]
 
 
-def _parts(table: ShardedTable, lean: bool) -> List[Tuple[torch.Tensor, ...]]:
-    """Each shard's merged fields: the four value keys (lean) or all."""
-    return [lean_fields(s) if lean else tuple(s) for s in table.shards]
+def _parts(table: ShardedTable, lean: bool) -> List[Optional[Tuple[torch.Tensor, ...]]]:
+    """Each shard's merged fields: the four value keys (lean) or all; None
+    for the shards of other processes."""
+    return [None if s is None else lean_fields(s) if lean else tuple(s) for s in table.shards]
 
 
-def _copy_rows(src: Sequence[torch.Tensor], device) -> List[torch.Tensor]:
-    """Copies of [r, N] row blocks on ``device`` (the ppermute)."""
-    return [torch.empty(f.shape, dtype=f.dtype, device=device).copy_(f) for f in src]
+def _local_part(parts):
+    return next(p for p in parts if p is not None)
 
 
 def boundary_rows(parts, s: int, wrap: bool, mesh: Mesh):
-    """The s rows above (tops) and below (bottoms) every shard, copied onto
-    the shard's device: shard i's tops are the last s rows of shard i - 1,
-    its bottoms the first s rows of shard i + 1, wrapping around the mesh;
-    on a chain the first shard's tops and the last shard's bottoms are
-    zeros. Every copy is taken before the caller writes any shard."""
+    """The s rows above (tops) and below (bottoms) every shard of this
+    process, copied onto the shard's device (None for other processes'
+    shards): shard i's tops are the last s rows of shard i - 1, its bottoms
+    the first s rows of shard i + 1, wrapping around the mesh, sent by
+    their owner where it is another process; on a chain the first shard's
+    tops and the last shard's bottoms are zeros. Every copy is taken before
+    the caller writes any shard."""
+    mesh = as_mesh(mesh)
     k = len(parts)
-    tops, bottoms = [], []
-    for i, dev in enumerate(mesh):
+    nf, n = len(_local_part(parts)), _local_part(parts)[0].shape[1]
+    jobs, where = [], []
+    for i in range(k):
         if wrap or i > 0:
-            tops.append(_copy_rows([f[-s:] for f in parts[(i - 1) % k]], dev))
-        else:
-            tops.append([torch.zeros((s, f.shape[1]), dtype=f.dtype, device=dev) for f in parts[i]])
+            j = (i - 1) % k
+            jobs.append((j, i, s, lambda j=j: [f[-s:] for f in parts[j]]))
+            where.append((i, 0))
         if wrap or i < k - 1:
-            bottoms.append(_copy_rows([f[:s] for f in parts[(i + 1) % k]], dev))
-        else:
-            bottoms.append([torch.zeros((s, f.shape[1]), dtype=f.dtype, device=dev) for f in parts[i]])
-    return tops, bottoms
+            j = (i + 1) % k
+            jobs.append((j, i, s, lambda j=j: [f[:s] for f in parts[j]]))
+            where.append((i, 1))
+    got = transfer(mesh, jobs, nf, n)
+    ends: List[List[Optional[list]]] = [[None] * k, [None] * k]
+    for job, (i, side) in enumerate(where):
+        if job in got:
+            ends[side][i] = got[job]
+    for i in mesh.local:
+        for side in (0, 1):
+            if ends[side][i] is None:  # a chain's end
+                ends[side][i] = [torch.zeros((s, n), dtype=f.dtype, device=mesh[i])
+                                 for f in parts[i]]
+    return ends[0], ends[1]
 
 
 def _zero_count(mesh: Mesh) -> torch.Tensor:
-    return torch.zeros((), dtype=torch.int32, device=mesh[0])
+    return torch.zeros((), dtype=torch.int32, device=mesh.home)
 
 
 def _dense_merge(mode: str, lean: bool) -> Merge:
@@ -124,27 +145,28 @@ def _ring_exchange(table: ShardedTable, parts, wrap: bool, shard_step: Callable,
     Where the frontier stripes the slots this is ``shard_step(fields, top,
     bottom, ids, tile_n)``, the per-shard frontier step at m = 1 over every
     stripe, in place; otherwise each shard merges shifted copies. Returns
-    (table, changed) with the count summed on mesh[0]."""
-    tops, bottoms = boundary_rows(parts, 1, wrap, table.mesh)
-    total = _zero_count(table.mesh)
+    (table, changed) with the count summed on mesh.home over every
+    shard."""
+    mesh = table.mesh
+    tops, bottoms = boundary_rows(parts, 1, wrap, mesh)
+    total = _zero_count(mesh)
     tile_n = frontier_tile_n(table.shape[1])
     if tile_n:
         t_total = table.shape[1] // tile_n
-        for f, top, bottom, dev in zip(parts, tops, bottoms, table.mesh):
-            ids = torch.arange(t_total + 2, dtype=torch.int32, device=dev)
+        for i in mesh.local:
+            ids = torch.arange(t_total + 2, dtype=torch.int32, device=mesh[i])
             ids[t_total] = t_total
-            counts = shard_step(f, top, bottom, ids, tile_n)
-            total = total + counts.sum(dtype=torch.int32).to(table.mesh[0])
-        return table, total
-    shards = []
-    for shard, f, top, bottom in zip(table.shards, parts, tops, bottoms):
-        up = [torch.cat([t, x[:-1]]) for x, t in zip(f, top)]
-        down = [torch.cat([x[1:], bo]) for x, bo in zip(f, bottom)]
-        shard, c1 = merge(shard, up)
-        shard, c2 = merge(shard, down)
-        shards.append(shard)
-        total = total + (c1 + c2).to(table.mesh[0])
-    return ShardedTable(shards, table.mesh), total
+            counts = shard_step(parts[i], tops[i], bottoms[i], ids, tile_n)
+            total = total + counts.sum(dtype=torch.int32).to(mesh.home)
+        return table, all_sum(mesh, total)
+    shards = list(table.shards)
+    for i in mesh.local:
+        up = [torch.cat([t, x[:-1]]) for x, t in zip(parts[i], tops[i])]
+        down = [torch.cat([x[1:], bo]) for x, bo in zip(parts[i], bottoms[i])]
+        shard, c1 = merge(shards[i], up)
+        shards[i], c2 = merge(shard, down)
+        total = total + (c1 + c2).to(mesh.home)
+    return ShardedTable(shards, mesh), all_sum(mesh, total)
 
 
 def ring_round_shardmap(
@@ -174,25 +196,41 @@ def ring_round_shardmap_packed(table: ShardedTable, wrap: bool = True):
     )
 
 
-def _global_roll(parts, s: int, mesh: Mesh) -> List[List[torch.Tensor]]:
-    """``torch.roll(·, s, 0)`` of the whole table, per shard on its own
-    device: rows hop ``s // b`` whole shards, and the ``s % b`` remainder
-    splices the boundary between two hopped blocks."""
+def _global_roll(parts, s: int, mesh: Mesh) -> List[Optional[List[torch.Tensor]]]:
+    """``torch.roll(·, s, 0)`` of the whole table, per shard of this
+    process on its own device: rows hop ``s // b`` whole shards, and the
+    ``s % b`` remainder splices the boundary between two hopped blocks."""
     k = len(parts)
-    b = parts[0][0].shape[0]
+    local = _local_part(parts)
+    nf, (b, n) = len(local), local[0].shape
     d, r = divmod(s % (k * b), b)
-    out = []
-    for j, dev in enumerate(mesh):
-        from_d = parts[(j - d) % k]
+    jobs = []
+    for j in range(k):
+        src = (j - d) % k
+        jobs.append((src, j, b - r, lambda src=src: [f[:b - r] for f in parts[src]]))
+        if r:
+            src1 = (j - d - 1) % k
+            jobs.append((src1, j, r, lambda src1=src1: [f[b - r:] for f in parts[src1]]))
+    got = transfer(mesh, jobs, nf, n, copy=r == 0)
+    out: List[Optional[List[torch.Tensor]]] = [None] * k
+    per = 2 if r else 1
+    for j in mesh.local:
         if r == 0:
-            out.append(_copy_rows(from_d, dev))
-            continue
-        from_d1 = parts[(j - d - 1) % k]
-        out.append([
-            torch.cat([f1[b - r:].to(dev), f0[:b - r].to(dev)])
-            for f0, f1 in zip(from_d, from_d1)
-        ])
+            out[j] = got[j]
+        else:
+            from_d, from_d1 = got[per * j], got[per * j + 1]
+            out[j] = [torch.cat([f1, f0]) for f0, f1 in zip(from_d, from_d1)]
     return out
+
+
+def _merge_local(table: ShardedTable, rows, merge: Merge, total: torch.Tensor):
+    """Every shard of this process merged with its ``rows``; the counts
+    added to ``total`` on mesh.home."""
+    shards = list(table.shards)
+    for i in table.mesh.local:
+        shards[i], c = merge(shards[i], rows[i])
+        total = total + c.to(table.mesh.home)
+    return ShardedTable(shards, table.mesh), total
 
 
 def _mesh_doubling(table: ShardedTable, lean: bool, merge: Merge):
@@ -202,13 +240,8 @@ def _mesh_doubling(table: ShardedTable, lean: bool, merge: Merge):
     total = _zero_count(table.mesh)
     for k in range(max(1, (p - 1).bit_length())):
         rolled = _global_roll(_parts(table, lean), 1 << k, table.mesh)
-        shards = []
-        for shard, rows in zip(table.shards, rolled):
-            shard, c = merge(shard, rows)
-            shards.append(shard)
-            total = total + c.to(table.mesh[0])
-        table = ShardedTable(shards, table.mesh)
-    return table, total
+        table, total = _merge_local(table, rolled, merge, total)
+    return table, all_sum(table.mesh, total)
 
 
 def mesh_round_shardmap(
@@ -247,27 +280,27 @@ def _row_max(rows, merge: Merge):
 def _star_exchange(table: ShardedTable, hub: int, merge: Merge):
     """One star round: every row merges the hub's pre-round row, and the
     hub becomes the lattice max of all rows (each shard's max, then across
-    shards on the hub's device). Values are the unsharded generic round's;
-    the count is the strict-improvement count against the pre-round hub
-    (zero iff the unsharded count is zero)."""
-    b = table.rows
-    ctor = type(table.shards[0])
-    hub_dev, hub_row = divmod(hub, b)
-    hub_device = table.mesh[hub_dev]
-    hub_old = ctor(*(f[hub_row:hub_row + 1].clone() for f in table.shards[hub_dev]))
-    maxima = [ctor(*(f.to(hub_device) for f in _row_max(s, merge))) for s in table.shards]
-    gmax = _row_max(ctor(*(torch.cat(fs) for fs in zip(*maxima))), merge)
+    the shards' maxima, which every process holds). Values are the
+    unsharded generic round's; the count is the strict-improvement count
+    against the pre-round hub (zero iff the unsharded count is zero)."""
+    mesh, b, n = table.mesh, table.rows, table.shape[1]
+    ctor = type(table.first)
+    nf = len(table.first)
+    hub_shard, hub_row = divmod(hub, b)
+    hub_old = ctor(*table.take_rows([hub], mesh.home))
+    maxima = disjoint_sum(mesh, {
+        i: torch.stack([f[0] for f in _row_max(s, merge)]) for i, s in table.local()
+    }, (nf, n))
+    gmax = _row_max(ctor(*(maxima[:, f].contiguous() for f in range(nf))), merge)
     new_hub, c_hub = merge(hub_old, gmax)
-    total = c_hub.to(table.mesh[0])
-    shards = []
-    for shard, dev in zip(table.shards, table.mesh):
-        bcast = [f.to(dev).expand(b, f.shape[1]).contiguous() for f in hub_old]
-        merged, c = merge(shard, bcast)
-        shards.append(merged)
-        total = total + c.to(table.mesh[0])
-    for f, h in zip(shards[hub_dev], new_hub):
-        f[hub_row] = h[0]
-    return ShardedTable(shards, table.mesh), total
+    total = c_hub if mesh.owns(hub_shard) else _zero_count(mesh)
+    rows = [None if s is None else [f.to(mesh[i]).expand(b, n).contiguous() for f in hub_old]
+            for i, s in enumerate(table.shards)]
+    table, total = _merge_local(table, rows, merge, total)
+    if mesh.owns(hub_shard):
+        for f, h in zip(table.shards[hub_shard], new_hub):
+            f[hub_row] = h[0]
+    return table, all_sum(mesh, total)
 
 
 def star_round_shardmap(
@@ -286,25 +319,38 @@ def star_round_shardmap_packed(table: ShardedTable, hub: int = 0):
 def _generic_exchange(table: ShardedTable, neighbors: np.ndarray, merge: Merge):
     """One round over an arbitrary adjacency ([P, max_deg], -1 padding):
     per neighbour column every shard takes its peers' neighbours' current
-    rows from their shards (padding masked to all-zero rows, which never
+    rows from their shards (padding left as all-zero rows, which never
     win), then merges them; bit-identical to the unsharded generic round
     including counts."""
-    b = table.rows
-    total = _zero_count(table.mesh)
+    mesh, b = table.mesh, table.rows
+    k_shards, (p, n) = len(mesh), table.shape
+    total = _zero_count(mesh)
     for k in range(neighbors.shape[1]):
-        gathered = []
-        for i, dev in enumerate(table.mesh):
+        parts = _parts(table, False)
+        nf = len(_local_part(parts))
+        jobs, where = [], []
+        for i in range(k_shards):
             col = neighbors[i * b:(i + 1) * b, k]
-            valid = torch.from_numpy(col >= 0).to(dev)[:, None]
-            rows = table.take_rows(np.where(col >= 0, col, 0), dev)
-            gathered.append([torch.where(valid, f, torch.zeros_like(f)) for f in rows])
-        shards = []
-        for shard, rows in zip(table.shards, gathered):
-            shard, c = merge(shard, rows)
-            shards.append(shard)
-            total = total + c.to(table.mesh[0])
-        table = ShardedTable(shards, table.mesh)
-    return table, total
+            for j in range(k_shards):
+                sel = np.flatnonzero((col >= 0) & (col // b == j))
+                if not len(sel):
+                    continue
+                rows = col[sel] - j * b
+                jobs.append((j, i, len(sel), lambda j=j, rows=rows: [
+                    f.index_select(0, torch.from_numpy(rows).to(f.device)) for f in parts[j]]))
+                where.append((i, sel))
+        got = transfer(mesh, jobs, nf, n, copy=False)
+        gathered: List[Optional[List[torch.Tensor]]] = [None] * k_shards
+        for i in mesh.local:
+            gathered[i] = [torch.zeros((b, n), dtype=torch.int32, device=mesh[i])
+                           for _ in range(nf)]
+        for job, (i, sel) in enumerate(where):
+            if job in got:
+                dst = torch.from_numpy(sel).to(mesh[i])
+                for g, block in zip(gathered[i], got[job]):
+                    g[dst] = block
+        table, total = _merge_local(table, gathered, merge, total)
+    return table, all_sum(mesh, total)
 
 
 def generic_round_shardmap(
@@ -376,16 +422,17 @@ def ring_window_shardmap_packed(table: ShardedTable, wrap: bool, m: int):
     a CPU one). The slabs are exactly m deep, so the shard's rows are
     exact; a chain's zeroed end slabs are its absent neighbours.
     Bit-identical to m classic rounds; returns (table, the round-m
-    residual of the shards' own rows, summed on mesh[0]). Needs
-    1 <= m <= the rows of a shard."""
+    residual of the shards' own rows, summed on mesh.home over every
+    shard). Needs 1 <= m <= the rows of a shard."""
     if not 1 <= m <= table.rows:
         raise ValueError(f"a window of {m} rounds needs 1 <= m <= {table.rows} rows per shard")
+    mesh = table.mesh
     parts = _parts(table, False)
-    tops, bottoms = boundary_rows(parts, m, wrap, table.mesh)
-    total = torch.zeros((), dtype=torch.int64, device=table.mesh[0])
-    for f, top, bottom in zip(parts, tops, bottoms):
-        total = total + ring_window_shard_packed(f, top, bottom, m).to(table.mesh[0])
-    return table, total.to(torch.int32)
+    tops, bottoms = boundary_rows(parts, m, wrap, mesh)
+    total = torch.zeros((), dtype=torch.int64, device=mesh.home)
+    for i in mesh.local:
+        total = total + ring_window_shard_packed(parts[i], tops[i], bottoms[i], m).to(mesh.home)
+    return table, all_sum(mesh, total).to(torch.int32)
 
 
 def _frontier_shardmap(
@@ -402,35 +449,47 @@ def _frontier_shardmap(
     ``depth``-round step gives window stats instead, row 0 summed and row 1
     maxed over the shards, folded by ``compact_counts_window``. The
     single-round tail of a fused loop runs ``counts_step``. Each shard's
-    step writes into its row of one zeroed buffer on mesh[0], which the fold
-    zeroes again as it reads it (a shard on another device copies its row
-    in), and the folds write two ids buffers in turn, so that none
+    step writes into its row of one zeroed [S, ., t_total] buffer on its
+    device, the buffers of this process's other devices are added into
+    mesh.home's, and the rows are summed over the processes (they are
+    disjoint: each process wrote its own shards' rows), so every process
+    folds the same buffer into the same ids array, reads the same counts
+    and takes the same branch. The fold zeroes the buffer again as it
+    reads it, and the folds write two ids buffers in turn, so that none
     overwrites the ids array its own step read. Returns (classic rounds,
     last_changed)."""
     mesh = table.mesh
+    home = mesh.home
     t_total = table.shape[1] // tile_n
     if depth > table.rows:
         raise ValueError(f"{depth} fused rounds need {depth} rows per shard, got {table.rows}")
     shards = len(parts)
-    fold = torch.zeros(shards * max(depth, 2) * t_total, dtype=torch.int32, device=mesh[0])
-    ids_bufs = [torch.empty(t_total + 3, dtype=torch.int32, device=mesh[0]) for _ in range(2)]
+    size = shards * max(depth, 2) * t_total
+    fold = {dev: torch.zeros(size, dtype=torch.int32, device=dev)
+            for dev in dict.fromkeys(mesh[i] for i in mesh.local)}
+    ids_bufs = [torch.empty(t_total + 3, dtype=torch.int32, device=home) for _ in range(2)]
 
     def step(m: int):
         window = window_step is not None and m > 1
-        rows = fold[: shards * (2 if window else m) * t_total].view(shards, -1, t_total)
+        rows = {dev: buf[: shards * (2 if window else m) * t_total].view(shards, -1, t_total)
+                for dev, buf in fold.items()}
         shard_step = window_step if window else counts_step
 
         def run(parts, ids):
             tops, bottoms = boundary_rows(parts, m, wrap, mesh)
-            for row, f, top, bottom, dev in zip(rows, parts, tops, bottoms, mesh):
-                if f[0].device == row.device:
-                    shard_step(f, top, bottom, ids, tile_n, m, out=row)
-                else:
-                    row.copy_(shard_step(f, top, bottom, ids.to(dev), tile_n, m))
+            for i in mesh.local:
+                dev = mesh[i]
+                shard_step(parts[i], tops[i], bottoms[i], ids if dev == home else ids.to(dev),
+                           tile_n, m, out=rows[dev][i])
+            for dev, other in rows.items():
+                if dev != home:  # a card of this process besides home
+                    rows[home] += other.to(home)
+                    other.zero_()
+            all_sum(mesh, rows[home])
             ids_bufs.reverse()  # not the buffer that the last fold wrote
             if window:
-                return parts, compact_counts_window(rows, m, ids_bufs[0])
-            return parts, compact_counts(rows, ids_bufs[0])
+                return parts, compact_counts_window(rows[home], m, ids_bufs[0])
+            return parts, compact_counts(rows[home], ids_bufs[0])
         return run
 
     _, rounds, last_changed = frontier_loop(parts, dirty, t_total, max_rounds, depth, step)
@@ -446,8 +505,8 @@ def gossip_frontier_shardmap_dense(
     exchange (at most the rows of a shard); the classic round count is
     rebuilt exactly by the shared fused loop. Lean sims exchange and merge
     the four value keys; writer, ctr and tick stay untouched. ``dirty`` is
-    a bool [t_total] seed on mesh[0]. Returns (table, classic rounds,
-    last_changed)."""
+    a bool [t_total] seed on mesh.home, the same on every process. Returns
+    (table, classic rounds, last_changed)."""
     tile_n = tile_n or frontier_tile_n(table.shape[1])
     rounds, last_changed = _frontier_shardmap(
         table, _parts(table, lean), dirty, wrap, max_rounds, fuse, tile_n,
@@ -475,8 +534,9 @@ def gossip_frontier_shardmap_packed(
       window step's changed total is not the classic per-round count.
 
     ``window_fuse`` and ``fuse`` > 1 exclude each other; either is at most
-    the rows of a shard. ``dirty`` is a bool [t_total] seed on mesh[0].
-    Returns (table, classic rounds, last_changed)."""
+    the rows of a shard. ``dirty`` is a bool [t_total] seed on mesh.home,
+    the same on every process. Returns (table, classic rounds,
+    last_changed)."""
     if window_fuse > 1 and fuse > 1:
         raise ValueError("window_fuse and fuse > 1 exclude each other")
     tile_n = tile_n or frontier_tile_n(table.shape[1])
@@ -490,16 +550,17 @@ def gossip_frontier_shardmap_packed(
 def reconcile_shardmap_packed(table: ShardedTable) -> ShardedTable:
     """Direct reconcile of a packed-family sharded table, in place: every
     shard's rows become its columns' join (``reconcile_packed``), the
-    shards' row 0 are joined on mesh[0] by the same function, and the join
-    is written back to every row of every shard."""
-    for shard in table.shards:
+    shards' row 0 are gathered to every process (one disjoint sum) and
+    joined on mesh.home by the same function, and each process writes the
+    join back to every row of its shards."""
+    mesh = table.mesh
+    for _, shard in table.local():
         reconcile_packed(shard)
-    ctor = type(table.shards[0])
-    joined = reconcile_packed(ctor(*(
-        torch.cat([s[f][0:1].to(table.mesh[0]) for s in table.shards])
-        for f in range(len(table.shards[0]))
-    )))
-    for shard, dev in zip(table.shards, table.mesh):
+    ctor, nf = type(table.first), len(table.first)
+    firsts = disjoint_sum(mesh, {i: torch.stack([f[0] for f in s]) for i, s in table.local()},
+                          (nf, table.shape[1]))
+    joined = reconcile_packed(ctor(*(firsts[:, f].contiguous() for f in range(nf))))
+    for i, shard in table.local():
         for f, j in zip(shard, joined):
-            f.copy_(j[0:1].to(dev).expand_as(f))
+            f.copy_(j[0:1].to(mesh[i]).expand_as(f))
     return table

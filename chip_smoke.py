@@ -144,7 +144,26 @@ Phases, in order; any failure raises and exits nonzero:
    P x 2^16 (phase 10's records cut to a sixteenth) on the card: tables
    bit-equal (rank1: the value ids), reads, a second batch converged
    alike, the packed one also loaded onto 4 shards against the
-   unsharded load; save and load seconds and bytes on disk.
+   unsharded load; save and load seconds and bytes on disk;
+13. the mesh across processes (``parallel/multihost.py``): the script
+   starts two processes of itself (``--mesh-process``), each joining a
+   gloo process group and owning two of four shards on cuda:0 (NCCL
+   refuses two processes on one card). In each, beside unsharded twins
+   given the same ops: the packed P x N (default 1024 x 2^20) ring's
+   step(1), converge on packed-frontier-spmd (windows of 63 rounds, their
+   slabs sent between the processes through pinned host memory), a 2^16
+   batch cut off at 70 rounds, converged(), reconcile and reads at peers
+   of both processes; rank1's spmd fast_forward(480) against step(480),
+   then a HALO_FUSE converge; the dense lww 1024 x 2^18 ring's step(1),
+   converge on dense-frontier-spmd and a cutoff. Each process holds its
+   own shards exactly against its twin's rows; both processes' returned
+   values, round counts, residuals and applied counts must be equal; each
+   logs its windows' wall seconds, the bytes it sent and received per mesh
+   step, the exchange's host seconds beside its kernels' CUDA-event
+   seconds. Then one process under NCCL, a world of one with four shards
+   on cuda:0, runs the packed path through the same code (its fold and
+   reconcile sums are NCCL all-reduces of card tensors). A process that
+   fails gets the others killed; the script fails with it.
 
 Every kernel's launch count over the phase that drives its path (4 for
 the dense kernels, 5 and 6 for the packed-family ones, 5 for the m-round
@@ -152,7 +171,8 @@ pass, 7 for the lean
 ones, 8 for the sharded ones, 9 for the packed family's mesh kernels; 10
 checks the kernels its step(1) and converges run, 11 those each of its
 sims drives, 12 the apply, the frontiers and the count-only round of its
-serving path) must be > 0. The last
+serving path, 13 in every process the per-shard kernels, folds, apply and
+reconcile of its mesh sims) must be > 0. The last
 two lines are a JSON
 object describing the kernels and the contract line
 {"ok": true, "device": {...}}. Imports nothing of JAX."""
@@ -3770,6 +3790,473 @@ def serving_path(args, dev, card: str) -> dict:
     return launches
 
 
+# ----------------------------------------------------------------- phase 13
+
+# phase 13 (a): this many processes, each owning two of the mesh's four
+# shards on the one card; gloo carries their exchanges (NCCL refuses two
+# processes on one card)
+MESH_PROCESSES = 2
+# the kernels every process of phase 13 (a) must launch on its mesh sims:
+# the packed sim's apply, ring step, windows, the folds and reconcile;
+# rank1's spmd jump and its HALO_FUSE converge; the dense sim's per-shard
+# frontier at m = 1 and 8
+PROCESS_KERNELS = ("apply_packed", "frontier_shard packed", "frontier_shard_window",
+                   "compact_counts window", "compact_counts", "reconcile_packed",
+                   "window_shard", "frontier_shard packed fused", "compact_counts fused",
+                   "frontier_shard", "frontier_shard fused")
+# and the one NCCL process of phase 13 (b): the packed sim's path
+NCCL_KERNELS = ("apply_packed", "frontier_shard packed", "frontier_shard_window",
+                "compact_counts window", "compact_counts", "reconcile_packed")
+# the sizes a phase 13 process is given, as the script was
+SIZE_ARGS = ("seed", "peers", "capacity", "ops", "packed_capacity", "packed_ops",
+             "rank1_capacity", "rank1_ops", "lean_capacity", "lean_ops")
+# what marks a phase 13 process's result line
+RESULT_TAG = "phase 13 result: "
+# a collective waits this long for the other process before it fails
+PROCESS_TIMEOUT_S = 240.0
+# and (a) and (b) this long before their processes are killed
+PHASE13_DEADLINES_S = {"gloo": 480.0, "nccl": 240.0}
+
+
+class ExchangeClock:
+    """What a process's mesh exchanges cost, measured around
+    ``parallel/shardmap_gossip.py``'s calls of the transport (patched in
+    this process only): host seconds of the boundary transfers and of the
+    sums (counts, the fold, the reconcile's rows), the bytes this process
+    sent to and received from the other, and CUDA-event times of the
+    per-shard kernels and folds (the card is shared with the other
+    process, so these include its contention). The transfers' seconds
+    split three ways: copying a message into pinned host memory
+    (``mesh._wire``), waiting on the process group's sends and receives,
+    and the rest (each slab's stack on the card, the received rows' copy
+    back to it)."""
+
+    TIMED_KERNELS = ("frontier_shard_round", "frontier_shard_round_packed",
+                     "frontier_shard_window", "ring_window_shard_packed", "compact_counts",
+                     "compact_counts_window")
+
+    def __init__(self):
+        from bullet_tpu_torch.parallel import shardmap_gossip as sg
+
+        self.sg = sg
+        self.saved = {}
+        self.reset()
+        clock = self
+
+        def transfer(mesh, jobs, nf, n, copy=True):
+            torch.cuda.synchronize()  # the exchange alone, not the kernels before it
+            for src, dst, r, _ in jobs:
+                if mesh.owners[src] != mesh.owners[dst]:
+                    nbytes = 4 * nf * r * n
+                    if mesh.owns(src):
+                        clock.sent += nbytes
+                    elif mesh.owns(dst):
+                        clock.received += nbytes
+            start = time.perf_counter()
+            clock.in_transfer = True
+            out = clock.saved["transfer"](mesh, jobs, nf, n, copy)
+            clock.in_transfer = False
+            clock.transfer_s += time.perf_counter() - start
+            return out
+
+        def summed(name):
+            def run(mesh, *a, **kw):
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                out = clock.saved[name](mesh, *a, **kw)
+                clock.sum_s += time.perf_counter() - start
+                return out
+            return run
+
+        def timed(name):
+            def run(*a, **kw):
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                out = clock.saved[name](*a, **kw)
+                end.record()
+                clock.events.append((start, end))
+                return out
+            return run
+
+        patches = {"transfer": transfer, "all_sum": summed("all_sum"),
+                   "disjoint_sum": summed("disjoint_sum")}
+        patches.update({k: timed(k) for k in self.TIMED_KERNELS})
+        for name, fn in patches.items():
+            self.saved[name] = getattr(sg, name)
+            setattr(sg, name, fn)
+
+        from bullet_tpu_torch.parallel import mesh as mesh_module
+
+        def wire(t):
+            start = time.perf_counter()
+            out = clock.saved["_wire"](t)
+            if out is not t and clock.in_transfer:
+                clock.stage_s += time.perf_counter() - start
+            return out
+
+        class Waited:
+            def __init__(self, work):
+                self.work = work
+
+            def wait(self):
+                start = time.perf_counter()
+                self.work.wait()
+                clock.wait_s += time.perf_counter() - start
+
+        self.saved["_wire"] = mesh_module._wire
+        mesh_module._wire = wire
+        self.saved["batch"] = torch.distributed.batch_isend_irecv
+        torch.distributed.batch_isend_irecv = lambda ops: [
+            Waited(w) for w in self.saved["batch"](ops)]
+
+    def reset(self):
+        self.sent = self.received = 0
+        self.transfer_s = self.sum_s = self.stage_s = self.wait_s = 0.0
+        self.in_transfer = False
+        self.events = []
+
+    def read(self) -> dict:
+        torch.cuda.synchronize()
+        kernels_ms = sum(s.elapsed_time(e) for s, e in self.events)
+        out = {"sent_bytes": self.sent, "received_bytes": self.received,
+               "transfer_s": self.transfer_s, "sum_s": self.sum_s, "stage_s": self.stage_s,
+               "wait_s": self.wait_s,
+               "kernels_s": kernels_ms / 1e3, "kernel_calls": len(self.events)}
+        self.reset()
+        return out
+
+
+def process_mesh_path(args, rank: int, world: int, backend: str, coordinator: str) -> dict:
+    """One process of phase 13: joins the process group, builds the mesh
+    (``SHARDS // world`` shards a process on its card: cuda:0 for both of
+    phase 13's gloo processes and for the NCCL world of one, card ``rank``
+    where there is one a process) and drives the mesh sims beside
+    unsharded twins given the same ops, each process checking its own
+    shards against its twin's rows. Logs each window's wall seconds and
+    what the exchanges cost. Returns the values every process must agree
+    on and the launches of the port's kernels on the mesh sims (the
+    twins' apart)."""
+    from bullet_tpu_torch import PeerNetworkSim, _build
+    from bullet_tpu_torch.parallel.multihost import global_mesh, host_info, initialize_multihost
+    from bullet_tpu_torch.parallel.shardmap_gossip import HALO_FUSE, gossip_frontier_shardmap_packed
+
+    dev = torch.device("cuda", rank % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    initialize_multihost(coordinator, world, rank, backend=backend, timeout_s=PROCESS_TIMEOUT_S)
+    _build.library()
+    mesh = global_mesh([dev] * (SHARDS // world))
+    info = host_info()
+    log(f"  process {rank} of {world} ({backend}): {info}, shards {mesh.local} of {len(mesh)}")
+    clock = ExchangeClock()
+    secs: dict = {}
+    values: dict = {}
+    mesh_launches = Counter()
+    tag = f"p{rank}/{world}"
+
+    @contextlib.contextmanager
+    def on_mesh(name):
+        """A window of the mesh sim: wall seconds, its kernels' launches."""
+        before = dict(_build.LAUNCHES)
+        with wall_window(name, secs):
+            yield
+        mesh_launches.update({k: v - before[k] for k, v in _build.LAUNCHES.items()})
+
+    def same(what, sim, twin, got, want):
+        values[what] = got
+        if got != want or not sharded_equal_local(sim.table, twin.table):
+            raise AssertionError(f"phase 13 {tag} {what}: {got} against the twin's {want}")
+
+    p, n = args.peers, args.packed_capacity
+    n_leaf = n - 256
+    rng = np.random.default_rng(args.seed + 13)
+
+    def build(layout, sharded, capacity=n, mode="reference"):
+        kw = dict(mesh_devices=mesh, use_shard_map=True) if sharded else {}
+        return PeerNetworkSim(p, capacity=capacity, topology="ring", layout=layout, mode=mode,
+                              device=dev, **kw)
+
+    def load(sims, peers, leaves, vals, capacity=n):
+        slots = {}
+        for s in sims:
+            slots[s] = s.host.intern_batch([f"k/{i}" for i in range(capacity - 256)])
+            s.put_bulk(peers, slots[s][leaves], vals)
+            s.put(5, "s/name", "alice")
+            s.put(p - 1, "s/name", "bob")
+            s.put(p // 2, "s/obj", {"a": 1, "b": "x"})
+        return slots
+
+    def exchange_line(what, steps):
+        c = clock.read()
+        per_step = c["sent_bytes"] / max(steps, 1)
+        values[f"{what} steps"] = steps
+        log(f"  {tag} {what}: {steps} mesh steps; sent {c['sent_bytes'] / 1e9:.3f} GB, received "
+            f"{c['received_bytes'] / 1e9:.3f} GB ({per_step / 1e6:.1f} MB sent a step); "
+            f"exchange {c['transfer_s']:.3f} s host (transfers: {c['stage_s']:.3f} into pinned "
+            f"memory, {c['wait_s']:.3f} waiting on the sends and receives, the rest "
+            f"{c['transfer_s'] - c['stage_s'] - c['wait_s']:.3f}) + {c['sum_s']:.3f} s (sums); "
+            f"kernels {c['kernels_s']:.3f} s on CUDA events ({c['kernel_calls']} calls)")
+        return c
+
+    _build.reset_launches()
+    # packed: step(1), the window converge, a cutoff, converged(), reconcile, reads
+    sim, twin = build("packed", True), build("packed", False)
+    peers = rng.integers(0, p, args.packed_ops).astype(np.int32)
+    leaves = rng.integers(0, n_leaf, args.packed_ops)
+    vals = rng.integers(-500, 500, args.packed_ops)
+    slots = load((sim, twin), peers, leaves, vals)
+    routes = (sim._convergence_strategy()[0], twin._convergence_strategy()[0])
+    if routes != ("packed-frontier-spmd", "packed-frontier-local"):
+        raise AssertionError(f"phase 13 {tag} packed routes {routes}")
+    clock.read()
+    with on_mesh("packed step(1)"):
+        r_sim = sim.step(1)
+    r_twin = twin.step(1)
+    same("packed step(1)", sim, twin, (r_sim, sim.stats["ops_applied"]),
+         (r_twin, twin.stats["ops_applied"]))
+    exchange_line("packed step(1)", 1)
+    folds = mesh_launches["compact_counts window"] + mesh_launches["compact_counts"]
+    with on_mesh("packed run_until_converged"):
+        rounds = sim.run_until_converged()
+    twin_rounds = twin.run_until_converged()
+    same("packed converge", sim, twin, (rounds, sim.last_residual), (twin_rounds, 0))
+    steps = mesh_launches["compact_counts window"] + mesh_launches["compact_counts"] - folds
+    conv = exchange_line("packed converge", steps)
+    values["packed converge bytes a step"] = conv["sent_bytes"] / max(steps, 1)
+    n_written = check_leaf_values(sim, [(leaves, vals)], slots[sim], rng, f"phase 13 {tag}")
+    more = 1 << 16
+    leaves2 = rng.integers(0, min(n_leaf, 1 << 16), more)
+    peers2, vals2 = rng.integers(0, p, more).astype(np.int32), rng.integers(-600, 600, more)
+    for s in (sim, twin):
+        s.put_bulk(peers2, slots[s][leaves2], vals2)
+    folds = mesh_launches["compact_counts window"] + mesh_launches["compact_counts"]
+    with on_mesh("packed cutoff converge"):
+        cut = (sim.run_until_converged(max_rounds=70), sim.last_residual)
+    same("packed cutoff", sim, twin, cut, (twin.run_until_converged(max_rounds=70),
+                                           twin.last_residual))
+    exchange_line("packed cutoff at 70",
+                  mesh_launches["compact_counts window"] + mesh_launches["compact_counts"] - folds)
+    with on_mesh("packed converged()"):
+        done = sim.converged()
+    same("packed converged()", sim, twin, done, twin.converged())
+    for s in (sim, twin):
+        s.put(7, "s/name", "carol")
+    with on_mesh("packed reconcile"):
+        sim.reconcile()
+    twin.reconcile()
+    same("packed reconcile", sim, twin, sim.tables_equal(), True)
+    exchange_line("packed converged() and reconcile", 2)
+    sample = [f"k/{i}" for i in rng.integers(0, n_leaf, 64)] + ["s/name", "nope"]
+    read_peers = np.r_[rng.integers(0, p // 2, 33), rng.integers(p // 2, p, 33)]
+    got = (sim.get_bulk(read_peers, sample), sim.get(3, "s"), sim.get(p - 3, "s"))
+    same("packed reads", sim, twin, got, (twin.get_bulk(read_peers, sample), twin.get(3, "s"),
+                                          twin.get(p - 3, "s")))
+    if got[1]["name"] != "carol":
+        raise AssertionError(f"phase 13 {tag}: late write lost")
+    clock.read()
+    log(f"  {tag} packed ({len(mesh)} shards of {p // len(mesh)} x {n}, {12 * p * n / 1e9:.1f} "
+        f"GB, {len(mesh.local)} here, + the twin): step(1) residual {r_sim} in "
+        f"{secs['packed step(1)']:.3f} s; run_until_converged [{routes[0]}] {rounds} rounds in "
+        f"{secs['packed run_until_converged']:.3f} s; cutoff at 70: residual {cut[1]} in "
+        f"{secs['packed cutoff converge']:.3f} s; converged() {done} in "
+        f"{secs['packed converged()']:.3f} s; reconcile {secs['packed reconcile']:.3f} s; "
+        f"every local field, rounds, residuals, applied counts and reads == the twin; "
+        f"{n_written} leaves == numpy per-leaf max")
+    del sim, twin
+    free(dev)
+    if world == 1:
+        log(f"  {tag} windows (wall s): {secs}")
+        return {"values": values, "launches": dict(mesh_launches), "secs": secs}
+
+    # rank1: the spmd fast_forward(480) against step(480) on the twin, then
+    # the HALO_FUSE converge against the twin's
+    n1 = args.rank1_capacity
+    sim, twin = build("rank1", True, n1), build("rank1", False, n1)
+    peers = rng.integers(0, p, args.rank1_ops).astype(np.int32)
+    leaves = rng.integers(0, n1 - 256, args.rank1_ops)
+    vals = rng.integers(-500, 500, args.rank1_ops)
+    load((sim, twin), peers, leaves, vals, n1)
+    for s in (sim, twin):
+        s.step(0)
+    depth = min(480, p // 2 - 1)
+    ff_route = sim._fast_forward_route()
+    with on_mesh("rank1 fast_forward(k)"):
+        r_ff = sim.fast_forward(depth)
+    r_step = twin.step(depth)
+    same(f"rank1 fast_forward({depth})", sim, twin, (ff_route, r_ff, sim.stats["ops_applied"]),
+         ("spmd", r_step, twin.stats["ops_applied"]))
+    exchange_line(f"rank1 fast_forward({depth})", -(-depth // sim.table.rows))
+    twin_rounds = twin.run_until_converged()
+    t_total = n1 // sim._frontier_tile()
+    with on_mesh("rank1 fused converge"):
+        _, fused_rounds, fused_last = gossip_frontier_shardmap_packed(
+            sim.table, torch.ones(t_total, dtype=torch.bool, device=dev), True,
+            2 * sim.topology.diameter + 2, fuse=HALO_FUSE, tile_n=sim._frontier_tile())
+    same("rank1 fused converge", sim, twin, (fused_rounds, fused_last), (twin_rounds, 0))
+    exchange_line("rank1 HALO_FUSE converge", -(-fused_rounds // HALO_FUSE))
+    log(f"  {tag} rank1 ({4 * p * n1 / 1e9:.1f} GB): fast_forward({depth}) [{ff_route}] in "
+        f"{secs['rank1 fast_forward(k)']:.3f} s == step({depth}) on the twin (residual {r_ff}); "
+        f"gossip_frontier_shardmap_packed(fuse={HALO_FUSE}) {fused_rounds} rounds in "
+        f"{secs['rank1 fused converge']:.3f} s == the twin's converge")
+    del sim, twin
+    free(dev)
+
+    # dense lww at phase 8's shape: step(1), the HALO_FUSE converge, a cutoff
+    nd = args.capacity
+    sim = build("dense", True, nd, mode="lww")
+    twin = build("dense", False, nd, mode="lww")
+    peers = rng.integers(0, p, args.ops).astype(np.int32)
+    leaves = rng.integers(0, nd - 256, args.ops)
+    vals = rng.integers(-500, 500, args.ops)
+    slots = load((sim, twin), peers, leaves, vals, nd)
+    route = sim._convergence_strategy()[0]
+    if route != "dense-frontier-spmd":
+        raise AssertionError(f"phase 13 {tag} dense route {route}")
+    with on_mesh("dense step(1)"):
+        r_sim = sim.step(1)
+    same("dense step(1)", sim, twin, (r_sim, sim.stats["ops_applied"]),
+         (twin.step(1), twin.stats["ops_applied"]))
+    clock.read()
+    folds = mesh_launches["compact_counts fused"] + mesh_launches["compact_counts"]
+    with on_mesh("dense run_until_converged"):
+        rounds = sim.run_until_converged()
+    same("dense converge", sim, twin, (rounds, sim.last_residual),
+         (twin.run_until_converged(), 0))
+    exchange_line("dense converge", mesh_launches["compact_counts fused"]
+                  + mesh_launches["compact_counts"] - folds)
+    more = max(1, args.ops // 16)
+    leaves2, vals2 = rng.integers(0, nd - 256, more), rng.integers(-600, 600, more)
+    peers2 = rng.integers(0, p, more).astype(np.int32)
+    for s in (sim, twin):
+        s.put_bulk(peers2, slots[s][leaves2], vals2)
+    with on_mesh("dense cutoff converge"):
+        cut = (sim.run_until_converged(max_rounds=12), sim.last_residual)
+    same("dense cutoff", sim, twin, cut, (twin.run_until_converged(max_rounds=12),
+                                          twin.last_residual))
+    clock.read()
+    log(f"  {tag} dense lww ({28 * p * nd / 1e9:.1f} GB): step(1) residual {r_sim} in "
+        f"{secs['dense step(1)']:.3f} s; run_until_converged [{route}] {rounds} rounds in "
+        f"{secs['dense run_until_converged']:.3f} s; cutoff at 12: residual {cut[1]}; every "
+        "local field, rounds and residuals == the twin")
+    del sim, twin
+    free(dev)
+    log(f"  {tag} windows (wall s): {secs}")
+    return {"values": values, "launches": dict(mesh_launches), "secs": secs}
+
+
+def sharded_equal_local(sharded, table) -> bool:
+    """Every field of this process's shards equals the twin's rows."""
+    b = sharded.rows
+    return all(torch.equal(f, g[i * b:(i + 1) * b])
+               for i, shard in sharded.local() for f, g in zip(shard, table))
+
+
+def process_main(args) -> int:
+    """A phase 13 process (``--mesh-process RANK``): its log on stdout, its
+    result as JSON on the line that starts with RESULT_TAG."""
+    import torch.distributed as dist
+
+    out = process_mesh_path(args, args.mesh_process, args.mesh_world, args.mesh_backend,
+                            args.coordinator)
+    dist.destroy_process_group()
+    print(RESULT_TAG + json.dumps(out, default=str), flush=True)
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_processes(args, world: int, backend: str, tmp: str) -> list:
+    """Start ``world`` phase 13 processes of this script, join them (a
+    process that fails kills the others; all are killed at the deadline),
+    print their logs and return their results."""
+    coordinator = f"127.0.0.1:{_free_port()}"
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo", NCCL_SOCKET_IFNAME="lo")
+    forwarded = [f"--{k.replace('_', '-')}={getattr(args, k)}" for k in SIZE_ARGS]
+    procs, outputs = [], []
+    with contextlib.ExitStack() as stack:
+        logs = [stack.enter_context(open(os.path.join(tmp, f"process{world}_{rank}.log"), "w+"))
+                for rank in range(world)]
+        deadline = time.perf_counter() + PHASE13_DEADLINES_S[backend]
+        try:
+            for rank in range(world):
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), *forwarded,
+                     f"--mesh-process={rank}", f"--mesh-world={world}",
+                     f"--mesh-backend={backend}", f"--coordinator={coordinator}"],
+                    stdout=logs[rank], stderr=subprocess.STDOUT, env=env))
+            while any(p.poll() is None for p in procs):
+                failed = [p for p in procs if p.poll() not in (None, 0)]
+                if failed or time.perf_counter() > deadline:
+                    break
+                time.sleep(0.5)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        for f in logs:
+            f.seek(0)
+            outputs.append(f.read().splitlines())
+    results = []
+    for rank, (p, lines) in enumerate(zip(procs, outputs)):
+        # the result is the process's JSON line; libraries may log after it
+        result = next((line for line in reversed(lines) if line.startswith(RESULT_TAG)), None)
+        for line in lines:
+            if line is not result:
+                log(f"  [{backend} {rank}] {line}")
+        if p.returncode != 0 or result is None:
+            raise AssertionError(f"phase 13: process {rank} of {world} ({backend}) ended with "
+                                 f"{p.returncode}")
+        results.append(json.loads(result[len(RESULT_TAG):]))
+    return results
+
+
+def check_processes(who: str, results: list, kernels) -> None:
+    """Every process's values equal the first's, and each launched every
+    kernel of ``kernels`` on its mesh sims."""
+    for rank, r in enumerate(results):
+        if r["values"] != results[0]["values"]:
+            raise AssertionError(f"phase 13: {who} process {rank} disagrees with process 0: "
+                                 f"{r['values']} against {results[0]['values']}")
+        launches = {k: r["launches"].get(k, 0) for k in kernels}
+        log(f"  launches on the mesh sims of {who} process {rank}: {launches}")
+        missing = [k for k, v in launches.items() if v <= 0]
+        if missing:
+            raise AssertionError(f"phase 13 {who} process {rank} never launched {missing}")
+
+
+def processes_path(args, dev, card: str) -> dict:
+    """Phase 13: (a) two processes under gloo, two shards of cuda:0 each,
+    the packed, rank1 and dense mesh sims beside their twins; (b) one
+    process under NCCL, a world of one with four shards on cuda:0, the
+    packed path. Each process's mesh launches must reach every kernel of
+    its path; the values of (a)'s two processes must agree. Returns (a)'s
+    launches by process."""
+    import tempfile
+
+    free(dev)
+    free_b, total_b = torch.cuda.mem_get_info()
+    log(f"  card memory free before the processes: {free_b / 1e9:.1f} of {total_b / 1e9:.1f} GB "
+        f"(this process holds {torch.cuda.memory_reserved() / 1e9:.2f} GB); {card}")
+    with tempfile.TemporaryDirectory() as tmp:
+        started = time.perf_counter()
+        gloo = run_processes(args, MESH_PROCESSES, "gloo", tmp)
+        t_gloo = time.perf_counter() - started
+        started = time.perf_counter()
+        nccl = run_processes(args, 1, "nccl", tmp)
+        t_nccl = time.perf_counter() - started
+    check_processes("gloo", gloo, PROCESS_KERNELS)
+    check_processes("nccl", nccl, NCCL_KERNELS)
+    log(f"  (a) {MESH_PROCESSES} gloo processes in {t_gloo:.1f} s, values equal in both; "
+        f"(b) one NCCL process in {t_nccl:.1f} s; {card}")
+    return {rank: r["launches"] for rank, r in enumerate(gloo)}
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3782,11 +4269,18 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--rank1-ops", type=int, default=1 << 20)
     ap.add_argument("--lean-capacity", type=int, default=1 << 20)
     ap.add_argument("--lean-ops", type=int, default=1 << 20)
+    # a phase 13 process, started by the script itself
+    ap.add_argument("--mesh-process", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-world", type=int, default=MESH_PROCESSES, help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-backend", default="gloo", help=argparse.SUPPRESS)
+    ap.add_argument("--coordinator", default="", help=argparse.SUPPRESS)
     return ap
 
 
 def main() -> int:
     args = build_parser().parse_args()
+    if args.mesh_process is not None:
+        return process_main(args)
     started = time.perf_counter()
 
     log("phase 1: device")
@@ -3857,24 +4351,24 @@ def main() -> int:
 
     log(f"phase 4: dense main path, ring {args.peers} x {args.capacity}")
     launches = main_path(args, dev)
-    torch.cuda.empty_cache()
+    free(dev)  # a sim holds reference cycles: collect it before the next phase
     log(f"phase 5: packed main path, ring {args.peers} x {args.packed_capacity}")
     launches.update(packed_main_path(args, dev))
-    torch.cuda.empty_cache()
+    free(dev)
     log(f"phase 6: rank1 main path, ring {args.peers} x {args.rank1_capacity}")
     rank1_launches, _ = rank1_main_path(args, dev, card=smi)
-    torch.cuda.empty_cache()
+    free(dev)
     log(f"phase 7: lean main path, ring {args.peers} x {args.lean_capacity}")
     lean_launches = lean_main_path(args, dev)
-    torch.cuda.empty_cache()
+    free(dev)
     log(f"phase 8: sharded dense path, {SHARDS} shards on one card, ring "
         f"{args.peers} x {args.capacity}")
     shard_launches = sharded_main_path(args, dev)
-    torch.cuda.empty_cache()
+    free(dev)
     log(f"phase 9: the packed family on a mesh, {SHARDS} shards on one card, ring "
         f"{args.peers} x {args.packed_capacity}")
     mesh_packed, mesh_rank1, _ = sharded_packed_path(args, dev, card=smi)
-    torch.cuda.empty_cache()
+    free(dev)
     log(f"phase 10: queries on packed and rank1 {args.peers} x {args.packed_capacity}, dense "
         f"{args.peers} x {args.capacity} and a {SHARDS}-shard packed mesh, {smi}")
     query_path(args, dev, smi)
@@ -3888,6 +4382,10 @@ def main() -> int:
         f"{args.rank1_capacity} over TCP on localhost, checkpoints, the bridge, the "
         f"serializer, the observer and a trace, {smi}")
     serving_path(args, dev, smi)
+    log(f"phase 13: the mesh across processes, {MESH_PROCESSES} gloo processes of "
+        f"{SHARDS // MESH_PROCESSES} shards each on the one card, then one NCCL process of "
+        f"{SHARDS}, ring {args.peers} x {args.packed_capacity}, {smi}")
+    processes_path(args, dev, smi)
 
     # one row per kernel at the layout its main path drives (dense: phase
     # 4, packed: phase 5), one per packed-family kernel at rank1 (phase 6),

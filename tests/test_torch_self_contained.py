@@ -44,7 +44,9 @@ DB_MODULES = sorted(p.name for p in (REPO / "bullet_tpu" / "db").glob("*.py"))
 
 def port_files():
     files = sorted((REPO / "bullet_tpu_torch").rglob("*.py"))
-    return files + [REPO / "chip_smoke.py", *sorted((REPO / "tools").glob("*.py"))]
+    # the multihost test's worker runs in processes that must not import JAX
+    return files + [REPO / "chip_smoke.py", *sorted((REPO / "tools").glob("*.py")),
+                    REPO / "tests" / "_torch_multihost_worker.py"]
 
 
 def _forbidden(module: str) -> bool:
@@ -82,7 +84,8 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
             "bullet_tpu_torch/ops/scans.py", "bullet_tpu_torch/ops/predicates.py",
             "bullet_tpu_torch/__init__.py", "bullet_tpu_torch/__main__.py",
             "bullet_tpu_torch/models/ingress.py", "bullet_tpu_torch/models/bridge.py",
-            "bullet_tpu_torch/models/checkpoint.py", "bullet_tpu_torch/utils/observe.py"} <= names
+            "bullet_tpu_torch/models/checkpoint.py", "bullet_tpu_torch/utils/observe.py",
+            "bullet_tpu_torch/parallel/multihost.py", "tests/_torch_multihost_worker.py"} <= names
     assert {f"bullet_tpu_torch/db/{m}" for m in DB_MODULES} <= names
     bad = {str(f.relative_to(REPO)): v for f in files if (v := violations(f))}
     assert not bad, bad
