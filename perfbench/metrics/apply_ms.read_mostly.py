@@ -1,0 +1,6 @@
+"""apply_ms.read_mostly: ``apply_ms`` in the read-mostly cells (256-update batches
+between record reads), a metric of its own so that it takes a bound, or moves
+a metric, of its own: the read cells' converge spreads about four times the
+scatter cells' (PERF.md, section 2)."""
+
+from perfbench.metrics.apply_ms import read  # noqa: F401
