@@ -104,6 +104,7 @@ from ..parallel.shardmap_gossip import (
     ring_window_shardmap_packed,
     shardmap_round,
 )
+from ..utils import observe
 from ..utils.encode import CLS_ABSENT, CLS_NUMBER, VID_NULL, number_key
 from .ingress import EngineHooks, EngineValidation, invalid_op_mask, traced_pipeline, veto_ops
 from .table import MISSING, GraphHost, flatten_value
@@ -580,6 +581,10 @@ class PeerNetworkSim:
         (with typed errors), and afterPut/"write" delivery is queued for the
         rows that pass; the type, range and enum veto runs on the device
         at the next apply (see ``_ingress``)."""
+        with observe.span("put_bulk"):
+            self._put_bulk(peers, paths, values)
+
+    def _put_bulk(self, peers, paths, values) -> None:
         peers = np.asarray(peers, dtype=np.int32)
         if peers.ndim == 0:
             peers = np.full(len(paths), int(peers), dtype=np.int32)
@@ -604,27 +609,28 @@ class PeerNetworkSim:
             peers = np.asarray(kept_p, dtype=np.int32)
             paths, values = kept_paths, kept_vals
             k = len(peers)
-        slots = (
-            paths.astype(np.int32) if pre_interned
-            else self.host.intern_batch(paths)
-        )
+        if pre_interned:
+            slots = paths.astype(np.int32)
+        else:
+            with observe.span("put_bulk.intern"):
+                slots = self.host.intern_batch(paths)
         # the numeric fast path requires an EXPLICIT numeric ndarray:
         # np.asarray on a mixed list would silently coerce bools (and
         # mixed strings) to numbers, diverging from scalar-put encoding
-        if isinstance(values, np.ndarray) and values.dtype.kind in "ifu":
-            from ..utils.encode import bulk_encode_numbers
+        numeric = isinstance(values, np.ndarray) and values.dtype.kind in "ifu"
+        with observe.span("put_bulk.encode"):
+            if numeric:
+                from ..utils.encode import bulk_encode_numbers
 
-            raw_vals: Any = values
-            numeric = True
-            cls, khi, klo, vid = bulk_encode_numbers(self.host.values, values)
-        else:
-            from ..utils.encode import bulk_encode_values
+                raw_vals: Any = values
+                cls, khi, klo, vid = bulk_encode_numbers(self.host.values, values)
+            else:
+                from ..utils.encode import bulk_encode_values
 
-            raw_vals = (
-                values.tolist() if isinstance(values, np.ndarray) else list(values)
-            )
-            numeric = False
-            cls, khi, klo, vid = bulk_encode_values(self.host.values, raw_vals)
+                raw_vals = (
+                    values.tolist() if isinstance(values, np.ndarray) else list(values)
+                )
+                cls, khi, klo, vid = bulk_encode_values(self.host.values, raw_vals)
 
         # strict schema constraints the device mask can't express (integer
         # integralness, boolean identity, string/array length) drop here,
@@ -668,11 +674,15 @@ class PeerNetworkSim:
                     continue
                 self.hooks.queue_after_put(int(peers[i]), path, val)
 
-        self._enqueue_bulk(peers, slots, cls, khi, klo, vid)
+        with observe.span("put_bulk.enqueue"):
+            self._enqueue_bulk(peers, slots, cls, khi, klo, vid)
         if self.layout in RANK_FAMILY:
             # rank the new values now, while the batch is hot; a respread's
             # device re-key waits for the next _sync_rank_index
-            self._stage_rank_inserts()
+            with observe.span("put_bulk.rank_insert") as sp:
+                epoch = self.rank_index.epoch
+                self._stage_rank_inserts()
+                sp.set(respread=int(self.rank_index.epoch != epoch))
 
     def _enqueue_bulk(self, peers, slots, cls, khi, klo, vid) -> None:
         """Stamp per-op Lamport counters (clock[peer] + within-batch
@@ -845,10 +855,11 @@ class PeerNetworkSim:
         self._stage_rank_inserts()
         if not self.rank_index.needs_rekey:
             return
-        if self.layout == "rank1":
-            self._rekey_rank1(*self.rank_index.prev_inverse)
-        else:
-            self._rekey_rank()
+        with observe.span("apply.respread"):
+            if self.layout == "rank1":
+                self._rekey_rank1(*self.rank_index.prev_inverse)
+            else:
+                self._rekey_rank()
         self.rank_index.needs_rekey = False
 
     def _per_shard(self, fn: Callable):
@@ -859,16 +870,26 @@ class PeerNetworkSim:
 
     def _rekey_rank(self) -> None:
         """Re-gather a rank table's ranks from cv's vid, per shard."""
-        rank_map = self.rank_index.rank_map()
-        self.table = self._per_shard(
-            lambda t: rk.rekey_rank(t, self._device_lut(rank_map, t[0].device)))
+        self._regather_ranks(rk.rekey_rank, lambda: [self.rank_index.rank_map()])
 
     def _rekey_rank1(self, old_sranks: np.ndarray, old_svids: np.ndarray) -> None:
         """Re-gather a rank1 table's ranks through an older epoch's inverse
         (sorted ranks, their vids), per shard."""
-        luts = (old_sranks, old_svids, self.rank_index.rank_map())
-        self.table = self._per_shard(
-            lambda t: rk.rekey_rank1(t, *(self._device_lut(a, t[0].device) for a in luts)))
+        self._regather_ranks(
+            rk.rekey_rank1, lambda: [old_sranks, old_svids, self.rank_index.rank_map()])
+
+    def _regather_ranks(self, regather: Callable, host_luts: Callable) -> None:
+        """``regather(shard, *luts)`` on every shard, the host LUTs that
+        ``host_luts()`` builds first copied to every shard's device."""
+        with observe.span("apply.respread.luts"):
+            luts = host_luts()
+            if isinstance(self.table, ShardedTable):
+                devices = {s[0].device for _, s in self.table.local()}
+            else:
+                devices = {self.table[0].device}
+            on = {d: [self._device_lut(a, d) for a in luts] for d in devices}
+        with observe.span("apply.respread.regather"):
+            self.table = self._per_shard(lambda t: regather(t, *on[t[0].device]))
 
     def _mark_dirty(self, slots: np.ndarray) -> None:
         """Frontier bookkeeping: the stripes holding ``slots`` need work."""
@@ -881,12 +902,19 @@ class PeerNetworkSim:
             self._frontier_dirty = None
 
     def _apply_pending(self) -> int:
-        """Drain + apply, layout-dispatched; returns the applied count."""
+        """Drain + apply, layout-dispatched; returns the applied count. An
+        apply that drained ops is the span ``apply``."""
         if self.layout in PACKED_FAMILY:
-            return self._apply_pending_packed()
-        drained = self._drain_ops()
+            drained, apply = self._drain_flat(), self._apply_flat
+        else:
+            drained, apply = self._drain_ops(), self._apply_dense
         if drained is None:
             return 0
+        with observe.span("apply"):
+            return apply(drained)
+
+    def _apply_dense(self, drained: List[np.ndarray]) -> int:
+        """Apply the drained dense [P, B] op fields."""
         if self.hooks._traced_put:
             self._frontier_dirty = None  # transforms may move slots
         else:
@@ -895,8 +923,9 @@ class PeerNetworkSim:
         if self.hooks._traced_put or self.validation.active:
             # ingress sees the whole batch on the sim's device (a mesh's
             # first), before it is split by shard
-            ingressed = self._ingress(
-                OpBatch(*(torch.from_numpy(f).to(self.device) for f in drained)))
+            with observe.span("apply.ingress"):
+                ingressed = self._ingress(
+                    OpBatch(*(torch.from_numpy(f).to(self.device) for f in drained)))
 
         def upload(rows: slice, device) -> OpBatch:
             if ingressed is not None:
@@ -916,23 +945,21 @@ class PeerNetworkSim:
                 applied += int(a)
             self.table = ShardedTable(shards, self.table.mesh)
             return all_sum_int(self.table.mesh, applied)
-        self.table, applied = apply_ops(
-            self.table, upload(slice(None), self.device), self.tick, mode=self.mode
-        )
-        return int(applied)
+        with observe.span("apply.upload"):
+            ops = upload(slice(None), self.device)
+        with observe.span("apply.launch"):
+            self.table, applied = apply_ops(self.table, ops, self.tick, mode=self.mode)
+            return int(applied)
 
-    def _apply_pending_packed(self) -> int:
-        """Packed-family apply: flat ingress (traced transforms + the
-        validation veto, on the device), host lattice pre-reduction per
-        (peer, slot), then ONE upload of the [2 + nf, K] winners and one
-        flat apply (the kernel on the card) — no dense batch; on a mesh, one
-        of each per shard, with the winners of its peers at their local
-        rows. The rank layouts stamp each op with its value's rank first.
-        Unlike the reference, ops are never staged on the device at put
-        time (that hid a TPU link's latency)."""
-        flat = self._drain_flat()
-        if flat is None:
-            return 0
+    def _apply_flat(self, flat) -> int:
+        """Packed-family apply of the drained flat ops: flat ingress (traced
+        transforms + the validation veto, on the device), host lattice
+        pre-reduction per (peer, slot), then ONE upload of the [2 + nf, K]
+        winners and one flat apply (the kernel on the card) — no dense
+        batch; on a mesh, one of each per shard, with the winners of its
+        peers at their local rows. The rank layouts stamp each op with its
+        value's rank first. Unlike the reference, ops are never staged on
+        the device at put time (that hid a TPU link's latency)."""
         if len(self.host.values) > pk.MAX_VID:
             raise RuntimeError(
                 f"{self.layout} layout caps distinct values at 2^28; interner "
@@ -944,24 +971,28 @@ class PeerNetworkSim:
             # ingress before the reduction: a vetoed op must not hide the
             # valid op it would have beaten, and rank stamping must see the
             # vids the transforms wrote
-            flat = self._ingress_flat(flat)
+            with observe.span("apply.ingress"):
+                flat = self._ingress_flat(flat)
         if self.layout in RANK_FAMILY:
-            peer, slot, cls, _khi, _klo, vid = flat
             # rank stamping sees every new vid, and a device table coherent
             # with the same map version
-            self._sync_rank_index()
-            rank = self.rank_index.rank_map()[vid]
-            cv = ((cls.astype(np.int64) << pk.CV_SHIFT) | vid).astype(np.int32)
-            reduced = rk.reduce_flat_ops_rank(peer, slot, rank, cv)
-            if reduced is not None and self.layout == "rank1":
-                # the rank decides the winner alone; rank1 stores no cv
-                reduced = reduced[:3]
-        else:
-            reduced = pk.reduce_flat_ops(*flat)
-        if reduced is None:
-            return 0
-        self._mark_dirty(reduced[1])
-        ops = np.stack(reduced)
+            with observe.span("apply.rank_sync"):
+                self._sync_rank_index()
+        with observe.span("apply.reduce"):
+            if self.layout in RANK_FAMILY:
+                peer, slot, cls, _khi, _klo, vid = flat
+                rank = self.rank_index.rank_map()[vid]
+                cv = ((cls.astype(np.int64) << pk.CV_SHIFT) | vid).astype(np.int32)
+                reduced = rk.reduce_flat_ops_rank(peer, slot, rank, cv)
+                if reduced is not None and self.layout == "rank1":
+                    # the rank decides the winner alone; rank1 stores no cv
+                    reduced = reduced[:3]
+            else:
+                reduced = pk.reduce_flat_ops(*flat)
+            if reduced is None:
+                return 0
+            self._mark_dirty(reduced[1])
+            ops = np.stack(reduced)
         if isinstance(self.table, ShardedTable):
             # the winners are sorted by peer: each shard's are one run; the
             # count is summed over the processes
@@ -976,9 +1007,11 @@ class PeerNetworkSim:
                 applied += int(pk.apply_flat_packed(shard, torch.from_numpy(local).to(dev))[1])
             return all_sum_int(self.table.mesh, applied)
         # one flat apply for the whole family: the wrapper dispatches on nf
-        self.table, applied = pk.apply_flat_packed(
-            self.table, torch.from_numpy(ops).to(self.device))
-        return int(applied)
+        with observe.span("apply.upload"):
+            ops = torch.from_numpy(ops).to(self.device)
+        with observe.span("apply.launch"):
+            self.table, applied = pk.apply_flat_packed(self.table, ops)
+            return int(applied)
 
     def warm_apply_buckets(self, max_ops: int = 1 << 16) -> int:
         """Serving warm-up: one apply of an all-padding batch (see
@@ -1092,24 +1125,25 @@ class PeerNetworkSim:
     def step(self, rounds: int = 1) -> int:
         """Apply queued ops, run ``rounds`` gossip rounds; returns residual
         (entries changed in the last round)."""
-        self._ensure_capacity()
-        self._maybe_rekey()
-        self.tick += 1
-        self.stats["ops_applied"] += self._apply_pending()
-        self.hooks.fire_after_puts()
-        residual = 0
-        if rounds:
-            self._frontier_dirty = None  # untracked gossip advances stripes
-        for _ in range(rounds):
-            self.table, changed = self._round(self.table)
-            residual = int(changed)
-            self.stats["gossip_rounds"] += 1
-            self.stats["merged_entries"] += residual
-        self.stats["steps"] += 1
-        self.last_residual = residual if rounds else None
-        self._sync_clocks()
-        self._fire_subscriptions()
-        return residual
+        with observe.span("step"):
+            self._ensure_capacity()
+            self._maybe_rekey()
+            self.tick += 1
+            self.stats["ops_applied"] += self._apply_pending()
+            self.hooks.fire_after_puts()
+            residual = 0
+            if rounds:
+                self._frontier_dirty = None  # untracked gossip advances stripes
+            for _ in range(rounds):
+                self.table, changed = self._round(self.table)
+                residual = int(changed)
+                self.stats["gossip_rounds"] += 1
+                self.stats["merged_entries"] += residual
+            self.stats["steps"] += 1
+            self.last_residual = residual if rounds else None
+            self._sync_clocks()
+            self._fire_subscriptions()
+            return residual
 
     def _fast_forward_route(self) -> str:
         """Which implementation fast_forward uses for this sim state:
@@ -1205,15 +1239,16 @@ class PeerNetworkSim:
         """Apply pending ops then gossip to the fixed point. Returns the
         classic round count (the first round that changed nothing, or the
         cap)."""
-        self._ensure_capacity()
-        self._maybe_rekey()
-        self.tick += 1
-        self.stats["ops_applied"] += self._apply_pending()
-        self.hooks.fire_after_puts()
-        if max_rounds is None:
-            max_rounds = max(2 * self.topology.diameter + 2, 4)
-        _, runner = self._convergence_strategy()
-        return runner(max_rounds)
+        with observe.span("converge"):
+            self._ensure_capacity()
+            self._maybe_rekey()
+            self.tick += 1
+            self.stats["ops_applied"] += self._apply_pending()
+            self.hooks.fire_after_puts()
+            if max_rounds is None:
+                max_rounds = max(2 * self.topology.diameter + 2, 4)
+            _, runner = self._convergence_strategy()
+            return runner(max_rounds)
 
     # -- convergence strategy dispatch (see CONVERGENCE_STRATEGIES) --------
 
@@ -1268,15 +1303,16 @@ class PeerNetworkSim:
             self._frontier_dirty = None  # cutoff: tracking is stale
 
     def _finish_converge(self, rounds, final_changed) -> int:
-        rounds = int(rounds)
-        self.stats["gossip_rounds"] += rounds
-        self.stats["steps"] += 1
-        # honest residual: 0 only if the loop actually reached the fixed
-        # point; nonzero when max_rounds cut it off mid-convergence
-        self.last_residual = int(final_changed)
-        self._sync_clocks()
-        self._fire_subscriptions()
-        return rounds
+        with observe.span("converge.finish"):
+            rounds = int(rounds)
+            self.stats["gossip_rounds"] += rounds
+            self.stats["steps"] += 1
+            # honest residual: 0 only if the loop actually reached the fixed
+            # point; nonzero when max_rounds cut it off mid-convergence
+            self.last_residual = int(final_changed)
+            self._sync_clocks()
+            self._fire_subscriptions()
+            return rounds
 
     def _converge_frontier_local(self, max_rounds: int) -> int:
         """Packed-family compacting frontier loop; on the card STRIPE_FUSE rounds
@@ -1487,19 +1523,27 @@ class PeerNetworkSim:
         self._ensure_capacity()
         self._maybe_rekey()
 
-    def _gather_present_vid(self, peers, slots) -> Tuple[np.ndarray, np.ndarray]:
-        """(present, vid) at the K (peer, slot) pairs, in one device gather
-        per stored field (one, cv, on the packed and rank layouts; on a mesh
-        one per shard). Rank1 gathers the ranks and decodes them on the host
-        through the RankIndex; a rank with no exact hit reads as absent."""
+    def _gather_entries(self, peers, slots) -> List[np.ndarray]:
+        """The stored fields a read decodes at the K (peer, slot) pairs, in
+        one device gather per field: cls and vid on the dense layout, cv on
+        the packed and rank layouts, the rank on rank1 (on a mesh one per
+        shard)."""
         if self.layout == "dense":
-            cls, vid = self._gather(peers, slots, (0, 3))  # cls, vid
+            return self._gather(peers, slots, (0, 3))
+        one = self.table.first if isinstance(self.table, ShardedTable) else self.table
+        return self._gather(peers, slots, (len(one) - 1,))  # cv, or rank1's rank
+
+    def _present_vid(self, entries: List[np.ndarray]) -> Tuple[np.ndarray, np.ndarray]:
+        """(present, vid) of ``_gather_entries``' fields. Rank1 decodes the
+        ranks on the host through the RankIndex; a rank with no exact hit
+        reads as absent."""
+        if self.layout == "dense":
+            cls, vid = entries
             return cls != CLS_ABSENT, vid
         if self.layout == "rank1":
-            vid = self.rank_index.decode_ranks(self._gather(peers, slots, (0,))[0])
+            vid = self.rank_index.decode_ranks(entries[0])
             return vid >= 0, vid
-        one = self.table.first if isinstance(self.table, ShardedTable) else self.table
-        cv = self._gather(peers, slots, (len(one) - 1,))[0]  # cv is the last field
+        cv = entries[0]
         return (cv >> pk.CV_SHIFT) != CLS_ABSENT, cv & pk.VID_MASK
 
     def _gather(self, peers, slots, fields: Sequence[int]) -> List[np.ndarray]:
@@ -1519,42 +1563,49 @@ class PeerNetworkSim:
             return {}
         self._sync_device_state()
         slots_np = np.asarray(slots, dtype=np.int64)
-        sel, vid = self._gather_present_vid(
-            np.full(len(slots_np), peer, dtype=np.int64), slots_np
-        )
-        dec = self.host.values.decode_batch(np.where(vid[sel] == VID_NULL, 0, vid[sel]))
-        out: Dict[int, Any] = {}
-        for slot, v, d in zip(slots_np[sel].tolist(), vid[sel].tolist(), dec):
-            out[slot] = None if v == VID_NULL else d
-        return out
+        with observe.span("get.gather"):
+            entries = self._gather_entries(np.full(len(slots_np), peer, dtype=np.int64), slots_np)
+        with observe.span("get.decode"):
+            sel, vid = self._present_vid(entries)
+            dec = self.host.values.decode_batch(np.where(vid[sel] == VID_NULL, 0, vid[sel]))
+            out: Dict[int, Any] = {}
+            for slot, v, d in zip(slots_np[sel].tolist(), vid[sel].tolist(), dec):
+                out[slot] = None if v == VID_NULL else d
+            return out
 
     def get(self, peer: int, path: str = "") -> Any:
         """Read a value/subtree at ``peer`` (device gather + host tree
         rebuild). Missing paths return None. Get hooks may rewrite the
         path; afterGet hooks may rewrite the data
-        (bullet-middleware.js:27-68)."""
-        if self.hooks.active:
-            path = self.hooks.rewrite_get(peer, path)
-            return self.hooks.rewrite_after_get(peer, path, self._get_raw(peer, path))
-        return self._get_raw(peer, path)
+        (bullet-middleware.js:27-68). The span ``get``, with ``get.lookup``,
+        ``get.gather``, ``get.decode`` and ``get.tree`` inside."""
+        with observe.span("get"):
+            if self.hooks.active:
+                path = self.hooks.rewrite_get(peer, path)
+                return self.hooks.rewrite_after_get(peer, path, self._get_raw(peer, path))
+            return self._get_raw(peer, path)
 
     def _get_raw(self, peer: int, path: str = "") -> Any:
         if path:
-            pid = self.host.paths.lookup(path)
-            if pid is None:
-                return None
-            slots = [pid, *self.host.leaf_slots_under(pid)]
+            with observe.span("get.lookup"):
+                pid = self.host.paths.lookup(path)
+                if pid is None:
+                    return None
+                slots = [pid, *self.host.leaf_slots_under(pid)]
             values = self._decode_slots(peer, slots)
-            tree = self.host.build_tree(pid, values)
-            return None if tree is MISSING else tree
-        roots = self.host.paths.top_level()
+            with observe.span("get.tree"):
+                tree = self.host.build_tree(pid, values)
+                return None if tree is MISSING else tree
+        with observe.span("get.lookup"):
+            roots = self.host.paths.top_level()
         values = self._decode_slots(peer, list(range(len(self.host.paths))))
-        out = {}
-        for r in roots:
-            sub = self.host.build_tree(r, values)
-            if sub is not MISSING:
-                out[self.host.paths.segment(r)] = sub
-        return out
+        with observe.span("get.tree"):
+            out = {}
+            for r in roots:
+                sub = self.host.build_tree(r, values)
+                if sub is not MISSING:
+                    out[self.host.paths.segment(r)] = sub
+            return out
 
     def get_bulk(self, peers, paths) -> List[Any]:
         """Batched point reads — the read twin of ``put_bulk``: ONE device
@@ -1563,7 +1614,13 @@ class PeerNetworkSim:
         of K path strings or an int32 array of pre-interned slot ids.
         Returns K leaf values (None for null, absent, unknown, or interior
         paths). Get hooks (path rewrite + afterGet data rewrite) apply per
-        pair when registered, to path strings only."""
+        pair when registered, to path strings only. The span ``get_bulk``,
+        with ``get.lookup`` (path strings), ``get.gather`` and
+        ``get.decode`` inside."""
+        with observe.span("get_bulk"):
+            return self._get_bulk(peers, paths)
+
+    def _get_bulk(self, peers, paths) -> List[Any]:
         path_strs = None
         if isinstance(paths, np.ndarray) and paths.dtype.kind == "i":
             slots = paths.astype(np.int32)
@@ -1573,20 +1630,24 @@ class PeerNetworkSim:
             if self.hooks.active:
                 prow = np.broadcast_to(np.asarray(peers, dtype=np.int32), (len(paths),))
                 paths = [self.hooks.rewrite_get(int(pr), p) for pr, p in zip(prow, paths)]
-            slots = self.host.paths.lookup_batch(paths)
+            with observe.span("get.lookup"):
+                slots = self.host.paths.lookup_batch(paths)
             valid = slots >= 0
             slots = np.where(valid, slots, 0).astype(np.int32)
             path_strs = paths
         k = len(slots)
         peers_arr = np.broadcast_to(np.asarray(peers, dtype=np.int32), (k,))
         self._sync_device_state()
-        present, vid = self._gather_present_vid(peers_arr, slots)
-        present &= valid & (vid != VID_NULL)
-        out_arr = np.full(k, None, dtype=object)
-        if present.any():
-            uniq, inverse = np.unique(vid[present], return_inverse=True)
-            out_arr[present] = self.host.values.decode_batch(uniq)[inverse]
-        out: List[Any] = out_arr.tolist()
+        with observe.span("get.gather"):
+            entries = self._gather_entries(peers_arr, slots)
+        with observe.span("get.decode"):
+            present, vid = self._present_vid(entries)
+            present &= valid & (vid != VID_NULL)
+            out_arr = np.full(k, None, dtype=object)
+            if present.any():
+                uniq, inverse = np.unique(vid[present], return_inverse=True)
+                out_arr[present] = self.host.values.decode_batch(uniq)[inverse]
+            out: List[Any] = out_arr.tolist()
         if self.hooks.active and path_strs is not None:
             out = [self.hooks.rewrite_after_get(int(pr), p, v)
                    for pr, p, v in zip(peers_arr, path_strs, out)]
@@ -1988,7 +2049,8 @@ class PeerNetworkSim:
     def _gather_watch_values(self) -> np.ndarray:
         if len(self._watch_peers) == 0:
             return np.empty((0,), dtype=np.int64)
-        present, vid = self._gather_present_vid(self._watch_peers, self._watch_slots)
+        present, vid = self._present_vid(
+            self._gather_entries(self._watch_peers, self._watch_slots))
         return np.where(present, vid.astype(np.int64), -1)
 
     def _fire_subscriptions(self) -> None:

@@ -65,6 +65,7 @@ import torch
 
 from .. import _build
 from ..parallel.mesh import ShardedTable
+from ..utils import observe
 from .merge import TableState, lex_gt
 from .ring_kernel import (
     _PLAIN_BLOCK_ELEMS,
@@ -382,15 +383,19 @@ def gossip_until_converged_packed(table, topology, max_rounds: int, spmd: bool =
     ``ShardedTable`` under ``use_shard_map``, the reference's
     ``spmd_mesh``) takes ``shardmap_round_packed``, whose star round is the
     hub reduce. Returns (table, rounds executed, last round's changed
-    count; 1 if no round ran)."""
+    count; 1 if no round ran). The span ``loop`` counts its ``steps``
+    (rounds) and ``waits`` (the count reads, each a ``loop.wait``)."""
     round_fn = gossip_round_packed
     if spmd:
         from ..parallel.shardmap_gossip import shardmap_round_packed as round_fn
     rounds, last_changed = 0, 1
-    while rounds < max_rounds and last_changed > 0:
-        table, changed = round_fn(table, topology)
-        last_changed = int(changed)
-        rounds += 1
+    with observe.span("loop") as sp:
+        while rounds < max_rounds and last_changed > 0:
+            table, changed = round_fn(table, topology)
+            with observe.span("loop.wait"):
+                last_changed = int(changed)
+            rounds += 1
+        sp.set(steps=rounds, waits=rounds)
     return table, rounds, last_changed
 
 
@@ -829,28 +834,42 @@ def frontier_fused_loop(
     the [t_total + 3] layout. The fused phase runs only while a whole fused
     step fits STRICTLY under max_rounds, so any cutoff ends in the
     single-round tail and the reported residual is the true last-round
-    change count. Returns (table, classic rounds, last_changed)."""
-    ids = torch.cat([
-        frontier_ids_compact(dirty, t_total),
-        torch.zeros(1, dtype=torch.int32, device=dirty.device),
-    ])
-    count, changed, _ = ids[t_total:].tolist()
-    rounds_done = 0
-    last_change = -1
-    while count > 0 and rounds_done + fuse < max_rounds:
-        table, ids = roundm_fn(table, ids)
-        count, changed, max_last = ids[t_total:].tolist()
-        if max_last > 0:
-            last_change = rounds_done + max_last
-        rounds_done += fuse
+    change count. Returns (table, classic rounds, last_changed).
 
-    ids = ids[: t_total + 2]
-    while count > 0 and rounds_done < max_rounds:
-        table, ids = round1_fn(table, ids)
-        count, changed = ids[t_total:].tolist()
-        if changed > 0:
-            last_change = rounds_done + 1
-        rounds_done += 1
+    The span ``loop`` counts the ``steps`` launched, the ``stripe_steps``
+    (each step's stripe count, summed) and the ``waits``, each a span
+    ``loop.wait``: the host blocked on the device for the ids' tail."""
+    with observe.span("loop") as sp:
+        ids = torch.cat([
+            frontier_ids_compact(dirty, t_total),
+            torch.zeros(1, dtype=torch.int32, device=dirty.device),
+        ])
+        with observe.span("loop.wait"):
+            count, changed, _ = ids[t_total:].tolist()
+        rounds_done = 0
+        last_change = -1
+        steps = stripe_steps = 0
+        while count > 0 and rounds_done + fuse < max_rounds:
+            steps += 1
+            stripe_steps += count
+            table, ids = roundm_fn(table, ids)
+            with observe.span("loop.wait"):
+                count, changed, max_last = ids[t_total:].tolist()
+            if max_last > 0:
+                last_change = rounds_done + max_last
+            rounds_done += fuse
+
+        ids = ids[: t_total + 2]
+        while count > 0 and rounds_done < max_rounds:
+            steps += 1
+            stripe_steps += count
+            table, ids = round1_fn(table, ids)
+            with observe.span("loop.wait"):
+                count, changed = ids[t_total:].tolist()
+            if changed > 0:
+                last_change = rounds_done + 1
+            rounds_done += 1
+        sp.set(steps=steps, stripe_steps=stripe_steps, waits=steps + 1)
     # classic round count: the first no-change round = last change + 1
     # (1 if rounds ran but nothing ever changed; rounds_done == the
     # max_rounds cutoff when not converged; 0 if nothing was dirty)
@@ -872,17 +891,23 @@ def frontier_loop(
     layout's frontier step of m rounds. ``fuse`` > 1 runs the fused loop;
     otherwise one round per step until the frontier empties or
     ``max_rounds``. Returns (table, classic rounds, last_changed), the
-    latter 0 iff the frontier is empty at exit."""
+    latter 0 iff the frontier is empty at exit. Either loop is the span
+    ``loop`` (see ``frontier_fused_loop``)."""
     if fuse > 1:
         return frontier_fused_loop(table, dirty, t_total, max_rounds, fuse, step(1), step(fuse))
     round1 = step(1)
-    ids = frontier_ids_compact(dirty, t_total)
-    rounds = 0
-    count = int(ids[t_total])
-    while count > 0 and rounds < max_rounds:
-        table, ids = round1(table, ids)
-        count = int(ids[t_total])
-        rounds += 1
+    with observe.span("loop") as sp:
+        ids = frontier_ids_compact(dirty, t_total)
+        rounds = stripe_steps = 0
+        with observe.span("loop.wait"):
+            count = int(ids[t_total])
+        while count > 0 and rounds < max_rounds:
+            stripe_steps += count
+            table, ids = round1(table, ids)
+            with observe.span("loop.wait"):
+                count = int(ids[t_total])
+            rounds += 1
+        sp.set(steps=rounds, stripe_steps=stripe_steps, waits=rounds + 1)
     last_changed = 0 if count == 0 else int(ids[t_total + 1])
     return table, rounds, last_changed
 

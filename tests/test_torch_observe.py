@@ -5,7 +5,8 @@ the reference's on a reference sim (JAX, CPU) given the same writes:
 kinds, ticks, residuals, converge round counts and counters, for dense,
 packed and rank1 sims, ring and chain. ``profile_trace`` writes a Chrome
 trace of the block into its directory (CPU activity here), also when the
-block raises. Tolerance: exact."""
+block raises, with the program's spans of the block in it. Tolerance:
+exact."""
 
 import glob
 import json
@@ -70,10 +71,20 @@ def test_profile_trace_writes_a_chrome_trace(tmp_path):
     assert sim.put(0, "a", 1)
     with profile_trace(str(tmp_path / "t")):
         sim.run_until_converged()
+        assert sim.get(3, "a") == 1
     files = glob.glob(str(tmp_path / "t" / "trace_*.json"))
     assert len(files) == 1
     events = json.load(open(files[0]))["traceEvents"]
     assert any(str(e.get("name", "")).startswith("aten::") for e in events)
+    # the program's spans, on a track of their own, on the operators' clock
+    spans = {e["name"]: e for e in events if e.get("cat") == "span"}
+    assert {"converge", "loop", "get", "get.gather"} <= set(spans)
+    get, gather = spans["get"], spans["get.gather"]
+    assert get["ph"] == "X" and get["tid"] != get["pid"]
+    assert get["ts"] <= gather["ts"] and gather["ts"] + gather["dur"] <= get["ts"] + get["dur"]
+    # the gather's own operator lies inside its span
+    assert any(e.get("name") == "aten::index" and gather["ts"] <= e["ts"]
+               and e["ts"] + e["dur"] <= gather["ts"] + gather["dur"] for e in events)
     with pytest.raises(ZeroDivisionError):
         with profile_trace(str(tmp_path / "t")):
             sim.step(1)
