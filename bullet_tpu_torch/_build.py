@@ -30,7 +30,7 @@ SOURCES = (
     "merge.cu", "ring_round.cu", "frontier_dense.cu", "frontier_shard.cu",
     "frontier_shard_window.cu", "compact_counts.cu",
     "apply_packed.cu", "packed_round.cu", "reconcile_packed.cu", "frontier_packed.cu",
-    "window_packed.cu",
+    "window_packed.cu", "converge_columns.cu",
 )
 HEADERS = ("lexmax.cuh", "frontier.cuh")
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "bullet_tpu_torch"
@@ -48,7 +48,7 @@ LAUNCHES = {
     "compact_counts fused": 0, "frontier_shard packed": 0, "frontier_shard packed fused": 0,
     "frontier_shard_window": 0, "compact_counts window": 0,
     "apply_packed": 0, "packed_round": 0, "packed_round fused": 0, "reconcile_packed": 0,
-    "frontier_round_packed": 0, "window_packed": 0, "window_shard": 0,
+    "frontier_round_packed": 0, "window_packed": 0, "window_shard": 0, "converge_columns": 0,
 }
 
 _P = ctypes.c_void_p
@@ -104,6 +104,10 @@ _SIGNATURES = {
         ctypes.c_int, ctypes.c_int, ctypes.c_int, _P,
     ),
     "bt_window_rows": (ctypes.c_int,),
+    "bt_converge_columns": (
+        _P, _P, ctypes.c_int, _P, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_int, _P,
+    ),
 }
 
 _lock = threading.Lock()

@@ -432,10 +432,16 @@ class PeerNetworkSim:
         # schema validation, both zero-cost until something registers
         self.validation = EngineValidation(self)
         self.hooks = EngineHooks(self)
-        # frontier bookkeeping (ring/chain): per-stripe dirty flags known
-        # only between a completed frontier convergence and the next
-        # non-frontier mutation; None = unknown -> start all-dirty
+        # frontier bookkeeping (ring/chain): per-column dirty flags [N]
+        # known only between a completed convergence and the next untracked
+        # mutation; None = unknown -> start all-dirty. The stripe loops'
+        # seeds are derived from it (_frontier_seed), the column pass takes
+        # it as it is
         self._frontier_dirty: Optional[np.ndarray] = None
+        # the same marks by the column pass's 16-column group, kept beside
+        # the columns so that a converge need not reduce them; read only
+        # while _frontier_dirty is valid
+        self._frontier_groups: Optional[np.ndarray] = None
         self.stats = {
             "ops_enqueued": 0,
             "ops_applied": 0,
@@ -759,7 +765,7 @@ class PeerNetworkSim:
         for f in range(6):
             fields[f][peers, bpos] = flat[f]
         # padded entries are slot 0 / cls 0: they never win, and dirty
-        # stripe 0 conservatively in frontier seeding
+        # column 0 conservatively in frontier seeding
         return fields
 
     def _drain_flat(self):
@@ -804,7 +810,7 @@ class PeerNetworkSim:
         new_cap = self.capacity
         while new_cap < needed:
             new_cap *= 2
-        self._frontier_dirty = None  # stripe count changes with capacity
+        self._frontier_dirty = None  # column count changes with capacity
         if isinstance(self.table, ShardedTable):
             self.table = self.table.map(lambda t: _grown(t, new_cap))  # each shard
         else:
@@ -892,12 +898,12 @@ class PeerNetworkSim:
             self.table = self._per_shard(lambda t: regather(t, *on[t[0].device]))
 
     def _mark_dirty(self, slots: np.ndarray) -> None:
-        """Frontier bookkeeping: the stripes holding ``slots`` need work."""
+        """Frontier bookkeeping: the columns ``slots`` need work."""
         if self._frontier_dirty is None:
             return
-        tile_n = self._frontier_tile()
-        if tile_n and len(self._frontier_dirty) == self._shape()[1] // tile_n:
-            self._frontier_dirty[np.unique(slots // tile_n)] = True
+        if self._frontier_tile() and len(self._frontier_dirty) == self._shape()[1]:
+            self._frontier_dirty[slots] = True
+            self._frontier_groups[slots // pk.COLUMN_GROUP] = True
         else:
             self._frontier_dirty = None
 
@@ -1085,7 +1091,7 @@ class PeerNetworkSim:
     def _frontier_tile(self) -> int:
         """Stripe width the frontier convergence path would use at the
         current shape (the port's own width); 0 = no frontier runs and
-        dirty-stripe bookkeeping is pointless. A lean or sharded sim runs it
+        dirty-column bookkeeping is pointless. A lean or sharded sim runs it
         exactly where the reference does (a lean sim's route decides its
         bits); a data mesh never does (a packed one keeps the bookkeeping,
         as the reference)."""
@@ -1133,7 +1139,7 @@ class PeerNetworkSim:
             self.hooks.fire_after_puts()
             residual = 0
             if rounds:
-                self._frontier_dirty = None  # untracked gossip advances stripes
+                self._frontier_dirty = None  # untracked gossip advances columns
             for _ in range(rounds):
                 self.table, changed = self._round(self.table)
                 residual = int(changed)
@@ -1150,7 +1156,7 @@ class PeerNetworkSim:
         "spmd" (a packed-family ring or chain sim on a mesh: one window per
         exchange of slabs as deep as a shard, ``ring_window_shardmap_packed``),
         "frontier" (the compacting frontier loop with max_rounds = k: a
-        packed sim on the card whose dirty-stripe tracking is valid, so the
+        packed sim on the card whose dirty-column tracking is valid, so the
         jump is not blind), "window" (every other packed-family ring or
         chain sim: the window-join kernel on the card, its plain version on
         the CPU) or "step" (dense layouts and other topologies). The
@@ -1178,7 +1184,7 @@ class PeerNetworkSim:
         nothing more; on a mesh min(left, b), b the rows of a shard (its
         slabs come from one neighbour). A pass whose round-m residual is 0
         has reached the fixed point; the remaining rounds are no-ops and are
-        skipped, and every stripe is marked clean. The "frontier" route (see
+        skipped, and every column is marked clean. The "frontier" route (see
         ``_fast_forward_route``) runs the fused frontier loop with
         ``max_rounds = rounds`` instead.
 
@@ -1195,7 +1201,7 @@ class PeerNetworkSim:
         self.tick += 1
         self.stats["ops_applied"] += self._apply_pending()
         self.hooks.fire_after_puts()
-        # re-resolve: the apply refreshed the dirty-stripe tracking
+        # re-resolve: the apply refreshed the dirty-column tracking
         route = self._fast_forward_route()
         wrap = self.topology.kind == "ring"
         p, n = self._shape()
@@ -1206,10 +1212,10 @@ class PeerNetworkSim:
                 self.table, self._frontier_seed(t_total), wrap, rounds,
                 fuse=pk.STRIPE_FUSE, tile_n=tile_n,
             )
-            self._finish_frontier(t_total, rounds_exec, last_changed, rounds)
+            self._finish_frontier(rounds_exec, last_changed, rounds)
             residual = int(last_changed)
         else:
-            self._frontier_dirty = None  # untracked gossip advances stripes
+            self._frontier_dirty = None  # untracked gossip advances columns
             left, residual = rounds, 0
             while left:
                 if route == "spmd":
@@ -1222,9 +1228,7 @@ class PeerNetworkSim:
                 residual = int(changed)
                 if residual == 0:
                     # fixed point: the table is settled until new ops land
-                    tile_n = self._frontier_tile()
-                    if tile_n:
-                        self._frontier_dirty = np.zeros(n // tile_n, dtype=bool)
+                    self._frontier_settled()
                     break
         self.stats["gossip_rounds"] += rounds
         self.stats["windowed_rounds"] += rounds
@@ -1281,24 +1285,37 @@ class PeerNetworkSim:
         return self.device.type == "cuda"
 
     def _frontier_tracking_valid(self) -> bool:
-        """True when the dirty-stripe tracking is live for the current
+        """True when the dirty-column tracking is live for the current
         shape: a fast_forward jump is then not blind."""
-        tile_n = self._frontier_tile()
         d = self._frontier_dirty
-        return d is not None and tile_n > 0 and len(d) == self._shape()[1] // tile_n
+        return d is not None and self._frontier_tile() > 0 and len(d) == self._shape()[1]
+
+    def _frontier_columns(self) -> Optional[np.ndarray]:
+        """The tracked dirty columns when valid, else None (all dirty)."""
+        return self._frontier_dirty if self._frontier_tracking_valid() else None
 
     def _frontier_seed(self, t_total: int) -> torch.Tensor:
-        """Dirty-stripe seed for a frontier loop: the incrementally tracked
-        set when valid (only stripes touched since the last completed
-        convergence need work), else all-dirty."""
-        if self._frontier_dirty is not None and len(self._frontier_dirty) == t_total:
-            return torch.from_numpy(self._frontier_dirty).to(self.device)
-        return torch.ones(t_total, dtype=torch.bool, device=self.device)
+        """Dirty-stripe seed for a frontier loop: the stripes that hold a
+        tracked dirty column when the tracking is valid (only stripes
+        touched since the last completed convergence need work), else
+        all-dirty."""
+        cols = self._frontier_columns()
+        if cols is None:
+            return torch.ones(t_total, dtype=torch.bool, device=self.device)
+        # 8 columns a word: a stripe (a multiple of 32 columns) is whole words
+        stripes = cols.view(np.uint64).reshape(t_total, -1).any(1)
+        return torch.from_numpy(stripes).to(self.device)
 
-    def _finish_frontier(self, t_total, rounds, final_changed, max_rounds):
+    def _frontier_settled(self) -> None:
+        """A true fixed point: every column is settled until new ops land."""
+        if self._frontier_tile():
+            n = self._shape()[1]
+            self._frontier_dirty = np.zeros(n, dtype=bool)
+            self._frontier_groups = np.zeros(n // pk.COLUMN_GROUP, dtype=bool)
+
+    def _finish_frontier(self, rounds, final_changed, max_rounds):
         if rounds < max_rounds or final_changed == 0:
-            # true fixed point: every stripe is settled until new ops land
-            self._frontier_dirty = np.zeros(t_total, dtype=bool)
+            self._frontier_settled()
         else:
             self._frontier_dirty = None  # cutoff: tracking is stale
 
@@ -1314,18 +1331,38 @@ class PeerNetworkSim:
             self._fire_subscriptions()
             return rounds
 
+    def _column_pass_applies(self, max_rounds: int) -> bool:
+        """Whether an unsharded packed-family converge takes the column
+        pass: on the card, where no cap can cut it short (max_rounds above
+        the diameter, which bounds every row's distance to its column's
+        join, and above 1, which a lone row of a chain may take from its
+        ends), at a shape whose 16-column groups fit a block."""
+        p, n = self._shape()
+        return (self._card_routes() and max_rounds > max(self.topology.diameter, 1)
+                and pk.column_pass_fits(p, n, len(self.table)))
+
     def _converge_frontier_local(self, max_rounds: int) -> int:
-        """Packed-family compacting frontier loop; on the card STRIPE_FUSE rounds
-        fuse per kernel step, with the exact classic round count rebuilt on
-        the host. On the CPU the plain version runs unfused."""
-        tile_n = self._frontier_tile()
-        t_total = self.table[0].shape[1] // tile_n
-        fuse = pk.STRIPE_FUSE if self._card_routes() else 1
-        self.table, rounds, final_changed = pk.gossip_frontier_packed(
-            self.table, self._frontier_seed(t_total),
-            self.topology.kind == "ring", max_rounds, fuse=fuse, tile_n=tile_n,
-        )
-        self._finish_frontier(t_total, rounds, final_changed, max_rounds)
+        """Packed-family convergence of a ring or chain. On the card an
+        uncapped converge settles the dirty columns in one column pass (the
+        frontier loop's table, round count and residual); a capped one runs
+        the compacting frontier loop, STRIPE_FUSE rounds fused per kernel
+        step, with the exact classic round count rebuilt on the host. On the
+        CPU the frontier loop's plain version runs unfused."""
+        wrap = self.topology.kind == "ring"
+        if self._column_pass_applies(max_rounds):
+            cols = self._frontier_columns()
+            groups = None if cols is None else np.flatnonzero(self._frontier_groups)
+            self.table, rounds, final_changed = pk.gossip_columns_packed(
+                self.table, cols, wrap, groups)
+        else:
+            tile_n = self._frontier_tile()
+            t_total = self.table[0].shape[1] // tile_n
+            fuse = pk.STRIPE_FUSE if self._card_routes() else 1
+            self.table, rounds, final_changed = pk.gossip_frontier_packed(
+                self.table, self._frontier_seed(t_total), wrap, max_rounds, fuse=fuse,
+                tile_n=tile_n,
+            )
+        self._finish_frontier(rounds, final_changed, max_rounds)
         return self._finish_converge(rounds, final_changed)
 
     def _converge_frontier_spmd(self, max_rounds: int) -> int:
@@ -1347,7 +1384,7 @@ class PeerNetworkSim:
             self.table, self._frontier_seed(t_total), self.topology.kind == "ring",
             max_rounds, fuse=fuse, window_fuse=window, tile_n=tile_n,
         )
-        self._finish_frontier(t_total, rounds, final_changed, max_rounds)
+        self._finish_frontier(rounds, final_changed, max_rounds)
         return self._finish_converge(rounds, final_changed)
 
     def _converge_packed_loop(self, max_rounds: int) -> int:
@@ -1376,7 +1413,7 @@ class PeerNetworkSim:
             self.topology.kind == "ring", self.mode, max_rounds,
             fuse=fuse, tile_n=tile_n, lean=self.lean_gossip,
         )
-        self._finish_frontier(t_total, rounds, final_changed, max_rounds)
+        self._finish_frontier(rounds, final_changed, max_rounds)
         return self._finish_converge(rounds, final_changed)
 
     def _converge_dense_frontier_spmd(self, max_rounds: int) -> int:
@@ -1392,7 +1429,7 @@ class PeerNetworkSim:
             self.table, self._frontier_seed(t_total), self.topology.kind == "ring",
             self.mode, self.lean_gossip, max_rounds, fuse=fuse, tile_n=tile_n,
         )
-        self._finish_frontier(t_total, rounds, final_changed, max_rounds)
+        self._finish_frontier(rounds, final_changed, max_rounds)
         return self._finish_converge(rounds, final_changed)
 
     def _converge_dense_loop(self, max_rounds: int) -> int:
@@ -1431,9 +1468,7 @@ class PeerNetworkSim:
             self.table, _ = gossip_round_mesh(self.table, self.mode, self.lean_gossip)
         self.stats["steps"] += 1
         self.last_residual = 0
-        tile_n = self._frontier_tile()
-        if tile_n:
-            self._frontier_dirty = np.zeros(self._shape()[1] // tile_n, dtype=bool)
+        self._frontier_settled()
         self._sync_clocks()
         self._fire_subscriptions()
 

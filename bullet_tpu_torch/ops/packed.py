@@ -28,6 +28,9 @@ Each kernel sits beside its plain PyTorch version:
 * ``ring_window_packed`` (``csrc/window_packed.cu``) /
   ``ring_window_packed_torch``: m rounds as one radius-(m-1) window join
   plus a classic last round, returning the round-m residual;
+* ``converge_columns_packed`` (``csrc/converge_columns.cu``) /
+  ``converge_columns_packed_torch``: the dirty columns' fixed point in one
+  pass (each column's join in every row), returning the rounds' depth;
 * on a device mesh, per shard: ``frontier_shard_round_packed``
   (``csrc/frontier_shard.cu``) / ``frontier_shard_round_torch`` with
   ``packed_beats``: m = 1 or 8 rounds on the active stripes, per-round
@@ -838,7 +841,8 @@ def frontier_fused_loop(
 
     The span ``loop`` counts the ``steps`` launched, the ``stripe_steps``
     (each step's stripe count, summed) and the ``waits``, each a span
-    ``loop.wait``: the host blocked on the device for the ids' tail."""
+    ``loop.wait``: the host blocked on the device for the ids' tail; its
+    ``columns`` (those the column pass settles) are 0."""
     with observe.span("loop") as sp:
         ids = torch.cat([
             frontier_ids_compact(dirty, t_total),
@@ -869,7 +873,7 @@ def frontier_fused_loop(
             if changed > 0:
                 last_change = rounds_done + 1
             rounds_done += 1
-        sp.set(steps=steps, stripe_steps=stripe_steps, waits=steps + 1)
+        sp.set(steps=steps, stripe_steps=stripe_steps, waits=steps + 1, columns=0)
     # classic round count: the first no-change round = last change + 1
     # (1 if rounds ran but nothing ever changed; rounds_done == the
     # max_rounds cutoff when not converged; 0 if nothing was dirty)
@@ -907,7 +911,7 @@ def frontier_loop(
             with observe.span("loop.wait"):
                 count = int(ids[t_total])
             rounds += 1
-        sp.set(steps=rounds, stripe_steps=stripe_steps, waits=rounds + 1)
+        sp.set(steps=rounds, stripe_steps=stripe_steps, waits=rounds + 1, columns=0)
     last_changed = 0 if count == 0 else int(ids[t_total + 1])
     return table, rounds, last_changed
 
@@ -929,6 +933,157 @@ def gossip_frontier_packed(
         table, dirty, n // tile_n, max_rounds, fuse,
         lambda m: lambda tbl, ids: frontier_round_packed(tbl, ids, tile_n, wrap, m),
     )
+
+
+# ------------------------------------------------------- the column pass
+
+# columns a block of the column pass owns: 64 bytes a row a field
+COLUMN_GROUP = 16
+# the dynamic shared memory a column-pass block may take: an H100 block's
+# 232,448 bytes less 4 KB for the kernel's static arrays (3,344 bytes)
+COLUMN_PASS_SMEM = 232448 - 4096
+
+
+def column_pass_smem(p: int, nf: int) -> int:
+    """Shared memory of one column-pass block at P rows and nf fields, as
+    ``csrc/converge_columns.cu`` reckons it: the group's rows, the holders'
+    flags and their 32-row bitmaps."""
+    return 4 * COLUMN_GROUP * p * nf + COLUMN_GROUP * p + 4 * COLUMN_GROUP * (-(-p // 32))
+
+
+def column_pass_fits(p: int, n: int, nf: int) -> bool:
+    """Whether the column pass takes a [P, N] table of nf fields: whole
+    16-column groups, each within one block's shared memory (P up to 1,087
+    packed, 1,564 rank, 2,784 rank1)."""
+    return p >= 1 and n % COLUMN_GROUP == 0 and column_pass_smem(p, nf) <= COLUMN_PASS_SMEM
+
+
+def column_groups(seed, n: int) -> np.ndarray:
+    """Ascending int32 ids of the 16-column groups that hold a column of
+    ``seed`` (bool [n] on the host; None = every column)."""
+    if seed is None:
+        return np.arange(n // COLUMN_GROUP, dtype=np.int32)
+    # 8 columns a word; strided ORs of a group's words (numpy's reductions
+    # along a short last axis take several times as long)
+    words = np.ascontiguousarray(seed, dtype=bool).view(np.uint64)
+    k = COLUMN_GROUP // 8
+    held = words[0::k].copy()
+    for i in range(1, k):
+        held |= words[i::k]
+    return np.flatnonzero(held).astype(np.int32)
+
+
+def holder_distances(held: torch.Tensor, wrap: bool,
+                     ends: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Each row's ring (wrap) or chain distance to the nearest row of its
+    column that holds (``held``, bool [P, C]); on a chain, the columns of
+    ``ends`` (bool [C]) hold one row beyond either end too. Every column
+    holds somewhere."""
+    if ends is not None:
+        rim = ends[None]
+        return holder_distances(torch.cat([rim, held, rim]), False)[1:-1]
+    p = held.shape[0]
+    rows = torch.arange(p, device=held.device)[:, None].expand_as(held)
+    far = 4 * p
+    prev = torch.where(held, rows, -far).cummax(0).values
+    nxt = torch.where(held, rows, far).flip(0).cummin(0).values.flip(0)
+    if wrap:
+        # past either end the nearest holder is the other end's
+        prev = torch.where(prev < 0, prev[-1] - p, prev)
+        nxt = torch.where(nxt >= p, nxt[0] + p, nxt)
+    return torch.minimum(rows - prev, nxt - rows)
+
+
+def converge_columns_packed_torch(table, groups: torch.Tensor, wrap: bool) -> torch.Tensor:
+    """Plain version of the column pass, in place: every column of the
+    16-column ``groups`` becomes its join (the lexmax of its rows; on a
+    chain, of its rows and the all-zero entry its ends compare against) in
+    every row. Returns the largest over those columns of every row's
+    distance to the nearest row that held the join (a chain's ends hold it
+    where it is the all-zero entry), int32; -1 with no group."""
+    p, _ = table[0].shape
+    device = table[0].device
+    cols = (groups.to(device, torch.int64)[:, None] * COLUMN_GROUP
+            + torch.arange(COLUMN_GROUP, device=device)).flatten()
+    depth = -1
+    width = max(1, _PLAIN_BLOCK_ELEMS // max(p, 1))
+    for c0 in range(0, cols.numel(), width):
+        idx = cols[c0:c0 + width]
+        sub = [f.index_select(1, idx) for f in table]
+        top = torch.ones(sub[0].shape, dtype=torch.bool, device=idx.device)
+        for k in table_keys(sub):
+            top &= k == torch.where(top, k, torch.iinfo(k.dtype).min).amax(0)
+        first = top.to(torch.int8).argmax(0, keepdim=True)
+        join = [f.gather(0, first) for f in sub]
+        ends = None
+        if not wrap:
+            ends = ~packed_beats(join, [torch.zeros_like(j) for j in join])[0]
+            join = [torch.where(ends, 0, j) for j in join]
+        held = torch.stack([f == j for f, j in zip(sub, join)]).all(0)
+        depth = max(depth, int(holder_distances(held, wrap, ends).max()))
+        for f, j in zip(table, join):
+            f.index_copy_(1, idx, j.expand(p, -1).contiguous())
+    return torch.tensor(depth, dtype=torch.int32)
+
+
+def converge_columns_packed(table, seed, wrap: bool,
+                            groups: Optional[np.ndarray] = None) -> Tuple[object, torch.Tensor]:
+    """Settle a ring's (wrap) or chain's dirty columns in one pass, in place:
+    every column of each 16-column group that holds a column of ``seed``
+    (bool [n] on the host; None = every column) becomes its join in every
+    row; ``groups``, where the caller keeps them, are those groups'
+    ascending ids (``column_groups(seed, n)``). The CUDA kernel (``csrc/converge_columns.cu``, one launch) for CUDA
+    tensors, the plain version for CPU tensors. Returns (table, depth): the
+    largest over those columns of a row's distance to the nearest row that
+    held the join (int32, on the table's device), so that the frontier loop
+    from the same state would count depth + 1 rounds; -1 with no group."""
+    p, n = table[0].shape
+    device = table[0].device
+    groups = column_groups(seed, n) if groups is None else groups.astype(np.int32)
+    if device.type == "cpu":
+        return table, converge_columns_packed_torch(table, torch.from_numpy(groups), wrap)
+    _fields_checked(table, "converge_columns_packed")
+    if not column_pass_fits(p, n, len(table)):
+        raise ValueError(f"converge_columns_packed: [{p}, {n}] at nf = {len(table)} takes "
+                         f"{column_pass_smem(p, len(table))} bytes of shared memory a block, "
+                         f"or n is not a multiple of {COLUMN_GROUP}")
+    if any(f.data_ptr() % 16 for f in table):
+        raise ValueError("converge_columns_packed: fields must be 16-byte aligned")
+    if groups.size == 0:
+        return table, torch.tensor(-1, dtype=torch.int32, device=device)
+    # the groups, then the depth's cell (zero) after them: one upload
+    ids = torch.from_numpy(np.append(groups, np.int32(0))).to(device)
+    lib = _build.library()
+    with torch.cuda.device(device):
+        err = lib.bt_converge_columns(
+            _build.pointers(table), ids.data_ptr(), groups.size, ids[-1:].data_ptr(), p, n,
+            int(wrap), len(table), _build.stream_of(device),
+        )
+    _build.check(err, "converge_columns_packed")
+    _build.LAUNCHES["converge_columns"] += 1
+    return table, ids[-1]
+
+
+def gossip_columns_packed(table, seed, wrap: bool,
+                          groups: Optional[np.ndarray] = None) -> Tuple[object, int, int]:
+    """A ring's or chain's converge to its fixed point as one column pass
+    (``converge_columns_packed``), for a loop that no cap can cut short
+    (max_rounds above the diameter, which bounds every distance): the table,
+    classic round count and residual are those of ``gossip_frontier_packed``
+    from the same state, seeded with the stripes that hold ``seed``'s
+    columns (``groups`` as ``converge_columns_packed`` takes them). Returns
+    (table, rounds, 0). The span ``loop`` counts its
+    ``steps`` (launches), ``stripe_steps`` (0), ``waits`` (the depth's read
+    back, ``loop.wait``) and the dirty ``columns`` it settled."""
+    n = table[0].shape[1]
+    with observe.span("loop") as sp:
+        table, depth = converge_columns_packed(table, seed, wrap, groups)
+        with observe.span("loop.wait"):
+            rounds = int(depth) + 1
+        sp.set(steps=int(table[0].is_cuda and rounds > 0), stripe_steps=0, waits=1)
+        if observe.recording():  # a pass over the seed: only for a trace
+            sp.set(columns=n if seed is None else int(np.count_nonzero(seed)))
+    return table, rounds, 0
 
 
 # ----------------------------------------------- per-shard steps (device mesh)

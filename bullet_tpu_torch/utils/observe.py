@@ -157,6 +157,12 @@ def span(name: str, **attrs: int):
     return _Open(RECORDER, name, attrs)
 
 
+def recording() -> bool:
+    """Whether span sites record now (a ``torch.profiler`` records): for a
+    count that costs work to take, which a site then sets only when it is."""
+    return _autograd_profiler._is_profiler_enabled
+
+
 def spans() -> List[Span]:
     """Every span recorded so far, ordered by start (``RECORDER.dropped``
     counts those past ``MAX_SPANS``; ``RECORDER.clear()`` forgets them)."""

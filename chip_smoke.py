@@ -26,8 +26,13 @@ Phases, in order; any failure raises and exits nonzero:
    the frontiers (dense, lean, packed family) at m = 1 and 8 on rings and
    chains of P in {1, 2, 3, 17, 64, 1000, 4096}, with stripes that settle
    inside a fused step and leave the frontier, the whole ids array
-   compared; then small dense, packed, rank and rank1 sims on the card
-   against the same sims on the CPU; the lean round, the lean frontier and
+   compared; the column pass against its plain version and the fused
+   frontier loop (tables, depth, rounds) on rings and chains of P in {1,
+   2, 3, 17, 64, 1000} and the largest P a block holds, seeds all, none,
+   one and sparse, and at 1024 x 2^20 on a scatter batch's 49,300 dirty
+   columns, 256 and all, timed on both clocks with its bytes; then small
+   dense, packed, rank and rank1 sims on the card against the same sims on
+   the CPU; the lean round, the lean frontier and
    the lean merge at 1024 x 2^20 and ragged shapes; the per-shard frontier
    at 256 x 2^18 per shard (reference, lww, lean; m = 1, 8; random and
    zeroed boundary rows); the count fold and compaction of 1 and 4 shards'
@@ -52,9 +57,11 @@ Phases, in order; any failure raises and exits nonzero:
    restored from a snapshot that converges;
 5. packed main path: a packed ring PeerNetworkSim at P x N (default
    1024 x 2^20, 12 B/entry, 12.9 GB): put_bulk + string puts, step(1),
-   run_until_converged on the packed-frontier-local route, tables_equal
-   and the converged row against an independent numpy per-leaf max, an
-   incremental converge after a second batch, converged(), a third batch
+   run_until_converged on the packed-frontier-local route (the column
+   pass), tables_equal and the converged row against an independent numpy
+   per-leaf max, an incremental converge after a second batch, a converge
+   capped at the diameter (the fused frontier loop) then finished,
+   converged(), a third batch
    and reconcile against a twin restored from a snapshot that reaches the
    fixed point by a blind fast_forward (the window kernel), get/get_bulk;
    then the reference's packed bench cell (bench.py:95-200): its hash
@@ -64,10 +71,12 @@ Phases, in order; any failure raises and exits nonzero:
 6. rank1 main path: a rank1 ring PeerNetworkSim at P x N (default
    1024 x 2^20, 4 B/entry, 4.3 GB): put_bulk + string puts, step(1), a
    snapshot restored into two twins, run_until_converged on the
-   packed-frontier-local route against an independent numpy per-leaf max,
-   fast_forward(480) on one twin against step(480) on the other, the
-   jumped twin fast-forwarded to the fixed point against the converged
-   table, then more writes, reconcile, converged() and reads; it prints
+   packed-frontier-local route (the column pass) against an independent
+   numpy per-leaf max, fast_forward(480) on one twin against step(480) on
+   the other, the jumped twin fast-forwarded to the fixed point against
+   the converged table, a converge capped at the diameter (the fused
+   frontier loop) then finished, then more writes, reconcile, converged()
+   and reads; it prints
    the windowed logical merges/s of fast_forward(480), 2 P N 480 / s;
 7. lean main path: a lean dense ring PeerNetworkSim at P x N (default
    1024 x 2^20, 30.1 GB): put_bulk + string/object puts, step(1) (the lean
@@ -262,12 +271,15 @@ KERNELS = {
     "compact_counts window": (
         "bullet_tpu_torch/csrc/compact_counts.cu", "bullet_tpu/ops/packed.py:2900",
     ),
+    # the port's own: an uncapped converge's dirty columns in one pass, where
+    # the reference runs its frontier loop (bullet_tpu/ops/packed.py:2161)
+    "converge_columns": ("bullet_tpu_torch/csrc/converge_columns.cu", "none"),
 }
 DENSE_KERNELS = ("merge", "ring_round", "frontier_round_dense")
 # the packed-family kernels: phase 5 drives them at nf = 3, phase 6 at nf = 1;
 # phase 5's fused rounds window also the m-round pass
 PACKED_KERNELS = ("apply_packed", "packed_round", "reconcile_packed", "frontier_round_packed",
-                  "window_packed")
+                  "window_packed", "converge_columns")
 FUSED_ROUNDS = "packed_round fused"
 # phase 7 drives the lean round, the dense frontier at nf = 4 and the lean
 # merge; phase 8 the per-shard frontier and the count compaction, each
@@ -1010,6 +1022,151 @@ def check_frontier_packed(dev, main_shape, errs, times, nf):
     log(f"  frontier_round_packed [{LAYOUT_OF[nf]}] {p}x{n} tile {tile}, m=8, all {t_total} "
         f"stripes: kernel {ms:.3f} ms, plain {plain:.3f} ms per call; m=1 kernel {ms1:.3f} ms, "
         f"plain {plain_m1:.3f} ms; bit-identical ({'; '.join(report)})")
+
+
+# P x N of the column pass's checks: tiny rings and chains, 17 and 1000
+# rows (ragged 32-row words), and the largest P a block holds packed and
+# rank1 (each layout skips the shapes past its own)
+COLUMN_SHAPES = ((1, 64), (2, 64), (3, 256), (17, 512), (64, 1024), (1000, 512), (1087, 256),
+                 (2784, 256))
+# the main shape's seeds: the scatter cells' dirty columns a batch (about
+# 49,300 of 2^20) and the read cells' (a few hundred)
+SCATTER_COLUMNS, READ_COLUMNS = 49_300, 256
+
+
+def column_seed(rng, n: int, kind: str):
+    """Dirty columns bool [n] of a seed kind, or None for every column."""
+    if kind == "all":
+        return None
+    dirty = np.zeros(n, dtype=bool)
+    count = {"none": 0, "one": 1, "sparse": max(1, n // 20), "scatter": SCATTER_COLUMNS,
+             "read": READ_COLUMNS}[kind]
+    dirty[rng.choice(n, min(n, count), replace=False)] = True
+    return dirty
+
+
+def dirtied(nf: int, seed: int, p: int, n: int, dirty, wrap: bool, dev, win: bool = False):
+    """A table for the column pass at a seed: with every column dirty a
+    random one; else a random table at its fixed point (a ring's by the
+    reconcile kernel; a chain's, whose ends pull up entries below the
+    all-zero one, by the frontier loop), then 1 to 3 random rows of each
+    dirty column given a random table's entry (some win, some tie, some
+    lose); with ``win`` the first of them TOP, which beats every other, as
+    a write that wins its leaf at one peer. Deterministic in its
+    arguments."""
+    from bullet_tpu_torch.ops import packed as pk
+
+    table = random_family(nf, seed, p, n, dev)
+    if dirty is None:
+        return table
+    if wrap:
+        pk.reconcile_packed(table)
+    else:
+        tile = pk.frontier_tile_n(n)
+        pk.gossip_frontier_packed(table, torch.ones(n // tile, dtype=torch.bool, device=dev),
+                                  False, 2 * p + 2, fuse=pk.STRIPE_FUSE, tile_n=tile)
+    rng = np.random.default_rng(seed)
+    cols = np.flatnonzero(dirty)
+    rows = rng.integers(0, p, (3, cols.size))
+    # about half the columns take fewer rows: a repeated row writes once
+    again = rng.random((2, cols.size)) < 0.5
+    rows[1:][again] = np.broadcast_to(rows[0], (2, cols.size))[again]
+    src = random_family(nf, seed + 1, p, n, dev)
+    r = torch.from_numpy(rows.reshape(-1)).to(dev)
+    c = torch.from_numpy(np.tile(cols, 3)).to(dev)
+    for f, s in zip(table, src):
+        f[r, c] = s[r, c]
+    if win:
+        first, c = r[:cols.size], c[:cols.size]
+        for f, v in zip(table, TOP[nf]):
+            f[first, c] = v
+    return table
+
+
+def stripe_seed_of(dirty, n: int, tile: int, dev) -> torch.Tensor:
+    if dirty is None:
+        return torch.ones(n // tile, dtype=torch.bool, device=dev)
+    return torch.from_numpy(dirty.reshape(n // tile, tile).any(1)).to(dev)
+
+
+def column_pass_sectors(before, after, dirty, p: int, nf: int):
+    """(bytes the pass moves, its floor in 32-byte sectors): the kernel
+    reads every row of each 16-column group and writes back whole the
+    group's rows that hold a changed entry; the floor reads every row's
+    sector (8 columns) that holds a dirty column and writes every sector
+    that holds a changed entry."""
+    from bullet_tpu_torch.ops.packed import COLUMN_GROUP, column_groups
+
+    n = before[0].shape[1]
+    changed = None
+    for a, b in zip(before, after):
+        d = a != b
+        changed = d if changed is None else changed | d
+    rows = int(changed.view(p, -1, COLUMN_GROUP).any(2).sum())
+    sectors = int(changed.view(p, -1, 8).any(2).sum())
+    dirty_sectors = n // 8 if dirty is None else int(dirty.reshape(-1, 8).any(1).sum())
+    moved = 4 * COLUMN_GROUP * nf * (len(column_groups(dirty, n)) * p + rows)
+    return moved, 32 * nf * (dirty_sectors * p + sectors)
+
+
+def check_converge_columns(dev, main_shape, errs, times, nf):
+    """The column pass against its plain version and against the fused
+    frontier loop (#19/#20) it replaces where no cap binds: tables, depth
+    and round count, on rings and chains."""
+    from bullet_tpu_torch.ops import packed as pk
+
+    def pair(table, dirty, wrap, what):
+        """The kernel on ``table``, the plain version and the frontier loop
+        on copies; returns (rounds, plain ms)."""
+        p, n = table[0].shape
+        twin, loop = clone(table), clone(table)
+        _, depth = pk.converge_columns_packed(table, dirty, wrap)
+        groups = torch.from_numpy(pk.column_groups(dirty, n)).to(dev)
+        want, plain = timed_once(lambda: pk.converge_columns_packed_torch(twin, groups, wrap))
+        _pair("converge_columns", errs, (*table, depth.cpu()), (*twin, want), f"nf={nf} {what}")
+        del twin
+        tile = pk.frontier_tile_n(n)
+        cap = max(p // 2 if wrap else p - 1, 1) + 1
+        _, rounds, left = pk.gossip_frontier_packed(loop, stripe_seed_of(dirty, n, tile, dev),
+                                                    wrap, cap, fuse=pk.STRIPE_FUSE, tile_n=tile)
+        _pair("converge_columns", errs, (*table, torch.tensor([int(depth) + 1, 0])),
+              (*loop, torch.tensor([rounds, left])), f"nf={nf} {what} against the frontier loop")
+        return rounds, plain
+
+    rng = np.random.default_rng(30 + nf)
+    for p, n in COLUMN_SHAPES:
+        if not pk.column_pass_fits(p, n, nf):
+            continue
+        for kind, wrap in itertools.product(("all", "none", "one", "sparse"), (True, False)):
+            dirty = column_seed(rng, n, kind)
+            pair(dirtied(nf, 700 + p, p, n, dirty, wrap, dev, win=kind == "one"), dirty, wrap,
+                 f"{p}x{n} wrap={wrap} seed={kind}")
+    p, n = main_shape
+    report, row = [], None
+    for kind in ("scatter", "read", "all"):
+        dirty = column_seed(rng, n, kind)
+        n_groups = len(pk.column_groups(dirty, n))
+        rounds, plain = pair(dirtied(nf, 31, p, n, dirty, True, dev, win=True), dirty, True,
+                             f"{p}x{n} {kind}")
+        before = dirtied(nf, 31, p, n, dirty, True, dev, win=True)
+        after = clone(before)
+        _, ms = timed_once(lambda: pk.converge_columns_packed(after, dirty, True))
+        moved, sectors = column_pass_sectors(before, after, dirty, p, nf)
+        del after
+        _, dev_ms = device_once(lambda: pk.converge_columns_packed(before, dirty, True))
+        del before
+        cols = n if dirty is None else int(dirty.sum())
+        report.append(f"{kind} ({cols} columns, {n_groups} groups, {rounds} rounds): kernel "
+                      f"{ms:.3f} ms, device alone {dev_ms:.3f} ms, plain {plain:.3f} ms, "
+                      f"{moved / 1e9:.3f} GB moved, sector bound {bound(sectors, 0)[0]:.3f} ms")
+        if kind == "scatter":
+            row = (ms, plain, bound(sectors, 0), None,
+                   {"device_ms": dev_ms, "bytes": moved, "columns": cols, "groups": n_groups})
+        torch.cuda.empty_cache()
+    times[tag("converge_columns", nf)] = row
+    log(f"  converge_columns [{LAYOUT_OF[nf]}] {p}x{n}, ring: {'; '.join(report)}; "
+        f"bit-identical to its plain version and the frontier loop, and at "
+        f"{len(COLUMN_SHAPES)} shapes, rings and chains, seeds all, none, one, sparse")
 
 
 def window_bound(nf: int, entries: int, m: int):
@@ -1991,15 +2148,10 @@ def packed_main_path(args, dev, window=wall_window):
         batches.append((leaf, vals))
         return peers, slot_of_leaf[leaf], vals
 
-    seeds = []  # dirty stripes each frontier run starts from
-    seed_of = sim._frontier_seed
-
-    def logged_seed(t):
-        dirty = seed_of(t)
-        seeds.append(int(dirty.sum()))
-        return dirty
-
-    sim._frontier_seed = logged_seed
+    def seed():
+        """The dirty columns the next converge starts from."""
+        cols = sim._frontier_columns()
+        return f"{n if cols is None else int(cols.sum())}/{n} columns"
 
     _build.reset_launches()
     first = batch(args.packed_ops, n_leaf)
@@ -2011,6 +2163,7 @@ def packed_main_path(args, dev, window=wall_window):
     with window("packed step(1)", secs):
         residual = sim.step(1)
     applied = sim.stats["ops_applied"]
+    seeded = seed()
     with window("packed run_until_converged", secs):
         rounds = sim.run_until_converged()
     route = sim._convergence_strategy()[0]
@@ -2020,7 +2173,7 @@ def packed_main_path(args, dev, window=wall_window):
     log(f"  step(1) (reduce + apply {applied} winning ops + 1 ring round): "
         f"{secs['packed step(1)']:.3f} s, residual {residual}")
     log(f"  run_until_converged [{route}]: {rounds} rounds in {conv:.3f} s "
-        f"({1000 * conv / max(rounds, 1):.3f} ms/round), seed {seeds[-1]}/{t_total} stripes")
+        f"({1000 * conv / max(rounds, 1):.3f} ms/round), seed {seeded} (the column pass)")
     if route != "packed-frontier-local":
         raise AssertionError(f"packed main path took the {route} route")
     if sim.last_residual != 0 or not sim.tables_equal():
@@ -2041,11 +2194,32 @@ def packed_main_path(args, dev, window=wall_window):
     second = batch(max(1, args.packed_ops // 16), min(n_leaf, 1 << 16))
     with window("packed incremental converge", secs):
         sim.put_bulk(*second)
+        sim.step(0)
+        seeded = seed()
         inc_rounds = sim.run_until_converged()
     if sim.last_residual != 0 or not sim.tables_equal():
         raise AssertionError("incremental converge did not reach the fixed point")
     log(f"  put_bulk {len(second[0])} ops + run_until_converged: {inc_rounds} rounds in "
-        f"{secs['packed incremental converge']:.3f} s, seed {seeds[-1]}/{t_total} stripes")
+        f"{secs['packed incremental converge']:.3f} s, seed {seeded}")
+    # a converge capped at the diameter keeps the fused frontier loop
+    # (#19/#20), seeded with the stripes of the dirty columns; an uncapped
+    # one then ends a cutoff on the column pass
+    capped = batch(max(1, args.packed_ops // 64), n_leaf)
+    sim.put_bulk(*capped)
+    sim.step(0)
+    seeded, stripes = seed(), int(sim._frontier_seed(t_total).sum())
+    loops = _build.LAUNCHES["frontier_round_packed"]
+    with window("packed capped converge", secs):
+        cap_rounds = sim.run_until_converged(max_rounds=p // 2)
+        cap_left = sim.last_residual
+        sim.run_until_converged()
+    if _build.LAUNCHES["frontier_round_packed"] == loops:
+        raise AssertionError("the capped converge did not take the frontier loop")
+    if sim.last_residual != 0 or not sim.tables_equal():
+        raise AssertionError("the capped converge and its finish did not reach the fixed point")
+    log(f"  put_bulk {len(capped[0])} ops + run_until_converged(max_rounds={p // 2}): "
+        f"{cap_rounds} rounds, residual {cap_left}, seed {seeded} on {stripes}/{t_total} "
+        f"stripes; then to the fixed point: {secs['packed capped converge']:.3f} s for both")
     with window("packed converged()", secs):
         done = sim.converged()
     if not done:
@@ -2226,6 +2400,7 @@ def rank1_main_path(args, dev, window=wall_window, card=""):
     log(f"  converged row == numpy per-leaf max over {n_written} written leaves "
         "(ranks decoded through the RankIndex); get/get_bulk agree")
 
+
     # 480 rounds stay under the ring's diameter of 512, so every round the
     # jump counts changes state (a smaller ring jumps P/2 - 1)
     jumper, stepper = twins
@@ -2254,6 +2429,27 @@ def rank1_main_path(args, dev, window=wall_window, card=""):
         f"fast_forward({p}) more: residual 0 in "
         f"{secs['rank1 fast_forward to the fixed point']:.4f} s, == the converged table")
     log(f"  windowed logical merges/s (2 x {p} x {n} x {depth} / s): {rate:.6g} on {card}")
+
+    # a converge capped at the diameter keeps the fused frontier loop
+    # (#19/#20); an uncapped one then ends the cutoff on the column pass
+    cap_leaves = rng.integers(0, n_leaf, max(1, args.rank1_ops // 64))
+    cap_vals = rng.integers(-550, 550, cap_leaves.size)
+    batches.append((cap_leaves, cap_vals))
+    sim.put_bulk(rng.integers(0, p, cap_leaves.size).astype(np.int32),
+                 slot_of_leaf[cap_leaves], cap_vals)
+    loops = _build.LAUNCHES["frontier_round_packed"]
+    with window("rank1 capped converge", secs):
+        cap_rounds = sim.run_until_converged(max_rounds=p // 2)
+        cap_left = sim.last_residual
+        sim.run_until_converged()
+    if _build.LAUNCHES["frontier_round_packed"] == loops:
+        raise AssertionError("the rank1 capped converge did not take the frontier loop")
+    if sim.last_residual != 0 or not sim.tables_equal():
+        raise AssertionError("the rank1 capped converge and its finish did not converge")
+    n_written = check_values("capped converge")
+    log(f"  put_bulk {cap_leaves.size} ops + run_until_converged(max_rounds={p // 2}): "
+        f"{cap_rounds} rounds, residual {cap_left}; then to the fixed point: "
+        f"{secs['rank1 capped converge']:.3f} s for both; {n_written} leaves == numpy max")
 
     third_leaves = rng.integers(0, n_leaf, args.rank1_ops)
     third_vals = rng.integers(-600, 600, args.rank1_ops)
@@ -2712,10 +2908,10 @@ CATEGORIES = ("electronics", "accessories", "furniture", "books")
 # the bytes a replica entry stores: dense 7 fields, packed 3, rank1 1
 ENTRY_BYTES = {"dense": 28, "packed": 12, "rank1": 4}
 # the kernels phase 10 runs before it queries: the dense sim's step(1) and
-# converge, the packed and rank1 sims' apply, step(1) and converge, the
-# mesh's windowed converge and its fold
+# converge, the packed and rank1 sims' apply, step(1) and converge (the
+# column pass), the mesh's windowed converge and its fold
 QUERY_PATH_KERNELS = ("ring_round", "frontier_round_dense", "apply_packed", "packed_round",
-                      "frontier_round_packed", "frontier_shard_window", "compact_counts window")
+                      "converge_columns", "frontier_shard_window", "compact_counts window")
 
 
 def query_batches(rng, p: int, n: int):
@@ -2943,11 +3139,12 @@ PRODUCT_SCHEMA = {
 USER_ROLES = ("admin", "user", "editor")
 # phase 11's traced transform caps the prices here
 PRICE_CAP = 1000.0
-# the kernels each phase 11 sim drives: its apply, step(1), converge and
-# reconcile (the dense apply is plain PyTorch)
+# the kernels each phase 11 sim drives: its apply, step(1), converge (the
+# packed family's: the column pass) and reconcile (the dense apply is plain
+# PyTorch)
 INGRESS_KERNELS = {
-    "packed": ("apply_packed", "packed_round", "frontier_round_packed", "reconcile_packed"),
-    "rank1": ("apply_packed", "packed_round", "frontier_round_packed", "reconcile_packed"),
+    "packed": ("apply_packed", "packed_round", "converge_columns", "reconcile_packed"),
+    "rank1": ("apply_packed", "packed_round", "converge_columns", "reconcile_packed"),
     "dense": ("ring_round", "frontier_round_dense", "merge"),
     "mesh": ("apply_packed", "frontier_shard packed", "frontier_shard_window",
              "compact_counts window", "reconcile_packed"),
@@ -3443,16 +3640,16 @@ LOADED_PACE = 0.5
 # every wait of phase 12 ends by this many seconds or raises
 SERVING_DEADLINE_S = 120.0
 # the kernels phase 12 drives: the views' apply and the warm-up (#9/#10),
-# flush's converge (#19/#20), converged()'s count-only round (#14) and
-# sim_from_bullet's dense converge (#8)
-SERVING_KERNELS = ("apply_packed", "frontier_round_packed", "packed_round",
+# flush's converge (the column pass), converged()'s count-only round (#14)
+# and sim_from_bullet's dense converge (#8)
+SERVING_KERNELS = ("apply_packed", "converge_columns", "packed_round",
                    "frontier_round_dense")
 # the port's kernels in a device trace, by the names of their __global__
 # functions (csrc/*.cu)
 PORT_KERNEL_NAMES = (
     "apply_packed_kernel", "compact_counts_kernel", "compact_counts_window_kernel",
-    "frontier_compact_kernel", "frontier_pipe_kernel", "frontier_round_kernel",
-    "frontier_shard_kernel", "frontier_shard_window_kernel", "merge_kernel",
+    "converge_columns_kernel", "frontier_compact_kernel", "frontier_pipe_kernel",
+    "frontier_round_kernel", "frontier_shard_kernel", "frontier_shard_window_kernel", "merge_kernel",
     "packed_round_kernel", "reconcile_packed_kernel", "ring_round_kernel", "shard_pipe_kernel",
     "shard_sweep_kernel", "window_kernel",
 )
@@ -4315,7 +4512,7 @@ def main() -> int:
     # the packed-family kernels at every field count: packed, rank, rank1
     for nf in (3, 2, 1):
         for check in (check_apply_packed, check_packed_round, check_reconcile_packed,
-                      check_frontier_packed, check_window):
+                      check_frontier_packed, check_converge_columns, check_window):
             check(dev, packed_shape, errs, times, nf)
             torch.cuda.empty_cache()
     check_small_sims(dev)

@@ -5,8 +5,9 @@ A sim takes its fused routes where ``PeerNetworkSim._card_routes`` says
 so, which is on a CUDA device: STRIPE_FUSE = 8 rounds a frontier step
 (dense in reference, lww and lean mode; packed, rank, rank1), HALO_FUSE =
 8 rounds an exchange on a ``use_shard_map`` mesh whose shards are too
-small for a window, m-round windows an exchange where they are not, and
-a tracked packed ``fast_forward`` on the frontier. Here that method is
+small for a window, m-round windows an exchange where they are not, a
+tracked packed ``fast_forward`` on the frontier, and an uncapped converge
+of the packed family as one column pass. Here that method is
 patched to say yes on the CPU, where the kernels' plain versions run the
 same schedules. Random op sequences (puts of every value kind, put_bulk,
 remove, step, fast_forward, run_until_converged with and without a
@@ -140,9 +141,12 @@ UNSHARDED = [
 @pytest.mark.parametrize("layout,mode,lean", UNSHARDED)
 def test_stripe_fuse_unsharded(fused, monkeypatch, layout, mode, lean, topology):
     """STRIPE_FUSE rounds a frontier step, and (packed) the tracked
-    fast_forward on the frontier."""
+    fast_forward on the frontier; the packed family's uncapped converges
+    take the column pass, and a converge capped at the diameter, cut off
+    there, keeps the fused frontier loop."""
     calls = (spy(monkeypatch, ring_kernel, "gossip_frontier_dense") if layout == "dense"
              else spy(monkeypatch, pk, "gossip_frontier_packed"))
+    passes = spy(monkeypatch, pk, "gossip_columns_packed")
     p = 24
     kw = dict(capacity=128, topology=topology, mode=mode, lean_gossip=lean, layout=layout)
 
@@ -156,22 +160,37 @@ def test_stripe_fuse_unsharded(fused, monkeypatch, layout, mode, lean, topology)
 
     for seed in SEEDS:
         fuzz(make, p, seed, route)
+    js, ps = make()
+    for s in (js, ps):
+        s.put(0, "t/k", 1)
+    cap = ps.topology.diameter
+    assert ps.run_until_converged(cap) == js.run_until_converged(cap) == cap
+    assert_same(js, ps, "a converge cut off at the diameter")
     assert calls and all(kw["fuse"] == pk.STRIPE_FUSE for kw in calls)
+    assert bool(passes) is (layout != "dense")
 
 
 def test_forced_routes_take_the_fuse(fused, monkeypatch):
-    """The patched method really picks the fused schedules: the frontier
-    loop gets fuse = STRIPE_FUSE, and a tracked packed fast_forward takes
-    the frontier route."""
+    """The patched method really picks the card's schedules: an uncapped
+    converge takes the column pass, a converge capped at the diameter the
+    frontier loop with fuse = STRIPE_FUSE, and a tracked packed
+    fast_forward the frontier route, fused too."""
     seen = spy(monkeypatch, pk, "gossip_frontier_packed")
+    passes = spy(monkeypatch, pk, "gossip_columns_packed")
     sim = PeerNetworkSim(24, capacity=128, layout="packed", device="cpu", use_kernels=True)
     sim.put(3, "a", 1)
     sim.run_until_converged()
-    sim.put(9, "a", 2)
+    assert len(passes) == 1 and not seen
+    # two antipodal holders settle in 6 rounds, inside the cap
+    sim.put(5, "a", 3)
+    sim.put(17, "a", 3)
+    assert sim.run_until_converged(max_rounds=sim.topology.diameter) == 7
+    sim.put(9, "a", 4)
     sim.step(0)
     assert sim._fast_forward_route() == "frontier"
     sim.fast_forward(5)
     assert [kw["fuse"] for kw in seen] == [pk.STRIPE_FUSE, pk.STRIPE_FUSE]
+    assert len(passes) == 1
 
 
 needs_devices = pytest.mark.skipif(jax.device_count() < 8, reason="needs 8 virtual devices")

@@ -10,9 +10,10 @@ the device no more often than the untraced program. Under
 parents one after another, on the clock of ``time.time_ns()``; ``loop``
 counts the steps and stripes an independent frontier loop counts;
 ``apply.respread`` appears exactly in the batches whose put respread the
-RankIndex. Tables, round counts, residuals and reads are bit-identical
-with tracing on and off. Each reader gives its value on a hand-made run and
-None without spans. Tolerance: exact."""
+RankIndex; with the card's routes forced, each converge's ``loop`` is one
+column pass that counts the dirty columns. Tables, round counts, residuals
+and reads are bit-identical with tracing on and off. Each reader gives its
+value on a hand-made run and None without spans. Tolerance: exact."""
 
 import threading
 import time
@@ -284,26 +285,27 @@ def span(name, start, end, parent=-1, **attrs):
 SPANS = [
     span("apply.respread", 30_000, 60_000),
     span("converge", 100_000, 390_000),
-    span("loop", 110_000, 380_000, 1, steps=4, stripe_steps=100, waits=5),
+    span("loop", 110_000, 380_000, 1, steps=4, stripe_steps=100, waits=5, columns=0),
     span("apply.respread", 450_000, 460_000),
-    span("loop", 600_000, 800_000, steps=2, stripe_steps=30, waits=3),
+    span("loop", 600_000, 800_000, steps=2, stripe_steps=30, waits=3, columns=40),
     span("get", 910_000, 930_000),
     span("get.gather", 912_000, 915_000, 5),
     span("get", 940_000, 950_000),
     span("get.gather", 941_000, 946_000, 7),
     span("get", 960_000, 990_000),
-    span("loop", 1_200_000, 1_300_000, steps=100, stripe_steps=9_999, waits=101),
+    span("loop", 1_200_000, 1_300_000, steps=100, stripe_steps=9_999, waits=101, columns=7),
 ]
 DEVICE = [("k", 100_000, 150_000), ("k", 300_000, 500_000), ("k", 700_000, 900_000)]
 READERS = {
     "loop_stripe_steps": (100 + 30) / 2,
+    "loop_columns": (0 + 40) / 2,
     "loop_gap_us": ((270_000 - 40_000 - 80_000) + (200_000 - 100_000)) / 1e3 / 6,
     "respread_ms": (30_000 + 10_000) / 2 / 1e6,
     "read_gather_p50_ms": 3_000 / 1e6,  # of 3,000, 5,000 and 0 ns
     "read_host_p50_ms": 17_000 / 1e6,  # of 17,000, 5,000 and 30,000 ns
 }
 READERS.update({f"{m}.read_mostly": READERS[m]
-                for m in ("loop_stripe_steps", "loop_gap_us", "respread_ms")})
+                for m in ("loop_stripe_steps", "loop_gap_us", "respread_ms", "loop_columns")})
 
 
 def synthetic_run():
@@ -331,6 +333,38 @@ def test_reader_is_silent_without_spans(name, monkeypatch):
     # an older program, without a recorder
     monkeypatch.delattr(observe, "spans")
     assert reader(name).read(synthetic_run()) is None
+
+
+@pytest.mark.parametrize("name", ["loop_columns", "loop_columns.read_mostly"])
+def test_loop_columns_is_silent_on_loops_without_columns(name, monkeypatch):
+    """A program whose loops count no columns (one without the column
+    pass) gives no reading, where its other loop metrics still read."""
+    bare = [s._replace(attrs={k: v for k, v in s.attrs.items() if k != "columns"})
+            for s in SPANS]
+    monkeypatch.setattr(observe, "spans", lambda: bare)
+    assert reader(name).read(synthetic_run()) is None
+    assert reader("loop_stripe_steps").read(synthetic_run()) == READERS["loop_stripe_steps"]
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_column_pass_loop_counts_its_columns(layout, monkeypatch):
+    """With the card's routes forced on the CPU a converge is one column
+    pass: ``loop`` counts no stripes, one wait (the depth's read-back) and
+    the dirty columns the apply tracked; the stripe loops count 0."""
+    monkeypatch.setattr(PeerNetworkSim, "_card_routes", lambda self: True)
+    sim = new_sim(layout)
+    rng = np.random.default_rng(5)
+    dirty = []
+    observe.RECORDER.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        for t in range(1, 4):
+            batch(sim, rng, t, "slots", lambda s: dirty.append(int(s._frontier_dirty.sum())))
+        sim.put(3, "t/r0/f0", 10 ** 9)
+        sim.run_until_converged(max_rounds=sim.topology.diameter)  # capped: the stripe loop
+    loops = [s.attrs for s in observe.spans() if s.name == "loop"]
+    assert [a["columns"] for a in loops] == dirty + [0] and all(dirty)
+    assert all((a["steps"], a["stripe_steps"], a["waits"]) == (0, 0, 1) for a in loops[:-1])
+    assert loops[-1]["stripe_steps"] > 0
 
 
 def test_spans_helper_finds_the_innermost_span(monkeypatch):
