@@ -13,6 +13,12 @@ with ``step(0)``, converges with ``run_until_converged``, synchronises, and
 then (read mixes) reads with ``get``. The next iteration waits for the
 last. Nothing of the program is compiled in the window: its CUDA
 kernels are built (or found built) before the first set-up converge.
+
+A configuration with ``shards`` above 1 runs on a mesh of that many
+processes, one a card (``launch.py``), each holding one shard: every process
+runs this same function with the same seed, so the port sees the same calls
+in the same order; a converge ends once every card has drained (``Team``),
+and rank 0 alone times, traces and judges.
 """
 
 from __future__ import annotations
@@ -151,22 +157,92 @@ class Cell:
 def build_sim(config: dict, device):
     from bullet_tpu_torch import PeerNetworkSim
 
+    mesh = ({"mesh_devices": config["shards"], "use_shard_map": True}
+            if config.get("shards", 1) > 1 else {})
     return PeerNetworkSim(
         config["num_peers"], capacity=config["capacity"], topology=config["topology"],
-        mode=config["mode"], layout=config["layout"], use_kernels=True, device=device)
+        mode=config["mode"], layout=config["layout"], use_kernels=True, device=device, **mesh)
 
 
-def replicas_differing(sim, rows_per_block: int = 64) -> int:
-    """Replicas whose stored entries differ from replica 0's in any slot or
-    field: the program's table read as it stands, on its device."""
+class Team:
+    """The processes that run one cell (one where the sim holds no mesh of
+    processes). Every process makes the same calls; rank 0 times, traces
+    and judges. Collectives go through ``torch.distributed`` directly, on
+    the card under NCCL and on the host under gloo."""
+
+    def __init__(self, sim) -> None:
+        mesh = getattr(sim, "mesh", None)
+        self.distributed = mesh is not None and mesh.distributed
+        self.rank = mesh.rank if self.distributed else 0
+        self.world = torch.distributed.get_world_size() if self.distributed else 1
+        self.wire = None
+        if self.distributed:
+            nccl = torch.distributed.get_backend() == "nccl"
+            self.wire = mesh.home if nccl else torch.device("cpu")
+
+    def sum(self, values: list) -> list:
+        """Integers summed element by element over the processes."""
+        if not self.distributed:
+            return list(values)
+        t = torch.tensor(values, dtype=torch.int64, device=self.wire)
+        torch.distributed.all_reduce(t)
+        return t.tolist()
+
+    def join(self) -> None:
+        """Returns once every process has reached it: after each process
+        synchronised its card, every card has drained."""
+        self.sum([0])
+
+    def agree(self, flag: bool) -> bool:
+        """Rank 0's ``flag``, in every process."""
+        return bool(self.sum([int(flag) if self.rank == 0 else 0])[0])
+
+    def each(self, value: int) -> list:
+        """Every process's ``value``, by rank."""
+        return self.sum([value if r == self.rank else 0 for r in range(self.world)])
+
+    def broadcast(self, t: torch.Tensor, src: int) -> torch.Tensor:
+        """``t`` of process ``src`` (a buffer of its shape elsewhere)."""
+        if not self.distributed:
+            return t
+        w = t.to(self.wire)
+        torch.distributed.broadcast(w, src=src)
+        return w.to(t.device)
+
+
+def _rows_differing(fields, first, rows_per_block: int):
+    """Flags of the rows of [R, N] ``fields`` unlike ``first`` ([1, N] a
+    field) in any slot or field."""
     differing = None
-    for f in sim.table:
-        first = f[0:1]
+    for f, one in zip(fields, first):
         flags = torch.zeros(f.shape[0], dtype=torch.bool, device=f.device)
         for r0 in range(0, f.shape[0], rows_per_block):
-            flags[r0:r0 + rows_per_block] = (f[r0:r0 + rows_per_block] != first).any(dim=1)
+            flags[r0:r0 + rows_per_block] = (f[r0:r0 + rows_per_block] != one).any(dim=1)
         differing = flags if differing is None else differing | flags
-    return int(differing.sum())
+    return differing
+
+
+def replicas_differing(sim, team: Team, rows_per_block: int = 64) -> int:
+    """Replicas whose stored entries differ from replica 0's in any slot or
+    field: the program's table read as it stands, on its devices. On a mesh
+    replica 0's owner gives its row to every process, each compares its own
+    shards' rows with it, and the counts are summed over the processes."""
+    from bullet_tpu_torch.parallel.mesh import ShardedTable
+
+    table = sim.table
+    if not isinstance(table, ShardedTable):
+        return int(_rows_differing(table, [f[0:1] for f in table], rows_per_block).sum())
+    mesh = table.mesh
+    nf, n = len(table.first), table.shape[1]
+    home = table.shards[0]
+    row0 = (torch.stack([f[0] for f in home]) if home is not None
+            else torch.empty((nf, n), dtype=table.first[0].dtype, device=mesh.home))
+    row0 = team.broadcast(row0.to(mesh.home), mesh.owners[0])
+    count = 0
+    for i, shard in table.local():
+        first = [r[None].to(mesh[i]) for r in row0]
+        count += int(_rows_differing(shard, first, rows_per_block).sum())
+    return team.sum([count])[0]
 
 
 def as_floats(values) -> np.ndarray:
@@ -203,7 +279,9 @@ def launches() -> int:
 
 def run_cell(root, workload: str, seed: int, seconds: float, trace: bool, device="cuda",
              t0: Optional[float] = None, control: Optional[str] = None, log=print) -> dict:
-    """One run; returns the result line's object (without printing it).
+    """One run; returns the result line's object (without printing it), or
+    None in a process of a mesh other than rank 0. ``log_checks`` prints
+    its checks.
 
     ``control="cutoff"`` runs the control: every converge capped one round
     short of the ring's diameter, the program's own ``max_rounds`` path."""
@@ -218,7 +296,11 @@ def run_cell(root, workload: str, seed: int, seconds: float, trace: bool, device
     p, fields, n_rec = config["num_peers"], config["fields_per_record"], config["records"]
     traffic = Traffic(mix, n_rec, fields, p, seed)
 
+    # seconds since the process started at which each step of set-up ended
+    marks = {"start": time.perf_counter() - t0}
     sim = build_sim(config, device)
+    team = Team(sim)
+    marks["sim"] = time.perf_counter() - t0
     keys = key_names(n_rec)
     record_paths = [f"{config['table']}/{k}" for k in keys]
     slots = sim.host.intern_batch(
@@ -227,6 +309,7 @@ def run_cell(root, workload: str, seed: int, seconds: float, trace: bool, device
     if interned > config["capacity"]:
         raise RuntimeError(f"{interned} interned paths overflow {config['capacity']} slots")
     max_rounds = sim.topology.diameter - 1 if control == "cutoff" else None
+    marks["interned"] = time.perf_counter() - t0
 
     n_leaves = n_rec * fields
     op_log = []  # (peers, leaves, values) of every batch, load first
@@ -237,8 +320,11 @@ def run_cell(root, workload: str, seed: int, seconds: float, trace: bool, device
     load_peer = int(config["load_peer"])
     sim.put_bulk(load_peer, slots, np.zeros(n_leaves, dtype=np.int64))
     sim.step(0)
+    sync(device)
+    marks["load_applied"] = time.perf_counter() - t0
     sim.run_until_converged()
     sync(device)
+    marks["load_converged"] = time.perf_counter() - t0
     if sim.last_residual != 0:
         raise RuntimeError(f"the load did not converge: residual {sim.last_residual}")
     op_log.append((np.full(n_leaves, load_peer), np.arange(n_leaves), np.zeros(n_leaves)))
@@ -261,6 +347,7 @@ def run_cell(root, workload: str, seed: int, seconds: float, trace: bool, device
         l0 = launches()
         sim.run_until_converged(max_rounds)
         sync(device)
+        team.join()
         s3 = time.perf_counter_ns()
         l1 = launches()
         e1 = respreads(sim)
@@ -306,16 +393,18 @@ def run_cell(root, workload: str, seed: int, seconds: float, trace: bool, device
     sync(device)
     run.setup_s = time.perf_counter() - t0
     tracer = None
-    if trace and on_card:
+    if trace and on_card and team.rank == 0:
         from .trace import DeviceTrace
 
         tracer = DeviceTrace()
     gc_before = [g["collections"] for g in gc.get_stats()]
     with tracer if tracer is not None else contextlib.nullcontext():
         w0 = time.perf_counter_ns()
-        while time.perf_counter_ns() - w0 < seconds * 1e9:
+        going = True
+        while going:
             iteration(t, record=True)
             t += 1
+            going = team.agree(time.perf_counter_ns() - w0 < seconds * 1e9)
         w1 = time.perf_counter_ns()
     run.window_s = (w1 - w0) / 1e9
     gc_runs = [g["collections"] - b for g, b in zip(gc.get_stats(), gc_before)]
@@ -328,11 +417,12 @@ def run_cell(root, workload: str, seed: int, seconds: float, trace: bool, device
     if found:
         raise SystemExit(f"the process holds {found} after the window")
 
-    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    peaks = team.each(torch.cuda.max_memory_allocated() if on_card else 0)
     run.device_kind = torch.cuda.get_device_name(0) if on_card else "cpu"
 
-    # the check: the program's outputs first, then the reference
-    differing = replicas_differing(sim)
+    # the check: the program's outputs first (collectives on a mesh), then
+    # the reference, which rank 0 alone works out
+    differing = replicas_differing(sim, team)
     rng = traffic.rng(CHECK_STREAM)
     sampled = sorted({load_peer, (load_peer + p // 2) % p,
                       *rng.choice(p, min(p, SAMPLED_PEERS), replace=False).tolist()})
@@ -341,6 +431,8 @@ def run_cell(root, workload: str, seed: int, seconds: float, trace: bool, device
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
+    if team.rank != 0:
+        return None
 
     replay = spec.reference.Replay(n_leaves, p)
     reads_wrong = reads_checked = 0
@@ -375,7 +467,7 @@ def run_cell(root, workload: str, seed: int, seconds: float, trace: bool, device
             "platform": "gpu" if on_card else "cpu",
             "kind": run.device_kind,
             "count": int(cell["chips"]),
-            "memory_peak_bytes": int(peak),
+            "memory_peak_bytes": max(peaks),
         },
     }
     if tracer is not None:
@@ -386,7 +478,8 @@ def run_cell(root, workload: str, seed: int, seconds: float, trace: bool, device
         result["device"]["window_s"] = run.window_s
         result["breakdown"] = breakdown(run)
     result["checks"] = checks
-    log(f"warm iterations ms {warm_ms}")
+    log(f"set-up s at the end of each step {marks}; warm iterations ms {warm_ms}; "
+        f"peak memory bytes by card {peaks}")
     log(f"interned paths {interned} of {config['capacity']} slots; window {run.window_s} s, "
         f"{len(run.batches)} batches, {run.reads} reads; checked {len(sampled)} replicas' "
         f"{n_leaves} leaves and {reads_checked} reads")
@@ -395,6 +488,11 @@ def run_cell(root, workload: str, seed: int, seconds: float, trace: bool, device
         f"reads s p50 {percentile(run.read_s, 50)} "
         f"p99 {percentile(run.read_s, 99)} max {max(run.read_s, default=None)}; "
         f"gc collections by generation in the window {gc_runs}")
-    for name, c in checks.items():
-        log(f"check {name} {c['value']} limit {c['limit']}")
     return result
+
+
+def log_checks(result: dict, log) -> None:
+    """Each number compared, beside its limit: a run's last lines on
+    standard error."""
+    for name, c in result["checks"].items():
+        log(f"check {name} {c['value']} limit {c['limit']}")

@@ -3,7 +3,9 @@ replica's entry of every leaf a batch wrote, stored once:
 ``yardstick.converge_floor_bytes``, from the generated ops alone) over what
 the card's peak bandwidth moves in the device's busy time inside the
 converge spans, in %. It reads how far the converge is from the least
-traffic any implementation needs, not how well a kernel streams."""
+traffic any implementation needs, not how well a kernel streams. On a mesh
+(the configuration's ``shards``, 1 by default) the floor is that of the
+traced card's replicas, ``num_peers / shards`` rows."""
 
 from perfbench.yardstick import PEAK_BYTES_PER_S, converge_floor_bytes
 
@@ -17,7 +19,7 @@ def read(run):
     if dev_s <= 0:
         return None
     floor = sum(
-        converge_floor_bytes(run.config["num_peers"], b.distinct_leaves,
-                             run.config["entry_bytes"])
+        converge_floor_bytes(run.config["num_peers"] // run.config.get("shards", 1),
+                             b.distinct_leaves, run.config["entry_bytes"])
         for b in run.batches)
     return 100.0 * floor / (peak * dev_s)

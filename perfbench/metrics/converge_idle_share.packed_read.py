@@ -1,0 +1,6 @@
+"""converge_idle_share.packed_read: ``converge_idle_share`` in packed.read-mostly, moving ``ops_per_s``.
+The cell's dozen 2 ms converges a window spread too widely from run to run
+for ``converge_ms.read_mostly``'s bound, so the converge is read there per
+layer under names of its own (PERF.md, section 2)."""
+
+from perfbench.metrics.converge_idle_share import read  # noqa: F401

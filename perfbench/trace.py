@@ -1,6 +1,8 @@
 """The device trace of a ``--trace 1`` run: ``torch.profiler`` over the
 measured window, CUDA activity only, kept in memory (no chrome trace is
-written), reduced to device intervals on the host's epoch clock."""
+written), reduced to device intervals on the host's epoch clock. Only the
+events of this process's card are kept: on a mesh of processes, rank 0's
+card."""
 
 from __future__ import annotations
 
@@ -12,15 +14,15 @@ import torch
 # The trace loses the first few device events after the profiler starts (on
 # an H100 a window's first 2-4 launches went missing): marker kernels,
 # launched and synchronised before the window opens, absorb that loss and
-# are left out of every reading (tools/profile_main.py found both).
+# are left out of every reading.
 LEAD_IN = 16
 MARKER = "spin_kernel"  # the kernel torch.cuda._sleep launches
 
 
 class DeviceTrace:
     """Context manager: profile the device while open; ``events`` then holds
-    (name, start_ns, end_ns) of every device operation, on the clock of
-    ``time.time_ns()`` (kineto's), markers left out."""
+    (name, start_ns, end_ns) of every operation on the current card, on
+    the clock of ``time.time_ns()`` (kineto's), markers left out."""
 
     def __init__(self) -> None:
         self.events: List[Tuple[str, int, int]] = []
@@ -43,9 +45,10 @@ class DeviceTrace:
             return
         from torch.autograd import DeviceType
 
+        card = torch.cuda.current_device()
         out = []
         for e in self._prof.profiler.kineto_results.events():
-            if e.device_type() != DeviceType.CUDA:
+            if e.device_type() != DeviceType.CUDA or e.device_index() != card:
                 continue
             name = e.name()
             if MARKER in name:

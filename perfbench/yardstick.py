@@ -30,9 +30,8 @@ def converge_floor_bytes(num_peers: int, distinct_leaves: int, entry_bytes: int)
 
 class Busy:
     """The union of a trace's [start, end) device intervals (ns), as sorted
-    disjoint intervals: the reckoning of ``tools/profile_main.py``'s
-    ``busy_seconds``, copied, and kept as intervals so that spans of the
-    host can be clipped against it."""
+    disjoint intervals, so that spans of the host can be clipped against
+    it."""
 
     def __init__(self, spans: Iterable[Tuple[int, int]]) -> None:
         starts: List[int] = []
