@@ -30,7 +30,7 @@ SOURCES = (
     "merge.cu", "ring_round.cu", "frontier_dense.cu", "frontier_shard.cu",
     "frontier_shard_window.cu", "compact_counts.cu",
     "apply_packed.cu", "packed_round.cu", "reconcile_packed.cu", "frontier_packed.cu",
-    "window_packed.cu", "converge_columns.cu",
+    "window_packed.cu", "converge_columns.cu", "converge_graph.cu",
 )
 HEADERS = ("lexmax.cuh", "frontier.cuh")
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "bullet_tpu_torch"
@@ -49,6 +49,7 @@ LAUNCHES = {
     "frontier_shard_window": 0, "compact_counts window": 0,
     "apply_packed": 0, "packed_round": 0, "packed_round fused": 0, "reconcile_packed": 0,
     "frontier_round_packed": 0, "window_packed": 0, "window_shard": 0, "converge_columns": 0,
+    "converge_graph": 0,
 }
 
 _P = ctypes.c_void_p
@@ -107,6 +108,13 @@ _SIGNATURES = {
     "bt_converge_columns": (
         _P, _P, ctypes.c_int, _P, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_int, _P,
+    ),
+    # fields, the groups and their masks, their count, the plan, the
+    # neighbours, the schedule's length, the output cells and their count,
+    # p, n, the cap, nf, the stream
+    "bt_converge_graph": (
+        _P, _P, ctypes.c_int, _P, _P, ctypes.c_int, _P, ctypes.c_int, ctypes.c_int,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P,
     ),
 }
 

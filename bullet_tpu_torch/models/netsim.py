@@ -10,7 +10,8 @@ or on a device mesh:
 
 with the tables resident on ``device``. On a CUDA device the op apply
 (packed family), the ring/chain rounds, the compacting frontier
-convergence, the window joins of ``fast_forward`` and the reconcile run the
+convergence, the window joins of ``fast_forward``, the reconcile and the
+graph pass (the rounds of every other topology but the full mesh) run the
 hand-written kernels of ``bullet_tpu_torch/csrc``; on the CPU the same
 routes run their plain PyTorch versions.
 ``use_kernels`` (default: the device is CUDA) picks the kernel routes, as
@@ -109,7 +110,7 @@ from ..utils.encode import CLS_ABSENT, CLS_NUMBER, VID_NULL, number_key
 from .ingress import EngineHooks, EngineValidation, invalid_op_mask, traced_pipeline, veto_ops
 from .table import MISSING, GraphHost, flatten_value
 
-TopologyLike = Union[str, topo.Topology]
+TopologyLike = Union[str, dict, topo.Topology]
 
 # the layouts that share the packed-family kernels (keyed by field count:
 # 3 = packed, 2 = rank, 1 = rank1)
@@ -146,7 +147,8 @@ CONVERGENCE_STRATEGIES: Tuple[Tuple[str, Callable, str], ...] = (
         "_converge_frontier_local",
     ),
     (
-        "packed-loop",  # packed-family whole-table round loop (any topology)
+        "packed-loop",  # packed-family whole-table round loop (any topology; on the
+        # card a topology other than a ring, chain or full mesh takes the graph pass)
         lambda c: c.layout in PACKED_FAMILY,
         "_converge_packed_loop",
     ),
@@ -192,9 +194,35 @@ def _group_positions(peers: np.ndarray, num_peers: int):
     return seq, counts
 
 
+# the keys of a topology spec (a JSON-able dict)
+BRIDGE_SPEC_KEYS = {"kind", "clusters", "cluster_size", "bridge_peers"}
+
+
+def _topology_of_spec(spec: dict, num_peers: int) -> topo.Topology:
+    """A topology from a spec, ``{"kind": "bridge", "clusters": c,
+    "cluster_size": s, "bridge_peers": b}``: ``topology.bridge((s,) * c,
+    b)``, c full-mesh clusters of s peers joined through b bridge peers that
+    each link to every cluster's first member
+    (bullet-bridge-example.js:16-18,226-296)."""
+    if spec.get("kind") != "bridge" or set(spec) != BRIDGE_SPEC_KEYS:
+        raise ValueError(f"topology spec {spec!r}: a bridge spec has exactly the keys "
+                         f"{sorted(BRIDGE_SPEC_KEYS)}")
+    clusters, size, bridges = spec["clusters"], spec["cluster_size"], spec["bridge_peers"]
+    if any(type(v) is not int for v in (clusters, size, bridges)):
+        raise ValueError(f"topology spec {spec!r}: its sizes are whole numbers")
+    if clusters < 1 or size < 1 or bridges < 0:
+        raise ValueError(f"topology spec {spec!r}: sizes out of range")
+    if clusters * size + bridges != num_peers:
+        raise ValueError(f"topology spec {spec!r}: {clusters} x {size} + {bridges} peers "
+                         f"!= num_peers {num_peers}")
+    return topo.bridge((size,) * clusters, bridges)
+
+
 def _resolve_topology(t: TopologyLike, num_peers: int) -> topo.Topology:
     if isinstance(t, topo.Topology):
         return t
+    if isinstance(t, dict):
+        return _topology_of_spec(t, num_peers)
     builders = {
         "ring": topo.ring,
         "chain": topo.chain,
@@ -442,6 +470,14 @@ class PeerNetworkSim:
         # the columns so that a converge need not reduce them; read only
         # while _frontier_dirty is valid
         self._frontier_groups: Optional[np.ndarray] = None
+        # (topology, the graph pass's reading of its neighbour matrix),
+        # built on its first use (_graph_plan)
+        self._graph_plan_of: Optional[Tuple[topo.Topology, pk.GraphPlan]] = None
+        # the topology the marks last found every column settled under: the
+        # graph pass passes every column after the topology changed (a
+        # partition healed), since a column settled under another topology
+        # need not be settled under this one
+        self._settled_under: Optional[topo.Topology] = None
         self.stats = {
             "ops_enqueued": 0,
             "ops_applied": 0,
@@ -1138,13 +1174,20 @@ class PeerNetworkSim:
             self.stats["ops_applied"] += self._apply_pending()
             self.hooks.fire_after_puts()
             residual = 0
-            if rounds:
+            if rounds and self._graph_pass_applies():
+                # every round's count; the rounds after the pass's last
+                # change change nothing
+                _, _, counts = self._graph_rounds(rounds)
+                residual = counts[-1] if len(counts) == rounds else 0
+                self.stats["gossip_rounds"] += rounds
+                self.stats["merged_entries"] += sum(counts)
+            elif rounds:
                 self._frontier_dirty = None  # untracked gossip advances columns
-            for _ in range(rounds):
-                self.table, changed = self._round(self.table)
-                residual = int(changed)
-                self.stats["gossip_rounds"] += 1
-                self.stats["merged_entries"] += residual
+                for _ in range(rounds):
+                    self.table, changed = self._round(self.table)
+                    residual = int(changed)
+                    self.stats["gossip_rounds"] += 1
+                    self.stats["merged_entries"] += residual
             self.stats["steps"] += 1
             self.last_residual = residual if rounds else None
             self._sync_clocks()
@@ -1312,6 +1355,7 @@ class PeerNetworkSim:
             n = self._shape()[1]
             self._frontier_dirty = np.zeros(n, dtype=bool)
             self._frontier_groups = np.zeros(n // pk.COLUMN_GROUP, dtype=bool)
+            self._settled_under = self.topology
 
     def _finish_frontier(self, rounds, final_changed, max_rounds):
         if rounds < max_rounds or final_changed == 0:
@@ -1387,10 +1431,50 @@ class PeerNetworkSim:
         self._finish_frontier(rounds, final_changed, max_rounds)
         return self._finish_converge(rounds, final_changed)
 
+    def _graph_pass_applies(self) -> bool:
+        """Whether an unsharded packed-family sim on a topology other than a
+        ring, chain or full mesh runs its rounds (a converge's, step's) as
+        the graph pass: on the card, at a shape whose 8-column groups fit a
+        block (``pk.graph_pass_fits``). Elsewhere the plain round loop runs,
+        a mesh's included."""
+        if not (self._card_routes() and self.mesh is None and self.layout in PACKED_FAMILY
+                and self.topology.kind not in ("ring", "chain", "mesh")):
+            return False
+        p, n = self._shape()
+        return n % pk.GRAPH_GROUP == 0 and pk.graph_pass_fits(p, len(self.table))
+
+    def _graph_plan(self) -> pk.GraphPlan:
+        """The topology's neighbour matrix as the graph pass reads it, built
+        once (again where the topology changed)."""
+        if self._graph_plan_of is None or self._graph_plan_of[0] is not self.topology:
+            self._graph_plan_of = (self.topology, pk.GraphPlan(self.topology.neighbors))
+        return self._graph_plan_of[1]
+
+    def _graph_rounds(self, max_rounds: int) -> Tuple[int, int, List[int]]:
+        """Up to ``max_rounds`` rounds of the whole-table loop as one graph
+        pass over the tracked dirty columns (all where the tracking is
+        stale or the topology changed since it was settled). Returns
+        (rounds, last round's count, each round's count). A pass that
+        reaches the fixed point leaves every column clean; one cut off
+        leaves the marks as they are, which still hold every column it may
+        have left unsettled."""
+        cols = self._frontier_columns() if self._settled_under is self.topology else None
+        groups = None if cols is None else np.flatnonzero(self._frontier_groups)
+        self.table, rounds, last, counts = pk.gossip_graph_packed(
+            self.table, self._graph_plan(), cols, max_rounds, groups)
+        if last == 0:
+            self._frontier_settled()
+        return rounds, last, counts
+
     def _converge_packed_loop(self, max_rounds: int) -> int:
         """Packed-family whole-table round loop for any topology, one count
         read per round (on a mesh with use_shard_map, a star's rounds are
-        the hub reduce, as the reference's)."""
+        the hub reduce, as the reference's). On the card a topology other
+        than a ring, chain or full mesh runs the loop as one graph pass
+        (``_graph_pass_applies``)."""
+        if self._graph_pass_applies():
+            rounds, final_changed, _ = self._graph_rounds(max_rounds)
+            return self._finish_converge(rounds, final_changed)
         self.table, rounds, final_changed = pk.gossip_until_converged_packed(
             self.table, self.topology, max_rounds,
             spmd=self.mesh is not None and self.use_shard_map,

@@ -31,6 +31,9 @@ Each kernel sits beside its plain PyTorch version:
 * ``converge_columns_packed`` (``csrc/converge_columns.cu``) /
   ``converge_columns_packed_torch``: the dirty columns' fixed point in one
   pass (each column's join in every row), returning the rounds' depth;
+* ``converge_graph_packed`` (``csrc/converge_graph.cu``) /
+  ``converge_graph_packed_torch``: any neighbour matrix's rounds on the
+  dirty columns in one pass, returning every round's count;
 * on a device mesh, per shard: ``frontier_shard_round_packed``
   (``csrc/frontier_shard.cu``) / ``frontier_shard_round_torch`` with
   ``packed_beats``: m = 1 or 8 rounds on the active stripes, per-round
@@ -1084,6 +1087,221 @@ def gossip_columns_packed(table, seed, wrap: bool,
         if observe.recording():  # a pass over the seed: only for a trace
             sp.set(columns=n if seed is None else int(np.count_nonzero(seed)))
     return table, rounds, 0
+
+
+# -------------------------------------------------------- the graph pass
+
+# columns a block of the graph pass owns: one 32-byte sector a row a field
+GRAPH_GROUP = 8
+# the most rows a block of the graph pass takes (six a thread of 512)
+GRAPH_MAX_ROWS = 3072
+# a group of at least this many slots takes a warp a row, not a thread
+GRAPH_WARP_RUN = 8
+
+
+def graph_pass_smem(p: int, nf: int) -> int:
+    """Shared memory of one graph-pass block at P rows and nf fields, as
+    ``csrc/converge_graph.cu`` reckons it: the group's 8 columns, each of
+    P rounded up to 32, plus 4, words a field, and a byte a row."""
+    return 4 * GRAPH_GROUP * nf * (-(-p // 32) * 32 + 4) + p
+
+
+def graph_pass_fits(p: int, nf: int) -> bool:
+    """Whether the graph pass takes P rows of nf fields: within a block's
+    registers (3,072 rows) and shared memory (P up to 2,336 packed). Beyond
+    it the plain round loop runs."""
+    return 1 <= p <= GRAPH_MAX_ROWS and graph_pass_smem(p, nf) <= COLUMN_PASS_SMEM
+
+
+class GraphPlan:
+    """A neighbour matrix [P, D] (-1 = none) as the graph pass reads it.
+    ``order`` holds the row at each position: the rows sorted by their
+    extent (last slot that has a neighbour, + 1), longest first and stable,
+    so that the rows active in slot k are a prefix of the positions;
+    ``row_off`` and ``nbr`` are a CSR of each position's neighbours in slot
+    order, as positions (-1: a hole in the matrix); ``sched`` groups the
+    slots [k0, k1) with the positions active at k0 and whether a warp takes
+    each row. ``neighbors`` is the matrix as given, which the plain version
+    reads."""
+
+    def __init__(self, neighbors) -> None:
+        nb = np.asarray(neighbors, dtype=np.int64)
+        p, d = nb.shape
+        if p > np.iinfo(np.int16).max:
+            raise ValueError(f"GraphPlan: {p} rows do not fit int16 positions")
+        valid = nb >= 0
+        extent = np.where(valid.any(1), d - np.argmax(valid[:, ::-1], axis=1), 0)
+        order = np.argsort(-extent, kind="stable")
+        pos = np.empty(p, dtype=np.int64)
+        pos[order] = np.arange(p)
+        ext = extent[order]
+        sub = nb[order]
+        as_pos = np.where(sub >= 0, pos[np.clip(sub, 0, None)], -1)
+        self.neighbors = nb.astype(np.int32)
+        self.order = order.astype(np.int32)
+        self.row_off = np.concatenate([[0], np.cumsum(ext)]).astype(np.int32)
+        self.nbr = as_pos[np.arange(d)[None, :] < ext[:, None]].astype(np.int16)
+        self.edges = int(valid.sum())
+        self.max_degree = int(valid.sum(1).max(initial=0))
+        active = (ext[:, None] > np.arange(d)[None, :]).sum(0)
+        read_min = np.where(as_pos >= 0, as_pos, p).min(0, initial=p)
+        sched, k, slots = [], 0, int(ext.max(initial=0))
+        while k < slots:
+            a, k1 = int(active[k]), k + 1
+            if read_min[k] >= a:  # nothing written is read: the next slots may join
+                while k1 < slots and read_min[k1] >= a:
+                    k1 += 1
+            sched.append((k, k1, a, int(k1 - k >= GRAPH_WARP_RUN)))
+            k = k1
+        self.sched = np.asarray(sched, dtype=np.int32).reshape(-1, 4)
+        self._on: dict = {}
+
+    def on(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The plan on ``device``, uploaded once: int32 (the schedule, each
+        position's row, the CSR's offsets) and the int16 neighbours."""
+        device = torch.device(device)
+        if device not in self._on:
+            i32 = np.concatenate([self.sched.ravel(), self.order, self.row_off])
+            self._on[device] = (torch.from_numpy(i32.astype(np.int32)).to(device),
+                                torch.from_numpy(self.nbr).to(device))
+        return self._on[device]
+
+
+def graph_work(seed, n: int, groups: Optional[np.ndarray] = None
+               ) -> Tuple[np.ndarray, np.ndarray]:
+    """The 8-column groups that hold a column of ``seed`` (bool [n] on the
+    host; None = every column), ascending int32, and each one's dirty
+    columns as a bit mask (int32); ``groups``, where the caller keeps them,
+    are the 16-column groups (``column_groups``) that hold them."""
+    if seed is None:
+        ids = np.arange(n // GRAPH_GROUP, dtype=np.int32)
+        return ids, np.full(ids.size, (1 << GRAPH_GROUP) - 1, dtype=np.int32)
+    cols = np.ascontiguousarray(seed, dtype=bool)
+    words = cols.view(np.uint64)  # 8 columns a word
+    if groups is None:
+        ids = np.flatnonzero(words)
+    else:
+        k = COLUMN_GROUP // GRAPH_GROUP
+        cand = (np.asarray(groups, dtype=np.int64)[:, None] * k + np.arange(k)).ravel()
+        ids = cand[words[cand] != 0]
+    masks = np.packbits(cols.reshape(-1, GRAPH_GROUP)[ids], axis=1, bitorder="little")[:, 0]
+    return ids.astype(np.int32), masks.astype(np.int32)
+
+
+def converge_graph_packed_torch(table, plan: GraphPlan, groups: torch.Tensor,
+                                masks: torch.Tensor, cap: int) -> torch.Tensor:
+    """Plain version of the graph pass, in place: the dirty columns of the
+    8-column ``groups`` (``masks``: each one's columns) run the reference's
+    rounds (``gossip_round_generic_packed``) until a round changes nothing
+    or ``cap`` rounds. Returns int32 [1 + min(cap, P + 1)]: the largest last
+    round that changed a column (0 if none did), then each round's count
+    (wrapping like int32)."""
+    p = table[0].shape[0]
+    device = table[0].device
+    cap = max(1, cap)
+    counts = np.zeros(min(cap, p + 1), dtype=np.int64)
+    bits = torch.arange(GRAPH_GROUP, device=device)
+    pick = (masks.to(device, torch.int64)[:, None] >> bits) & 1
+    cols = (groups.to(device, torch.int64)[:, None] * GRAPH_GROUP + bits)[pick.bool()]
+    depth = 0
+    width = max(1, _PLAIN_BLOCK_ELEMS // max(p, 1))
+    for c0 in range(0, cols.numel(), width):
+        idx = cols[c0:c0 + width]
+        sub = type(table)(*(f.index_select(1, idx) for f in table))
+        for r in range(1, cap + 1):
+            sub, changed = gossip_round_generic_packed(sub, plan.neighbors)
+            total = int(changed)
+            if total == 0:
+                break
+            depth = max(depth, r)
+            counts[r - 1] += total
+        for f, s in zip(table, sub):
+            f.index_copy_(1, idx, s)
+    return torch.tensor([depth, *(_wrap_int32(int(c)) for c in counts)], dtype=torch.int32)
+
+
+def converge_graph_packed(table, plan: GraphPlan, work: Tuple[np.ndarray, np.ndarray],
+                          cap: int) -> Tuple[object, torch.Tensor]:
+    """Run the reference's rounds on the dirty columns of ``work``
+    (``graph_work``: 8-column groups and their masks) over ``plan``'s
+    neighbour matrix, in place, each column until a round changes nothing
+    there or ``cap`` rounds (>= 1): the CUDA kernel
+    (``csrc/converge_graph.cu``, one launch) for CUDA tensors, the plain
+    version for CPU tensors. A column the rounds would not change must be
+    at a fixed point (settled since it was last written), and no entry may
+    lie below the all-zero entry, as none a sim stores does: a missing
+    neighbour's merge, of that entry, is skipped. Returns (table,
+    int32 [1 + min(cap, P + 1)] on the table's device): the largest last
+    round that changed a column (0 if none did), then each round's count
+    summed over the columns (wrapping like int32), so that the whole-table
+    loop from the same state runs min(cap, that round + 1) rounds with
+    those counts."""
+    p, n = table[0].shape
+    device = table[0].device
+    groups, masks = work
+    if n % GRAPH_GROUP:
+        raise ValueError(f"converge_graph_packed: n = {n} is not a multiple of {GRAPH_GROUP}")
+    if plan.neighbors.shape[0] != p:
+        raise ValueError(f"converge_graph_packed: a plan of {plan.neighbors.shape[0]} rows "
+                         f"for a table of {p}")
+    cap = max(1, min(cap, p + 1))  # a column settles within P rounds
+    if device.type == "cpu":
+        return table, converge_graph_packed_torch(
+            table, plan, torch.from_numpy(groups), torch.from_numpy(masks), cap)
+    _fields_checked(table, "converge_graph_packed")
+    if not graph_pass_fits(p, len(table)):
+        raise ValueError(f"converge_graph_packed: {p} rows at nf = {len(table)} take "
+                         f"{graph_pass_smem(p, len(table))} bytes of shared memory a block")
+    if any(f.data_ptr() % 16 for f in table):
+        raise ValueError("converge_graph_packed: fields must be 16-byte aligned")
+    # the groups, their masks, then the output cells (zero): one upload
+    cells = torch.from_numpy(np.concatenate(
+        [groups, masks, np.zeros(1 + cap, dtype=np.int32)])).to(device)
+    out = cells[2 * groups.size:]
+    if groups.size == 0:
+        return table, out
+    i32, nbr = plan.on(device)
+    lib = _build.library()
+    with torch.cuda.device(device):
+        err = lib.bt_converge_graph(
+            _build.pointers(table), cells.data_ptr(), groups.size, i32.data_ptr(),
+            nbr.data_ptr(), plan.sched.shape[0], out.data_ptr(), cap, p, n, cap, len(table),
+            _build.stream_of(device),
+        )
+    _build.check(err, "converge_graph_packed")
+    _build.LAUNCHES["converge_graph"] += 1
+    return table, out
+
+
+def gossip_graph_packed(table, plan: GraphPlan, seed, max_rounds: int,
+                        groups: Optional[np.ndarray] = None
+                        ) -> Tuple[object, int, int, List[int]]:
+    """The whole-table round loop of any neighbour matrix
+    (``gossip_until_converged_packed`` over ``gossip_round_generic_packed``)
+    as one graph pass over the columns of ``seed`` (bool [n] on the host;
+    None = every column; ``groups`` as ``graph_work`` takes them), every
+    other column at a fixed point: the same table, rounds, last count and
+    every round's count. Returns (table, rounds, last round's count, the
+    counts of rounds 1 .. rounds); max_rounds = 0 runs nothing (0 rounds,
+    count 1). The span ``loop`` counts its ``steps`` (rounds), ``waits``
+    (the one read of the counts, ``loop.wait``), the CSR's ``edges`` and
+    ``max_degree``, and, in a trace, the dirty ``columns`` and the 8-column
+    ``sectors`` it read."""
+    if max_rounds <= 0:
+        return table, 0, 1, []
+    n = table[0].shape[1]
+    with observe.span("loop") as sp:
+        work = graph_work(seed, n, groups)
+        table, out = converge_graph_packed(table, plan, work, max_rounds)
+        with observe.span("loop.wait"):
+            depth, *counts = out.tolist()
+        rounds = min(max_rounds, depth + 1)
+        sp.set(steps=rounds, waits=1, edges=plan.edges, max_degree=plan.max_degree)
+        if observe.recording():  # a pass over the seed: only for a trace
+            sp.set(columns=n if seed is None else int(np.count_nonzero(seed)),
+                   sectors=int(work[0].size))
+    counts = counts[:rounds]
+    return table, rounds, counts[-1], counts
 
 
 # ----------------------------------------------- per-shard steps (device mesh)

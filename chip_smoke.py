@@ -30,7 +30,12 @@ Phases, in order; any failure raises and exits nonzero:
    frontier loop (tables, depth, rounds) on rings and chains of P in {1,
    2, 3, 17, 64, 1000} and the largest P a block holds, seeds all, none,
    one and sparse, and at 1024 x 2^20 on a scatter batch's 49,300 dirty
-   columns, 256 and all, timed on both clocks with its bytes; then small
+   columns, 256 and all, timed on both clocks with its bytes; the graph
+   pass against its plain version (tables, rounds' depth, every round's
+   count) on bridges, stars, a random graph, a digraph, a matrix with holes
+   and the 1,024-peer bridge, seeds all and sparse, caps 1, 2, 3 and none,
+   and at 1024 x 2^20 on the bridge's 49,300 dirty columns, timed on both
+   clocks with its bytes; then small
    dense, packed, rank and rank1 sims on the card against the same sims on
    the CPU; the lean round, the lean frontier and
    the lean merge at 1024 x 2^20 and ragged shapes; the per-shard frontier
@@ -173,6 +178,13 @@ Phases, in order; any failure raises and exits nonzero:
    on cuda:0, runs the packed path through the same code (its fold and
    reconcile sums are NCCL all-reduces of card tensors). A process that
    fails gets the others killed; the script fails with it.
+14. the bridge deployment (bullet-js's bridge example at 204 full-mesh
+   clusters of 5 joined through 4 bridge peers, P = 1,024; packed, N
+   default 2^20): put_bulk, step(0) and run_until_converged through the
+   graph pass, one launch a converge and no plain round, the converged row
+   against an independent numpy per-leaf max; an incremental converge of
+   a second batch (its dirty columns alone); a converge capped at 2 rounds
+   then finished; step(2) of a third batch; converged().
 
 Every kernel's launch count over the phase that drives its path (4 for
 the dense kernels, 5 and 6 for the packed-family ones, 5 for the m-round
@@ -274,6 +286,10 @@ KERNELS = {
     # the port's own: an uncapped converge's dirty columns in one pass, where
     # the reference runs its frontier loop (bullet_tpu/ops/packed.py:2161)
     "converge_columns": ("bullet_tpu_torch/csrc/converge_columns.cu", "none"),
+    # the port's own: any topology's rounds on the dirty columns in one
+    # pass, where the reference runs its whole-table round loop
+    # (bullet_tpu/ops/packed.py:917)
+    "converge_graph": ("bullet_tpu_torch/csrc/converge_graph.cu", "none"),
 }
 DENSE_KERNELS = ("merge", "ring_round", "frontier_round_dense")
 # the packed-family kernels: phase 5 drives them at nf = 3, phase 6 at nf = 1;
@@ -1167,6 +1183,130 @@ def check_converge_columns(dev, main_shape, errs, times, nf):
     log(f"  converge_columns [{LAYOUT_OF[nf]}] {p}x{n}, ring: {'; '.join(report)}; "
         f"bit-identical to its plain version and the frontier loop, and at "
         f"{len(COLUMN_SHAPES)} shapes, rings and chains, seeds all, none, one, sparse")
+
+
+# the bridge deployment: bullet-js's bridge example at 1,024 peers
+BRIDGE_SPEC = {"kind": "bridge", "clusters": 204, "cluster_size": 5, "bridge_peers": 4}
+
+
+def graph_topologies():
+    """The graph pass's shapes: (name, neighbour matrix [P, D])."""
+    from bullet_tpu_torch.parallel import topology as topo
+
+    rng = np.random.default_rng(41)
+    digraph = rng.random((40, 40)) < 0.08
+    np.fill_diagonal(digraph, False)
+    holes = topo.random_graph(24, 3, seed=2).neighbors.copy()
+    holes[rng.random(holes.shape) < 0.3] = -1  # -1 in the middle of rows
+    return [("bridge 6x5+2", topo.bridge((5,) * 6, 2).neighbors),
+            ("bridge 2x5+1", topo.bridge((5, 5), 1).neighbors),
+            ("star 17", topo.star(17).neighbors), ("star 2000", topo.star(2000).neighbors),
+            ("random 64", topo.random_graph(64, 3, seed=5).neighbors),
+            ("digraph 40", topo.from_adjacency(digraph).neighbors), ("holes 24", holes),
+            ("bridge 204x5+4", topo.bridge((5,) * 204, 4).neighbors)]
+
+
+def graph_pass_sectors(before, after, dirty, p: int, nf: int) -> int:
+    """The graph pass's floor in 32-byte sectors, which is what it moves: it
+    reads every row's sector (8 columns) that holds a dirty column and
+    writes back every sector that holds a changed entry."""
+    from bullet_tpu_torch.ops.packed import GRAPH_GROUP
+
+    n = before[0].shape[1]
+    changed = None
+    for a, b in zip(before, after):
+        d = a != b
+        changed = d if changed is None else changed | d
+    sectors = int(changed.view(p, -1, GRAPH_GROUP).any(2).sum())
+    dirty_sectors = n // 8 if dirty is None else int(dirty.reshape(-1, 8).any(1).sum())
+    return 32 * nf * (dirty_sectors * p + sectors)
+
+
+def check_converge_graph(dev, main_shape, errs, times, nf):
+    """The graph pass against its plain version: tables, the rounds' depth
+    and every round's count, on small graphs and the 1,024-peer bridge.
+    The tables hold no entry below the all-zero one, as a sim's do: the
+    pass skips a missing neighbour, where the whole-table loop merges the
+    all-zero entry."""
+    from bullet_tpu_torch.ops import packed as pk
+
+    def in_domain(table):
+        """The table with its absent (cls 0) entries all zero."""
+        if nf == 3:
+            absent = (table.cv >> pk.CV_SHIFT) == 0
+            for f in table:
+                f.masked_fill_(absent, 0)
+        return table
+
+    def family(seed, p, n):
+        return in_domain(random_family(nf, seed, p, n, dev))
+
+    def settled(nb, p, n, seed):
+        """A random table at its fixed point over ``nb`` (the plain pass
+        over every column)."""
+        table = family(seed, p, n)
+        plan = pk.GraphPlan(nb)
+        pk.converge_graph_packed(table, plan, pk.graph_work(None, n), 4 * p)
+        return table, plan
+
+    def pair(table, plan, dirty, cap, what):
+        n = table[0].shape[1]
+        twin = clone(table)
+        work = pk.graph_work(dirty, n)
+        _, out = pk.converge_graph_packed(table, plan, work, cap)
+        cols = [torch.from_numpy(w).to(dev) for w in work]
+        want, plain = timed_once(lambda: pk.converge_graph_packed_torch(
+            twin, plan, *cols, max(1, min(cap, plan.neighbors.shape[0] + 1))))
+        _pair("converge_graph", errs, (*table, out.cpu()), (*twin, want), f"nf={nf} {what}")
+        return out.cpu(), plain
+
+    rng = np.random.default_rng(40 + nf)
+    n = 256
+    for name, nb in graph_topologies():
+        p = nb.shape[0]
+        if not pk.graph_pass_fits(p, nf):
+            continue
+        for cap in (1, 2, 3, 4 * p):
+            table = family(800 + p, p, n)
+            pair(table, pk.GraphPlan(nb), None, cap, f"{name} all cap={cap}")
+            table, plan = settled(nb, p, n, 800 + p)
+            dirty = column_seed(rng, n, "sparse")
+            src = family(900 + p, p, n)
+            cols = np.flatnonzero(dirty)
+            r = torch.from_numpy(rng.integers(0, p, cols.size)).to(dev)
+            c = torch.from_numpy(cols).to(dev)
+            for f, v in zip(table, src):
+                f[r, c] = v[r, c]
+            pair(table, plan, dirty, cap, f"{name} sparse cap={cap}")
+    p, n = main_shape
+    nb = graph_topologies()[-1][1]
+    plan = pk.GraphPlan(nb)
+    dirty = column_seed(rng, n, "scatter")
+    # the bridge is strongly connected: its fixed point is every column's
+    # join in every row, as the reconcile leaves it
+    out, plain = pair(in_domain(dirtied(nf, 41, p, n, dirty, True, dev, win=True)), plan, dirty,
+                      4 * p, f"{p}x{n} scatter")
+    before = in_domain(dirtied(nf, 41, p, n, dirty, True, dev, win=True))
+    after = clone(before)
+    work = pk.graph_work(dirty, n)
+    _, ms = timed_once(lambda: pk.converge_graph_packed(after, plan, work, 4 * p))
+    moved = graph_pass_sectors(before, after, dirty, p, nf)
+    del after
+    _, dev_ms = device_once(lambda: pk.converge_graph_packed(before, plan, work, 4 * p))
+    del before
+    torch.cuda.empty_cache()
+    rounds = int(out[0]) + 1
+    times[tag("converge_graph", nf)] = (
+        ms, plain, bound(moved, 0), None,
+        {"device_ms": dev_ms, "bytes": moved, "columns": int(dirty.sum()),
+         "groups": int(work[0].size), "rounds": rounds})
+    log(f"  converge_graph [{LAYOUT_OF[nf]}] {p}x{n}, bridge 204x5+4 ({plan.edges} edges, "
+        f"{len(plan.sched)} slot groups): scatter ({int(dirty.sum())} columns, "
+        f"{work[0].size} groups, {rounds} rounds, counts {out[1:rounds + 1].tolist()}): kernel "
+        f"{ms:.3f} ms, device alone {dev_ms:.3f} ms, plain {plain:.3f} ms, "
+        f"{moved / 1e9:.3f} GB moved, its sector floor, bound {bound(moved, 0)[0]:.3f} ms; "
+        f"bit-identical to its plain version there and on {len(graph_topologies())} graphs, "
+        f"seeds all and sparse, caps 1, 2, 3 and none")
 
 
 def window_bound(nf: int, entries: int, m: int):
@@ -4454,6 +4594,85 @@ def processes_path(args, dev, card: str) -> dict:
     return {rank: r["launches"] for rank, r in enumerate(gloo)}
 
 
+def bridge_main_path(args, dev, window=wall_window) -> dict:
+    """Phase 14. Returns the phase's launches."""
+    from bullet_tpu_torch import PeerNetworkSim, _build
+    from bullet_tpu_torch.ops import packed as pk
+
+    p, n = args.peers, args.packed_capacity
+    secs: dict = {}
+    rng = np.random.default_rng(args.seed + 14)
+    sim = PeerNetworkSim(p, capacity=n, topology=BRIDGE_SPEC, layout="packed", device=dev,
+                         use_kernels=True)
+    n_leaf = n - 256
+    slot_of_leaf = sim.host.intern_batch([f"k/{i}" for i in range(n_leaf)])
+    batches = []
+    plain_rounds = []
+    real_round = pk.gossip_round_generic_packed
+
+    def counted(*a, **kw):
+        plain_rounds.append(1)
+        return real_round(*a, **kw)
+
+    pk.gossip_round_generic_packed = counted
+
+    def batch(k, leaves):
+        peers = rng.integers(0, p, k).astype(np.int32)
+        leaf = rng.integers(0, leaves, k)
+        vals = rng.integers(-500, 500, k)
+        batches.append((leaf, vals))
+        return peers, slot_of_leaf[leaf], vals
+
+    def converge(name, max_rounds=None):
+        before = _build.LAUNCHES["converge_graph"]
+        with window(name, secs):
+            rounds = sim.run_until_converged(max_rounds)
+        if _build.LAUNCHES["converge_graph"] != before + 1:
+            raise AssertionError(f"bridge {name}: not one launch of the graph pass")
+        return rounds
+
+    try:
+        _build.reset_launches()
+        sim.put_bulk(*batch(args.packed_ops, n_leaf))
+        sim.step(0)
+        rounds = converge("bridge converge")
+        if sim.last_residual != 0 or not sim.tables_equal():
+            raise AssertionError("bridge converge did not reach the fixed point")
+        written = check_leaf_values(sim, batches, slot_of_leaf, rng, "bridge converge")
+        log(f"  put_bulk {args.packed_ops} ops, step(0), run_until_converged "
+            f"[{sim._convergence_strategy()[0]}] through the graph pass: {rounds} rounds in "
+            f"{secs['bridge converge']:.3f} s; == numpy per-leaf max over {written} leaves")
+        sim.put_bulk(*batch(65536, n_leaf))
+        sim.step(0)
+        cols = sim._frontier_columns()
+        rounds = converge("bridge incremental converge")
+        check_leaf_values(sim, batches, slot_of_leaf, rng, "bridge incremental")
+        log(f"  put_bulk 65536 ops + run_until_converged: {rounds} rounds in "
+            f"{secs['bridge incremental converge']:.3f} s on "
+            f"{'every' if cols is None else int(cols.sum())} dirty columns")
+        sim.put_bulk(*batch(65536, n_leaf))
+        sim.step(0)
+        capped = converge("bridge capped converge", 2)
+        left = sim.last_residual
+        converge("bridge converge after the cap")
+        check_leaf_values(sim, batches, slot_of_leaf, rng, "bridge capped")
+        sim.put_bulk(*batch(65536, n_leaf))
+        residual = sim.step(2)
+        merged = sim.stats["merged_entries"]
+        converge("bridge converge after step(2)")
+        check_leaf_values(sim, batches, slot_of_leaf, rng, "bridge step(2)")
+        if plain_rounds:
+            raise AssertionError(f"bridge: {len(plain_rounds)} plain rounds ran")
+        # converged() runs the plain round on a copy of the table
+        if sim.last_residual != 0 or not sim.converged():
+            raise AssertionError("bridge: not at the fixed point after step(2) and a converge")
+        log(f"  capped at 2 rounds: {capped} rounds, residual {left}, then finished; step(2): "
+            f"residual {residual}, merged entries {merged}; converged() True")
+    finally:
+        pk.gossip_round_generic_packed = real_round
+    return dict(_build.LAUNCHES)
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4546,6 +4765,10 @@ def main() -> int:
     check_small_packed_mesh_sims(dev)
     torch.cuda.empty_cache()
 
+    for nf in (3, 2, 1):
+        check_converge_graph(dev, packed_shape, errs, times, nf)
+        torch.cuda.empty_cache()
+
     log(f"phase 4: dense main path, ring {args.peers} x {args.capacity}")
     launches = main_path(args, dev)
     free(dev)  # a sim holds reference cycles: collect it before the next phase
@@ -4583,6 +4806,9 @@ def main() -> int:
         f"{SHARDS // MESH_PROCESSES} shards each on the one card, then one NCCL process of "
         f"{SHARDS}, ring {args.peers} x {args.packed_capacity}, {smi}")
     processes_path(args, dev, smi)
+    free(dev)
+    log(f"phase 14: the bridge deployment, packed {args.peers} x {args.packed_capacity}, {smi}")
+    launches["converge_graph"] = bridge_main_path(args, dev)["converge_graph"]
 
     # one row per kernel at the layout its main path drives (dense: phase
     # 4, packed: phase 5), one per packed-family kernel at rank1 (phase 6),
@@ -4595,7 +4821,7 @@ def main() -> int:
     # at m = 480 and the mesh's fused frontier and window at nf = 3 are in
     # the log above
     rows = [(name, name, launches[name])
-            for name in (*DENSE_KERNELS, *PACKED_KERNELS, FUSED_ROUNDS)]
+            for name in (*DENSE_KERNELS, *PACKED_KERNELS, FUSED_ROUNDS, "converge_graph")]
     rows += [(tag(name, 1), name, rank1_launches[name]) for name in PACKED_KERNELS]
     rows += [("ring_round_lean", "ring_round_lean", lean_launches["ring_round_lean"]),
              ("frontier_round_dense lean", "frontier_round_dense",
