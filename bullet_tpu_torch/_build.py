@@ -30,9 +30,9 @@ SOURCES = (
     "merge.cu", "ring_round.cu", "frontier_dense.cu", "frontier_shard.cu",
     "frontier_shard_window.cu", "compact_counts.cu",
     "apply_packed.cu", "packed_round.cu", "reconcile_packed.cu", "frontier_packed.cu",
-    "window_packed.cu", "converge_columns.cu", "converge_graph.cu",
+    "window_packed.cu", "converge_columns.cu", "converge_columns_shard.cu", "converge_graph.cu",
 )
-HEADERS = ("lexmax.cuh", "frontier.cuh")
+HEADERS = ("lexmax.cuh", "frontier.cuh", "column_runs.cuh")
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "bullet_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -49,7 +49,7 @@ LAUNCHES = {
     "frontier_shard_window": 0, "compact_counts window": 0,
     "apply_packed": 0, "packed_round": 0, "packed_round fused": 0, "reconcile_packed": 0,
     "frontier_round_packed": 0, "window_packed": 0, "window_shard": 0, "converge_columns": 0,
-    "converge_graph": 0,
+    "converge_graph": 0, "column_summaries": 0, "settle_columns": 0,
 }
 
 _P = ctypes.c_void_p
@@ -108,6 +108,15 @@ _SIGNATURES = {
     "bt_converge_columns": (
         _P, _P, ctypes.c_int, _P, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_int, _P,
+    ),
+    # a shard's fields, the groups, their count, the summaries (then: the
+    # depth, shards, this shard), b, n (then: wrap), nf, the stream
+    "bt_column_summaries": (
+        _P, _P, ctypes.c_int, _P, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, _P,
+    ),
+    "bt_settle_columns": (
+        _P, _P, ctypes.c_int, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P,
     ),
     # fields, the groups and their masks, their count, the plan, the
     # neighbours, the schedule's length, the output cells and their count,

@@ -38,6 +38,7 @@
 // groups 1.2x that of 16. P is bounded by shared memory (ops/packed.py's
 // column_pass_smem mirrors smem_bytes); the caller keeps larger P on the
 // stripe loop.
+#include "column_runs.cuh"
 #include "lexmax.cuh"
 
 namespace {
@@ -50,52 +51,11 @@ constexpr int kRowLanes = kThreads / kGroup;  // threads a column in the join
 static_assert(kWarps == kGroup && kRowLanes == 32, "one warp a column of the group");
 static_assert(kGroup == 16, "a row's holder flags are read as one uint4");
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\n" ::);
-  asm volatile("cp.async.wait_group 0;\n" ::);
-}
-
-// A stretch of rows summarised by its runs of non-holders: its length, the
-// run at its start, the run at its end and its longest run. pre == len means
-// the stretch holds no holder.
-struct Runs {
-  int len, pre, suf, best;
-};
-
-// The runs of the first `valid` rows of a 32-row word; bit i set = row i
-// holds the join.
-__device__ __forceinline__ Runs runs_of_word(unsigned holders, int valid) {
-  const unsigned rows = valid >= 32 ? 0xffffffffu : (1u << valid) - 1u;
-  holders &= rows;
-  if (holders == 0u) return {valid, valid, valid, valid};
-  Runs r;
-  r.len = valid;
-  r.pre = __ffs(holders) - 1;
-  r.suf = valid - 32 + __clz(holders);
-  unsigned gaps = ~holders & rows;
-  int best = 0;
-  while (gaps) {  // each step shortens every run of set bits by one
-    gaps &= gaps >> 1;
-    ++best;
-  }
-  r.best = best;
-  return r;
-}
-
-// The runs of stretch a followed by stretch b.
-__device__ __forceinline__ Runs join_runs(const Runs& a, const Runs& b) {
-  Runs r;
-  r.len = a.len + b.len;
-  r.pre = a.pre == a.len ? a.len + b.pre : a.pre;
-  r.suf = b.suf == b.len ? b.len + a.suf : b.suf;
-  r.best = max(max(a.best, b.best), a.suf + b.pre);
-  return r;
-}
+using bt::cp_async16;
+using bt::cp_async_wait_all;
+using bt::join_runs;
+using bt::Runs;
+using bt::runs_of_word;
 
 // Shared memory of a block: the group's table [NF][p][16], the holders'
 // flags [p][16] as bytes (1 = holds the join), and the holder bitmaps

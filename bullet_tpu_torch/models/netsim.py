@@ -28,7 +28,8 @@ On a device mesh (``mesh_devices``: a count, or devices that may repeat)
 the table is a ``ShardedTable`` split by peer rows. With ``use_shard_map``
 its ring and chain sims converge on the per-shard frontier
 (``dense-frontier-spmd``, ``packed-frontier-spmd``: on the card the
-packed family takes m-round windows per boundary exchange) where the
+packed family takes m-round windows per boundary exchange, and an
+uncapped converge one column pass a shard) where the
 reference's sharded predicate holds; every sharded sim's rounds are the
 explicit exchanges of ``parallel/shardmap_gossip.py``, and a packed
 family's ``fast_forward`` takes one window per exchange of m-row slabs.
@@ -98,6 +99,7 @@ from ..parallel.mesh import (
 from ..parallel.shardmap_gossip import (
     HALO_FUSE,
     data_mesh_round,
+    gossip_columns_shardmap_packed,
     gossip_frontier_shardmap_dense,
     gossip_frontier_shardmap_packed,
     mesh_round_shardmap,
@@ -135,7 +137,8 @@ class ConvergenceCell(NamedTuple):
 # match wins; the rows and predicates are the reference package's.
 CONVERGENCE_STRATEGIES: Tuple[Tuple[str, Callable, str], ...] = (
     (
-        "packed-frontier-spmd",  # per-shard packed frontier, windows on the card
+        "packed-frontier-spmd",  # per-shard packed frontier, windows on the card (an
+        # uncapped converge there: one column pass a shard)
         lambda c: c.layout in PACKED_FAMILY and c.spmd and c.frontier and c.ring_chain
         and c.kernels,
         "_converge_frontier_spmd",
@@ -1376,14 +1379,24 @@ class PeerNetworkSim:
             return rounds
 
     def _column_pass_applies(self, max_rounds: int) -> bool:
-        """Whether an unsharded packed-family converge takes the column
+        """Whether a packed-family ring or chain converge takes the column
         pass: on the card, where no cap can cut it short (max_rounds above
         the diameter, which bounds every row's distance to its column's
         join, and above 1, which a lone row of a chain may take from its
-        ends), at a shape whose 16-column groups fit a block."""
+        ends), at a shape whose 16-column groups of one shard's rows (all
+        rows where the table is not sharded) fit a block."""
         p, n = self._shape()
+        sharded = isinstance(self.table, ShardedTable)
+        rows = p // len(self.mesh) if sharded else p
+        nf = len(self.table.first if sharded else self.table)
         return (self._card_routes() and max_rounds > max(self.topology.diameter, 1)
-                and pk.column_pass_fits(p, n, len(self.table)))
+                and pk.column_pass_fits(rows, n, nf))
+
+    def _column_pass_groups(self) -> Tuple[Optional[np.ndarray], Optional[np.ndarray]]:
+        """(dirty columns, their 16-column groups' ids) for the column
+        pass, or (None, None) where the tracking is stale (every column)."""
+        cols = self._frontier_columns()
+        return cols, None if cols is None else np.flatnonzero(self._frontier_groups)
 
     def _converge_frontier_local(self, max_rounds: int) -> int:
         """Packed-family convergence of a ring or chain. On the card an
@@ -1394,8 +1407,7 @@ class PeerNetworkSim:
         CPU the frontier loop's plain version runs unfused."""
         wrap = self.topology.kind == "ring"
         if self._column_pass_applies(max_rounds):
-            cols = self._frontier_columns()
-            groups = None if cols is None else np.flatnonzero(self._frontier_groups)
+            cols, groups = self._column_pass_groups()
             self.table, rounds, final_changed = pk.gossip_columns_packed(
                 self.table, cols, wrap, groups)
         else:
@@ -1410,7 +1422,11 @@ class PeerNetworkSim:
         return self._finish_converge(rounds, final_changed)
 
     def _converge_frontier_spmd(self, max_rounds: int) -> int:
-        """The packed family's frontier on a mesh: per-shard frontier steps
+        """The packed family's frontier on a mesh. On the card an uncapped
+        converge whose shards' 16-column groups fit a block settles the
+        dirty columns in one column pass a shard about one gather of their
+        summaries (``gossip_columns_shardmap_packed``: the frontier's table,
+        round count and residual); otherwise per-shard frontier steps run
         between boundary exchanges, the shards' results agreed and folded.
         On the card each exchange of m-row slabs buys an m-round window (m
         of the reference's ``window_frontier_params``; HALO_FUSE = 8 rounds
@@ -1418,16 +1434,21 @@ class PeerNetworkSim:
         classic round count rebuilt on the host; on the CPU it runs
         unfused, as the reference's interpret mode does."""
         p, n = self._shape()
-        tile_n = self._frontier_tile()
-        t_total = n // tile_n
-        window = fuse = 1
-        if self._card_routes():
-            window = pk.window_frontier_depth(p // len(self.mesh), n)
-            fuse = 1 if window else HALO_FUSE
-        self.table, rounds, final_changed = gossip_frontier_shardmap_packed(
-            self.table, self._frontier_seed(t_total), self.topology.kind == "ring",
-            max_rounds, fuse=fuse, window_fuse=window, tile_n=tile_n,
-        )
+        wrap = self.topology.kind == "ring"
+        if self._column_pass_applies(max_rounds):
+            cols, groups = self._column_pass_groups()
+            self.table, rounds, final_changed = gossip_columns_shardmap_packed(
+                self.table, cols, wrap, groups)
+        else:
+            tile_n = self._frontier_tile()
+            window = fuse = 1
+            if self._card_routes():
+                window = pk.window_frontier_depth(p // len(self.mesh), n)
+                fuse = 1 if window else HALO_FUSE
+            self.table, rounds, final_changed = gossip_frontier_shardmap_packed(
+                self.table, self._frontier_seed(n // tile_n), wrap, max_rounds, fuse=fuse,
+                window_fuse=window, tile_n=tile_n,
+            )
         self._finish_frontier(rounds, final_changed, max_rounds)
         return self._finish_converge(rounds, final_changed)
 

@@ -31,6 +31,12 @@ Each kernel sits beside its plain PyTorch version:
 * ``converge_columns_packed`` (``csrc/converge_columns.cu``) /
   ``converge_columns_packed_torch``: the dirty columns' fixed point in one
   pass (each column's join in every row), returning the rounds' depth;
+* ``column_summaries`` / ``column_summaries_torch`` and
+  ``settle_columns`` / ``settle_columns_torch``
+  (``csrc/converge_columns_shard.cu``): the column pass on a mesh, a
+  shard's summaries of its dirty columns (its join, its runs of rows that
+  do not hold it), then, from every shard's, its columns settled and the
+  rounds' depth;
 * ``converge_graph_packed`` (``csrc/converge_graph.cu``) /
   ``converge_graph_packed_torch``: any neighbour matrix's rounds on the
   dirty columns in one pass, returning every round's count;
@@ -997,6 +1003,23 @@ def holder_distances(held: torch.Tensor, wrap: bool,
     return torch.minimum(rows - prev, nxt - rows)
 
 
+def column_join(rows: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """The join (lexmax) of each column of [R, C] packed-family field rows,
+    as [1, C] rows: a row that holds it (in all three layouts equal keys
+    mean equal entries, so which one does not matter)."""
+    top = torch.ones(rows[0].shape, dtype=torch.bool, device=rows[0].device)
+    for k in table_keys(rows):
+        top &= k == torch.where(top, k, torch.iinfo(k.dtype).min).amax(0)
+    first = top.to(torch.int8).argmax(0, keepdim=True)
+    return [f.gather(0, first) for f in rows]
+
+
+def _group_columns(groups: torch.Tensor, device) -> torch.Tensor:
+    """The columns of 16-column groups, in group order."""
+    return (groups.to(device, torch.int64)[:, None] * COLUMN_GROUP
+            + torch.arange(COLUMN_GROUP, device=device)).flatten()
+
+
 def converge_columns_packed_torch(table, groups: torch.Tensor, wrap: bool) -> torch.Tensor:
     """Plain version of the column pass, in place: every column of the
     16-column ``groups`` becomes its join (the lexmax of its rows; on a
@@ -1005,19 +1028,13 @@ def converge_columns_packed_torch(table, groups: torch.Tensor, wrap: bool) -> to
     distance to the nearest row that held the join (a chain's ends hold it
     where it is the all-zero entry), int32; -1 with no group."""
     p, _ = table[0].shape
-    device = table[0].device
-    cols = (groups.to(device, torch.int64)[:, None] * COLUMN_GROUP
-            + torch.arange(COLUMN_GROUP, device=device)).flatten()
+    cols = _group_columns(groups, table[0].device)
     depth = -1
     width = max(1, _PLAIN_BLOCK_ELEMS // max(p, 1))
     for c0 in range(0, cols.numel(), width):
         idx = cols[c0:c0 + width]
         sub = [f.index_select(1, idx) for f in table]
-        top = torch.ones(sub[0].shape, dtype=torch.bool, device=idx.device)
-        for k in table_keys(sub):
-            top &= k == torch.where(top, k, torch.iinfo(k.dtype).min).amax(0)
-        first = top.to(torch.int8).argmax(0, keepdim=True)
-        join = [f.gather(0, first) for f in sub]
+        join = column_join(sub)
         ends = None
         if not wrap:
             ends = ~packed_beats(join, [torch.zeros_like(j) for j in join])[0]
@@ -1087,6 +1104,162 @@ def gossip_columns_packed(table, seed, wrap: bool,
         if observe.recording():  # a pass over the seed: only for a trace
             sp.set(columns=n if seed is None else int(np.count_nonzero(seed)))
     return table, rounds, 0
+
+
+# ------------------------------------------- the column pass on a mesh
+
+# words a column's summary takes beside its join's nf: the runs of rows not
+# holding the join before the first holder and after the last (16 bits
+# each, one word), and the longest
+SUMMARY_RUN_WORDS = 2
+
+
+def _column_shard_checked(fields, groups: torch.Tensor, what: str) -> Tuple[int, int]:
+    """Raise unless a shard's CUDA ``fields`` and its device int32
+    ``groups`` are what the sharded column pass takes; returns (b, N)."""
+    b, n = _fields_checked(fields, what)
+    if not column_pass_fits(b, n, len(fields)):
+        raise ValueError(f"{what}: [{b}, {n}] at nf = {len(fields)} takes "
+                         f"{column_pass_smem(b, len(fields))} bytes of shared memory a block, "
+                         f"or n is not a multiple of {COLUMN_GROUP}")
+    if any(f.data_ptr() % 16 for f in fields):
+        raise ValueError(f"{what}: fields must be 16-byte aligned")
+    _build.check_fields([groups], groups.shape, fields[0].device, what)
+    return b, n
+
+
+def holder_runs(held: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(pre, suf, best) of each column of ``held`` (bool [R, C]): its rows'
+    runs that do not hold before the first holder, after the last, and the
+    longest; R each where the column holds nowhere."""
+    r = held.shape[0]
+    rows = torch.arange(r, device=held.device)[:, None]
+    somewhere = held.any(0)
+    pre = torch.where(somewhere, held.to(torch.int8).argmax(0), r)
+    suf = torch.where(somewhere, held.flip(0).to(torch.int8).argmax(0), r)
+    best = (rows - torch.where(held, rows, -1).cummax(0).values).amax(0)
+    return pre, suf, best
+
+
+def column_summaries_torch(fields, groups: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``column_summaries``."""
+    b, nf = fields[0].shape[0], len(fields)
+    cols = _group_columns(groups, fields[0].device)
+    flat = out.view(-1, nf + SUMMARY_RUN_WORDS)
+    width = max(1, _PLAIN_BLOCK_ELEMS // max(b, 1))
+    for c0 in range(0, cols.numel(), width):
+        sub = [f.index_select(1, cols[c0:c0 + width]) for f in fields]
+        join = column_join(sub)
+        pre, suf, best = holder_runs(torch.stack([f == j for f, j in zip(sub, join)]).all(0))
+        flat[c0:c0 + width] = torch.stack([*(j[0] for j in join), pre | (suf << 16), best], 1)
+    return out
+
+
+def column_summaries(fields, groups: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """Summarise each column of a shard's 16-column ``groups`` (int32 [G] on
+    its device) into ``out`` (int32 [G, 16, nf + 2], a column's words in
+    group order): its join over the shard's rows (nf words), then pre | suf
+    << 16 and best, the runs of rows that do not hold it (``holder_runs``).
+    The CUDA kernel (``csrc/converge_columns_shard.cu``) for CUDA tensors,
+    the plain version for CPU tensors. Returns ``out``."""
+    nf = len(fields)
+    if tuple(out.shape) != (groups.numel(), COLUMN_GROUP, nf + SUMMARY_RUN_WORDS):
+        raise ValueError(f"column_summaries: out of shape {tuple(out.shape)} for "
+                         f"{groups.numel()} groups at nf = {nf}")
+    if fields[0].device.type == "cpu":
+        return column_summaries_torch(fields, groups, out)
+    b, n = _column_shard_checked(fields, groups, "column_summaries")
+    _build.check_fields([out], out.shape, fields[0].device, "column_summaries")
+    if groups.numel():
+        lib = _build.library()
+        with torch.cuda.device(fields[0].device):
+            err = lib.bt_column_summaries(
+                _build.pointers(fields), groups.data_ptr(), groups.numel(), out.data_ptr(), b,
+                n, nf, _build.stream_of(fields[0].device))
+        _build.check(err, "column_summaries")
+        _build.LAUNCHES["column_summaries"] += 1
+    return out
+
+
+def _runs_join(a, b):
+    """The runs (len, pre, suf, best) of stretch a followed by stretch b."""
+    la, pa, sa, ba = a
+    lb, pb, sb, bb = b
+    return (la + lb, torch.where(pa == la, la + pb, pa), torch.where(sb == lb, lb + sa, sb),
+            torch.maximum(torch.maximum(ba, bb), sa + pb))
+
+
+def settle_columns_torch(fields, ids: torch.Tensor, sums: torch.Tensor,
+                         wrap: bool) -> torch.Tensor:
+    """Plain version of ``settle_columns``: every row takes its column's
+    join, whichever shard it is (the kernel only skips rewriting entries
+    with their own value)."""
+    b, nf = fields[0].shape[0], len(fields)
+    entries = sums.view(sums.shape[0], -1, nf + SUMMARY_RUN_WORDS).to(fields[0].device)
+    joins = [entries[:, :, f] for f in range(nf)]
+    join = column_join(joins)
+    ends = torch.zeros_like(join[0][0], dtype=torch.bool)
+    if not wrap:
+        ends = ~packed_beats(join, [torch.zeros_like(j) for j in join])[0]
+        join = [torch.where(ends, 0, j) for j in join]
+    holds = torch.stack([f == j for f, j in zip(joins, join)]).all(0)
+    runs = entries[:, :, nf]
+    pre = torch.where(holds, runs & 0xFFFF, b)
+    suf = torch.where(holds, (runs >> 16) & 0xFFFF, b)
+    best = torch.where(holds, entries[:, :, nf + 1], b)
+    length = torch.full_like(pre[0], b)
+    acc = (length, pre[0], suf[0], best[0])
+    for s in range(1, sums.shape[0]):
+        acc = _runs_join(acc, (length, pre[s], suf[s], best[s]))
+    _, pre, suf, best = acc
+    half = (best + 1) // 2
+    if wrap:
+        depth = torch.maximum(half, (pre + suf + 1) // 2)
+    else:
+        depth = torch.where(ends, half, torch.maximum(torch.maximum(pre, suf), half))
+    cols = _group_columns(ids[:-1], fields[0].device)
+    width = max(1, _PLAIN_BLOCK_ELEMS // max(b, 1))
+    for c0 in range(0, cols.numel(), width):
+        for f, j in zip(fields, join):
+            part = j[:, c0:c0 + width]
+            f.index_copy_(1, cols[c0:c0 + width], part.expand(b, -1).contiguous())
+    if depth.numel():
+        ids[-1] = torch.maximum(ids[-1], depth.max().to(ids.dtype))
+    return ids[-1]
+
+
+def settle_columns(fields, ids: torch.Tensor, sums: torch.Tensor, shard: int,
+                   wrap: bool) -> torch.Tensor:
+    """Settle a shard's columns of the 16-column groups ``ids[:-1]`` (int32 on
+    its device; ``ids[-1]`` a cell the caller zeroes) in place, from
+    ``sums``: every shard's ``column_summaries`` of those groups in shard
+    order, int32 [S, G, 16, nf + 2], and ``shard`` this shard's index
+    there. Each column's join over the shards (on a chain the all-zero
+    entry where the join is not above it) goes into every row; ``ids[-1]``
+    ends as the largest of its value and every column's depth over the
+    whole ring (wrap) or chain: a row's distance to the nearest row that
+    held the join (a chain's ends hold it where it is the all-zero entry).
+    The CUDA kernel (``csrc/converge_columns_shard.cu``) for CUDA tensors,
+    the plain version for CPU tensors. Returns ``ids[-1]``."""
+    nf, g = len(fields), ids.numel() - 1
+    if tuple(sums.shape[1:]) != (g, COLUMN_GROUP, nf + SUMMARY_RUN_WORDS) or not (
+            0 <= shard < sums.shape[0]):
+        raise ValueError(f"settle_columns: summaries of shape {tuple(sums.shape)} for "
+                         f"{g} groups at nf = {nf}, shard {shard}")
+    if fields[0].device.type == "cpu":
+        return settle_columns_torch(fields, ids, sums, wrap)
+    b, n = _column_shard_checked(fields, ids, "settle_columns")
+    _build.check_fields([sums], sums.shape, fields[0].device, "settle_columns")
+    if g:
+        lib = _build.library()
+        with torch.cuda.device(fields[0].device):
+            err = lib.bt_settle_columns(
+                _build.pointers(fields), ids.data_ptr(), g, sums.data_ptr(),
+                ids[-1:].data_ptr(), sums.shape[0], shard, b, n, int(wrap), nf,
+                _build.stream_of(fields[0].device))
+        _build.check(err, "settle_columns")
+        _build.LAUNCHES["settle_columns"] += 1
+    return ids[-1]
 
 
 # -------------------------------------------------------- the graph pass

@@ -36,6 +36,10 @@ mesh of processes.
   (``compact_counts.cu``) into the next step's ids array; the packed
   family also as m-round windows (``frontier_shard_window.cu``, its stats
   folded by ``compact_counts.cu``).
+* the column pass — an uncapped packed-family ring or chain converge: each
+  shard's summaries of its dirty columns (its join, its runs of rows that
+  do not hold it) gathered to every process by one disjoint sum, then each
+  shard's columns settled from them (``csrc/converge_columns_shard.cu``).
 * the packed ``fast_forward`` window — m rounds per exchange of m-row
   slabs, a window join per shard (``window_packed.cu``'s extended form;
   XLA code in the reference).
@@ -54,6 +58,10 @@ import torch
 
 from ..ops.merge import TableState, lean_fields, merge_lean, merge_tables
 from ..ops.packed import (
+    COLUMN_GROUP,
+    SUMMARY_RUN_WORDS,
+    column_groups,
+    column_summaries,
     compact_counts,
     compact_counts_window,
     frontier_loop,
@@ -62,8 +70,10 @@ from ..ops.packed import (
     merge_packed_torch,
     reconcile_packed,
     ring_window_shard_packed,
+    settle_columns,
 )
 from ..ops.ring_kernel import frontier_shard_round, frontier_tile_n
+from ..utils import observe
 from .gossip import lean_round_applies
 from .mesh import Mesh, ShardedTable, all_sum, as_mesh, disjoint_sum, transfer
 
@@ -545,6 +555,60 @@ def gossip_frontier_shardmap_packed(
         frontier_shard_round_packed, frontier_shard_window if window_fuse > 1 else None,
     )
     return table, rounds, last_changed
+
+
+def gossip_columns_shardmap_packed(
+    table: ShardedTable, seed, wrap: bool, groups: Optional[np.ndarray] = None,
+) -> Tuple[ShardedTable, int, int]:
+    """A packed-family ring's or chain's converge over a mesh to its fixed
+    point in one column pass a shard, in place, for a loop that no cap can
+    cut short (max_rounds above the diameter): the table, classic round
+    count and residual of ``gossip_frontier_shardmap_packed`` from the same
+    state, seeded with the stripes that hold ``seed``'s columns (bool [n]
+    on the host, the same on every process; None = every column; ``groups``
+    their 16-column groups' ascending ids, ``column_groups(seed, n)``).
+    Every shard summarises its rows of the groups' columns
+    (``column_summaries``) into its row of one zeroed [S, G, 16, nf + 2]
+    buffer on mesh.home; the rows are summed over the processes (they are
+    disjoint), so every process holds every shard's summaries; every shard
+    then settles its rows from them (``settle_columns``) and every process
+    reads the same depth. Returns (table, rounds, 0). The span ``loop``
+    counts its ``steps`` (launches), ``stripe_steps`` (0), ``waits`` (the
+    depth's read back, ``loop.wait``) and the dirty ``columns`` it
+    settled."""
+    mesh = table.mesh
+    n, nf = table.shape[1], len(table.first)
+    groups = column_groups(seed, n) if groups is None else groups.astype(np.int32)
+    with observe.span("loop") as sp:
+        rounds = 0
+        if groups.size:
+            # on each device the groups, then the depth's cell (zero) after them
+            ids = {dev: torch.from_numpy(np.append(groups, np.int32(0))).to(dev)
+                   for dev in dict.fromkeys(mesh[i] for i in mesh.local)}
+            sums = torch.zeros((len(mesh), groups.size, COLUMN_GROUP, nf + SUMMARY_RUN_WORDS),
+                               dtype=torch.int32, device=mesh.home)
+            for i in mesh.local:
+                dev = mesh[i]
+                if dev == mesh.home:
+                    column_summaries(table.shards[i], ids[dev][:-1], sums[i])
+                else:  # a card of this process besides home
+                    sums[i] = column_summaries(table.shards[i], ids[dev][:-1],
+                                               torch.empty_like(sums[i], device=dev)).to(mesh.home)
+            all_sum(mesh, sums)
+            on = {mesh.home: sums}
+            for i in mesh.local:
+                dev = mesh[i]
+                if dev not in on:
+                    on[dev] = sums.to(dev)
+                settle_columns(table.shards[i], ids[dev], on[dev], i, wrap)
+            with observe.span("loop.wait"):
+                rounds = int(ids[mesh.home][-1]) + 1
+        launched = table.first[0].is_cuda and rounds > 0
+        sp.set(steps=2 * len(mesh.local) if launched else 0, stripe_steps=0,
+               waits=int(rounds > 0))
+        if observe.recording():  # a pass over the seed: only for a trace
+            sp.set(columns=n if seed is None else int(np.count_nonzero(seed)))
+    return table, rounds, 0
 
 
 def reconcile_shardmap_packed(table: ShardedTable) -> ShardedTable:

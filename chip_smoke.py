@@ -53,8 +53,13 @@ Phases, in order; any failure raises and exits nonzero:
    all-at-m, timed at S = 4 as the count fold is; the window
    join's shard form (the spmd fast_forward's) at nf = 3, 2, 1 on shards
    of 1 to 17 rows, one past a launch's rows and one 256 x 2^20 shard at
-   the spmd passes m = 256 and 224 (random, zeroed and mixed slabs); small
-   packed, rank and rank1 sims on 4 shards on the card against the CPU;
+   the spmd passes m = 256 and 224 (random, zeroed and mixed slabs); the
+   mesh's column pass (column_summaries, settle_columns) on 4 row slices
+   of one table against their plain versions and the one-card pass, on
+   rings and chains of 4, 68 and 1024 rows and at 4 x 256 x 2^20 on a
+   scatter batch's dirty columns, timed on both clocks with their bytes;
+   small packed, rank and rank1 sims on 4 shards on the card against the
+   CPU;
 4. dense main path: a dense ring PeerNetworkSim at P x N (default
    1024 x 2^18): put_bulk + scalar puts, step, run_until_converged,
    tables_equal, the converged row against an independent numpy lexmax,
@@ -100,11 +105,12 @@ Phases, in order; any failure raises and exits nonzero:
 9. the packed family on a mesh: 4 shards of P x N (default 1024 x 2^20)
    on the one card, each sim against an unsharded twin given the same
    ops. Packed (12.9 GB + the twin): step(1) (the per-shard apply and ring
-   round), run_until_converged on packed-frontier-spmd (windows of 63
-   rounds per exchange) against packed-frontier-local, a 2^16 batch cut
-   off at 70 rounds (one window and a 7-round tail), converged(),
-   reconcile and reads, then, untimed, one more cutoff converge with its
-   launches per mesh step counted. Rank1 (4.3 GB): a converge on the window route, a
+   round), run_until_converged on packed-frontier-spmd (one column pass a
+   shard) against packed-frontier-local, a 2^16 batch cut off at 70
+   rounds (one window of 63 rounds per exchange and a 7-round tail),
+   converged(), reconcile and reads, then, untimed, one more cutoff
+   converge with its launches per mesh step counted. Rank1 (4.3 GB): a
+   converge by the column pass a shard, a
    restored copy converged by gossip_frontier_shardmap_packed with
    fuse=HALO_FUSE, and fast_forward(480) (the spmd route: the window
    join's shard form, two passes) against
@@ -164,9 +170,10 @@ Phases, in order; any failure raises and exits nonzero:
    gloo process group and owning two of four shards on cuda:0 (NCCL
    refuses two processes on one card). In each, beside unsharded twins
    given the same ops: the packed P x N (default 1024 x 2^20) ring's
-   step(1), converge on packed-frontier-spmd (windows of 63 rounds, their
-   slabs sent between the processes through pinned host memory), a 2^16
-   batch cut off at 70 rounds, converged(), reconcile and reads at peers
+   step(1), converge on packed-frontier-spmd (one column pass a shard,
+   the shards' summaries summed between the processes through pinned host
+   memory), a 2^16 batch cut off at 70 rounds (windows of 63 rounds, their
+   slabs sent between the processes), converged(), reconcile and reads at peers
    of both processes; rank1's spmd fast_forward(480) against step(480),
    then a HALO_FUSE converge; the dense lww 1024 x 2^18 ring's step(1),
    converge on dense-frontier-spmd and a cutoff. Each process holds its
@@ -286,6 +293,11 @@ KERNELS = {
     # the port's own: an uncapped converge's dirty columns in one pass, where
     # the reference runs its frontier loop (bullet_tpu/ops/packed.py:2161)
     "converge_columns": ("bullet_tpu_torch/csrc/converge_columns.cu", "none"),
+    # the port's own: an uncapped mesh converge's dirty columns in one pass a
+    # shard about one gather, where the reference runs its window frontier
+    # (bullet_tpu/ops/packed.py:2808, #25)
+    "column_summaries": ("bullet_tpu_torch/csrc/converge_columns_shard.cu", "none"),
+    "settle_columns": ("bullet_tpu_torch/csrc/converge_columns_shard.cu", "none"),
     # the port's own: any topology's rounds on the dirty columns in one
     # pass, where the reference runs its whole-table round loop
     # (bullet_tpu/ops/packed.py:917)
@@ -304,10 +316,13 @@ LEAN_KERNELS = ("ring_round_lean", "frontier_round_dense", "merge")
 SHARD_KERNELS = ("frontier_shard", "frontier_shard fused", "compact_counts",
                  "compact_counts fused")
 # phase 9 drives the packed family's per-shard kernels: the packed sim the
-# ring round (m = 1), the window and its fold; the rank1 copy the fused
-# frontier (m = 8), the rank1 spmd fast_forward the window join's shard form
+# ring round (m = 1), the column pass a shard (its uncapped converge), the
+# window and its fold (the cutoff); the rank1 sim the column pass, its copy
+# the fused frontier (m = 8), the rank1 spmd fast_forward the window join's
+# shard form
 MESH_PACKED_KERNELS = ("frontier_shard packed", "frontier_shard packed fused",
-                       "frontier_shard_window", "compact_counts window", "window_shard")
+                       "frontier_shard_window", "compact_counts window", "window_shard",
+                       "column_summaries", "settle_columns")
 # phases 8 and 9's mesh: this many shards, all on the one card
 SHARDS = 4
 
@@ -1183,6 +1198,101 @@ def check_converge_columns(dev, main_shape, errs, times, nf):
     log(f"  converge_columns [{LAYOUT_OF[nf]}] {p}x{n}, ring: {'; '.join(report)}; "
         f"bit-identical to its plain version and the frontier loop, and at "
         f"{len(COLUMN_SHAPES)} shapes, rings and chains, seeds all, none, one, sparse")
+
+
+# P x N of the mesh column pass's checks, four shards each: one row a
+# shard, 17-row shards (ragged 32-row words), and phase 9's shard
+SHARD_COLUMN_SHAPES = ((4, 64), (68, 512), (1024, 256))
+
+
+def check_columns_shard(dev, main_shape, errs, times, nf):
+    """The mesh's column pass (``column_summaries``, the gather as a plain
+    stack of the shards' summaries, ``settle_columns``) on ``SHARDS`` row
+    slices of one table: each kernel against its plain version, and the
+    settled table and round count against the one-card pass
+    (``converge_columns_packed``, held against the frontier loop by
+    ``check_converge_columns``), on rings and chains."""
+    from bullet_tpu_torch.ops import packed as pk
+
+    def shards(table):
+        b = table[0].shape[0] // SHARDS
+        return [type(table)(*(f[i * b:(i + 1) * b] for f in table)) for i in range(SHARDS)]
+
+    def summaries(table, ids, plain=False):
+        n_groups = ids.numel() - 1
+        out = torch.zeros((SHARDS, n_groups, pk.COLUMN_GROUP, nf + pk.SUMMARY_RUN_WORDS),
+                          dtype=torch.int32, device=dev)
+        fn = pk.column_summaries_torch if plain else pk.column_summaries
+        for i, shard in enumerate(shards(table)):
+            fn(shard, ids[:-1], out[i])
+        return out
+
+    def pair(table, dirty, wrap, what):
+        n = table[0].shape[1]
+        groups = pk.column_groups(dirty, n)
+        if groups.size == 0:
+            return
+        ids = torch.from_numpy(np.append(groups, np.int32(0))).to(dev)
+        twin, one = clone(table), clone(table)
+        sums = summaries(table, ids)
+        _pair("column_summaries", errs, sums, summaries(table, ids, plain=True),
+              f"nf={nf} {what}")
+        cells = [ids.clone() for _ in range(2)]
+        for i, (mine, theirs) in enumerate(zip(shards(table), shards(twin))):
+            pk.settle_columns(mine, cells[0], sums, i, wrap)
+            pk.settle_columns_torch(theirs, cells[1], sums, wrap)
+        _, depth = pk.converge_columns_packed(one, dirty, wrap)
+        _pair("settle_columns", errs, (*table, cells[0][-1:].cpu()),
+              (*twin, cells[1][-1:].cpu()), f"nf={nf} {what}")
+        _pair("settle_columns", errs, (*table, cells[0][-1:].cpu()), (*one, depth[None].cpu()),
+              f"nf={nf} {what} against the one-card pass")
+
+    rng = np.random.default_rng(40 + nf)
+    for p, n in SHARD_COLUMN_SHAPES:
+        for kind, wrap in itertools.product(("all", "one", "sparse"), (True, False)):
+            dirty = column_seed(rng, n, kind)
+            pair(dirtied(nf, 800 + p, p, n, dirty, wrap, dev, win=kind == "one"), dirty, wrap,
+                 f"{p}x{n} wrap={wrap} seed={kind}")
+        torch.cuda.empty_cache()
+    p, n = main_shape
+    b = p // SHARDS
+    dirty = column_seed(rng, n, "scatter")
+    table = dirtied(nf, 41, p, n, dirty, True, dev, win=True)
+    pair(table, dirty, True, f"{p}x{n} scatter")
+    table = dirtied(nf, 41, p, n, dirty, True, dev, win=True)
+    groups = pk.column_groups(dirty, n)
+    ids = torch.from_numpy(np.append(groups, np.int32(0))).to(dev)
+    sums = summaries(table, ids)
+    shard = shards(table)[1]
+    read = groups.size * b * 4 * pk.COLUMN_GROUP * nf
+    ms = timed_once(lambda: pk.column_summaries(shard, ids[:-1], sums[1]))[1]
+    dev_ms = device_once(lambda: pk.column_summaries(shard, ids[:-1], sums[1]))[1]
+    plain = timed_once(lambda: pk.column_summaries_torch(shard, ids[:-1], sums[1]))[1]
+    times[tag("column_summaries", nf)] = (ms, plain, bound(read, 0), None,
+                                         {"device_ms": dev_ms, "bytes": read,
+                                          "groups": int(groups.size)})
+    # the halves that a shard's settle writes: every 32-byte half of a group
+    # whose column's join some row of the shard does not hold
+    before = clone(shard)
+    ms = timed_once(lambda: pk.settle_columns(shard, ids.clone(), sums, 1, True))[1]
+    changed = None
+    for x, y in zip(before, shard):
+        d = (x != y).view(b, -1, 8).any(0)
+        changed = d if changed is None else changed | d
+    wrote = int(changed.sum()) * b * 32 * nf
+    dev_ms = device_once(lambda: pk.settle_columns(shard, ids.clone(), sums, 1, True))[1]
+    plain = timed_once(lambda: pk.settle_columns_torch(shard, ids.clone(), sums, True))[1]
+    times[tag("settle_columns", nf)] = (ms, plain, bound(wrote, 0), None,
+                                       {"device_ms": dev_ms, "bytes": wrote,
+                                        "groups": int(groups.size)})
+    log(f"  column_summaries, settle_columns [{LAYOUT_OF[nf]}] {SHARDS} shards of {b}x{n}, "
+        f"scatter ({groups.size} groups): summaries {times[tag('column_summaries', nf)][0]:.3f} "
+        f"ms, device alone {times[tag('column_summaries', nf)][4]['device_ms']:.3f} ms, "
+        f"{read / 1e9:.3f} GB read; settle {ms:.3f} ms, device alone {dev_ms:.3f} ms, "
+        f"{wrote / 1e9:.3f} GB written; bit-identical to their plain versions and the tables "
+        f"and depth to the one-card pass at {len(SHARD_COLUMN_SHAPES)} shapes")
+    del table, before, sums
+    torch.cuda.empty_cache()
 
 
 # the bridge deployment: bullet-js's bridge example at 1,024 peers
@@ -2906,7 +3016,7 @@ def sharded_packed_path(args, dev, window=wall_window, card=""):
         if got != want or not sharded_equal(sim.table, twin.table):
             raise AssertionError(f"phase 9 {what}: {got} against the twin's {want}")
 
-    # packed: the window route against the unsharded frontier
+    # packed: the column pass a shard against the unsharded one
     sim, twin = build("packed", True), build("packed", False)
     peers = rng.integers(0, p, args.packed_ops).astype(np.int32)
     leaves = rng.integers(0, n_leaf, args.packed_ops)
@@ -2928,16 +3038,17 @@ def sharded_packed_path(args, dev, window=wall_window, card=""):
         twin_rounds = twin.run_until_converged()
     equal("packed converge", sim, twin, (rounds, sim.last_residual),
           (twin_rounds, twin.last_residual))
-    if (sim.last_residual != 0 or not _build.LAUNCHES["frontier_shard_window"]
-            or not _build.LAUNCHES["compact_counts window"]):
-        raise AssertionError("phase 9 packed: not converged on the window route")
-    steps = _build.LAUNCHES["compact_counts window"]
+    if (sim.last_residual != 0 or not _build.LAUNCHES["column_summaries"]
+            or not _build.LAUNCHES["settle_columns"]
+            or _build.LAUNCHES["frontier_shard_window"]):
+        raise AssertionError("phase 9 packed: not converged by the column pass")
+    steps = _build.LAUNCHES["settle_columns"]
     n_written = check_leaf_values(sim, batches, slots[sim], rng, "phase 9 packed")
     log(f"  packed ({SHARDS} shards of {p // SHARDS} x {n} on one card, {12 * p * n / 1e9:.1f} GB"
         " + the twin): "
         f"step(1) residual {r_sim} in {secs['mesh packed step(1)']:.3f} s (twin "
         f"{secs['twin packed step(1)']:.3f} s); run_until_converged [{routes[0]}] {rounds} "
-        f"rounds in {secs['mesh packed run_until_converged']:.3f} s, {steps} window steps "
+        f"rounds in {secs['mesh packed run_until_converged']:.3f} s, {steps} column passes "
         f"(twin [{routes[1]}] {secs['twin packed run_until_converged']:.3f} s); every field, "
         f"rounds and residual == the twin; {n_written} leaves == numpy per-leaf max")
     # a hot-range batch cut off at 70 rounds: one window of 63, a tail of 7
@@ -2980,8 +3091,8 @@ def sharded_packed_path(args, dev, window=wall_window, card=""):
     del sim, twin
     torch.cuda.empty_cache()
 
-    # rank1: the window route, the fused (HALO_FUSE) route on a restored
-    # copy, and the spmd fast_forward against step on the twin
+    # rank1: the column pass a shard, the fused (HALO_FUSE) route on a
+    # restored copy, and the spmd fast_forward against step on the twin
     sim, copy, twin = build("rank1", True), build("rank1", True), build("rank1", False)
     peers = rng.integers(0, p, args.rank1_ops).astype(np.int32)
     leaves = rng.integers(0, n_leaf, args.rank1_ops)
@@ -3049,9 +3160,9 @@ CATEGORIES = ("electronics", "accessories", "furniture", "books")
 ENTRY_BYTES = {"dense": 28, "packed": 12, "rank1": 4}
 # the kernels phase 10 runs before it queries: the dense sim's step(1) and
 # converge, the packed and rank1 sims' apply, step(1) and converge (the
-# column pass), the mesh's windowed converge and its fold
+# column pass), the mesh's converge (the column pass a shard)
 QUERY_PATH_KERNELS = ("ring_round", "frontier_round_dense", "apply_packed", "packed_round",
-                      "converge_columns", "frontier_shard_window", "compact_counts window")
+                      "converge_columns", "column_summaries", "settle_columns")
 
 
 def query_batches(rng, p: int, n: int):
@@ -3280,14 +3391,14 @@ USER_ROLES = ("admin", "user", "editor")
 # phase 11's traced transform caps the prices here
 PRICE_CAP = 1000.0
 # the kernels each phase 11 sim drives: its apply, step(1), converge (the
-# packed family's: the column pass) and reconcile (the dense apply is plain
-# PyTorch)
+# packed family's: the column pass, a shard's on the mesh) and reconcile
+# (the dense apply is plain PyTorch)
 INGRESS_KERNELS = {
     "packed": ("apply_packed", "packed_round", "converge_columns", "reconcile_packed"),
     "rank1": ("apply_packed", "packed_round", "converge_columns", "reconcile_packed"),
     "dense": ("ring_round", "frontier_round_dense", "merge"),
-    "mesh": ("apply_packed", "frontier_shard packed", "frontier_shard_window",
-             "compact_counts window", "reconcile_packed"),
+    "mesh": ("apply_packed", "frontier_shard packed", "column_summaries", "settle_columns",
+             "reconcile_packed"),
 }
 
 
@@ -3787,8 +3898,9 @@ SERVING_KERNELS = ("apply_packed", "converge_columns", "packed_round",
 # the port's kernels in a device trace, by the names of their __global__
 # functions (csrc/*.cu)
 PORT_KERNEL_NAMES = (
-    "apply_packed_kernel", "compact_counts_kernel", "compact_counts_window_kernel",
-    "converge_columns_kernel", "frontier_compact_kernel", "frontier_pipe_kernel",
+    "apply_packed_kernel", "column_summaries_kernel", "compact_counts_kernel",
+    "compact_counts_window_kernel", "converge_columns_kernel", "frontier_compact_kernel",
+    "frontier_pipe_kernel", "settle_columns_kernel",
     "frontier_round_kernel", "frontier_shard_kernel", "frontier_shard_window_kernel", "merge_kernel",
     "packed_round_kernel", "reconcile_packed_kernel", "ring_round_kernel", "shard_pipe_kernel",
     "shard_sweep_kernel", "window_kernel",
@@ -4134,16 +4246,18 @@ def serving_path(args, dev, card: str) -> dict:
 # processes on one card)
 MESH_PROCESSES = 2
 # the kernels every process of phase 13 (a) must launch on its mesh sims:
-# the packed sim's apply, ring step, windows, the folds and reconcile;
-# rank1's spmd jump and its HALO_FUSE converge; the dense sim's per-shard
-# frontier at m = 1 and 8
-PROCESS_KERNELS = ("apply_packed", "frontier_shard packed", "frontier_shard_window",
-                   "compact_counts window", "compact_counts", "reconcile_packed",
-                   "window_shard", "frontier_shard packed fused", "compact_counts fused",
-                   "frontier_shard", "frontier_shard fused")
+# the packed sim's apply, ring step, column pass (its converge), windows
+# (its cutoff), the folds and reconcile; rank1's spmd jump and its HALO_FUSE
+# converge; the dense sim's per-shard frontier at m = 1 and 8
+PROCESS_KERNELS = ("apply_packed", "frontier_shard packed", "column_summaries",
+                   "settle_columns", "frontier_shard_window", "compact_counts window",
+                   "compact_counts", "reconcile_packed", "window_shard",
+                   "frontier_shard packed fused", "compact_counts fused", "frontier_shard",
+                   "frontier_shard fused")
 # and the one NCCL process of phase 13 (b): the packed sim's path
-NCCL_KERNELS = ("apply_packed", "frontier_shard packed", "frontier_shard_window",
-                "compact_counts window", "compact_counts", "reconcile_packed")
+NCCL_KERNELS = ("apply_packed", "frontier_shard packed", "column_summaries", "settle_columns",
+                "frontier_shard_window", "compact_counts window", "compact_counts",
+                "reconcile_packed")
 # the sizes a phase 13 process is given, as the script was
 SIZE_ARGS = ("seed", "peers", "capacity", "ops", "packed_capacity", "packed_ops",
              "rank1_capacity", "rank1_ops", "lean_capacity", "lean_ops")
@@ -4170,7 +4284,7 @@ class ExchangeClock:
 
     TIMED_KERNELS = ("frontier_shard_round", "frontier_shard_round_packed",
                      "frontier_shard_window", "ring_window_shard_packed", "compact_counts",
-                     "compact_counts_window")
+                     "compact_counts_window", "column_summaries", "settle_columns")
 
     def __init__(self):
         from bullet_tpu_torch.parallel import shardmap_gossip as sg
@@ -4335,7 +4449,7 @@ def process_mesh_path(args, rank: int, world: int, backend: str, coordinator: st
         return c
 
     _build.reset_launches()
-    # packed: step(1), the window converge, a cutoff, converged(), reconcile, reads
+    # packed: step(1), the converge, a cutoff, converged(), reconcile, reads
     sim, twin = build("packed", True), build("packed", False)
     peers = rng.integers(0, p, args.packed_ops).astype(np.int32)
     leaves = rng.integers(0, n_leaf, args.packed_ops)
@@ -4762,6 +4876,8 @@ def main() -> int:
     for nf in (3, 2, 1):
         check_window_shard(dev, (args.peers // SHARDS, args.packed_capacity), errs, times, nf)
         torch.cuda.empty_cache()
+    for nf in (3, 2, 1):
+        check_columns_shard(dev, packed_shape, errs, times, nf)
     check_small_packed_mesh_sims(dev)
     torch.cuda.empty_cache()
 

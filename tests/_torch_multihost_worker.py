@@ -9,7 +9,8 @@ inputs and writes them, with the expected results, to CASES.npz and
 CASES.json; this worker imports torch and the port only. It runs
 
 * the six families of tests/_multihost_worker.py through the port's
-  sharded functions over the process mesh: each local shard against the
+  sharded functions over the process mesh, and the column pass that an
+  uncapped mesh converge takes on the card: each local shard against the
   reference's unsharded result, bit for bit, with its counts;
 * the seeded op sequences of ``CELLS`` (``ops_for``, shared with the
   pytest process) on port sims over the process mesh: after every op the
@@ -134,13 +135,15 @@ def _check_local(table, want, what, bad):
 
 
 def families(cases, mesh, results):
-    """The six families of tests/_multihost_worker.py through the port."""
+    """The six families of tests/_multihost_worker.py through the port, and
+    the column pass against the reference's frontier."""
     import torch
 
     from bullet_tpu_torch.convert import TABLE_TYPES
     from bullet_tpu_torch.parallel.mesh import shard_fields
     from bullet_tpu_torch.parallel.shardmap_gossip import (
         HALO_FUSE,
+        gossip_columns_shardmap_packed,
         gossip_frontier_shardmap_dense,
         gossip_frontier_shardmap_packed,
         reconcile_shardmap_packed,
@@ -177,6 +180,17 @@ def families(cases, mesh, results):
             if (rounds, changed) != want:
                 bad.append(f"rounds, changed {(rounds, changed)} != {want}")
             _check_local(t, cases[f"{key}_frontier"], f"frontier {kw}", bad)
+        return go
+
+    def columns(key, layout):
+        def go(bad):
+            # every column dirty: the all-gather of the summaries crosses
+            # the process boundary, as the window's slabs do
+            t, rounds, changed = gossip_columns_shardmap_packed(table(key, layout), None, True)
+            want = (int(cases[f"{key}_rounds"]), 0)
+            if (rounds, changed) != want:
+                bad.append(f"rounds, changed {(rounds, changed)} != {want}")
+            _check_local(t, cases[f"{key}_frontier"], "column pass", bad)
         return go
 
     def reconcile(key, layout):
@@ -218,6 +232,9 @@ def families(cases, mesh, results):
     run("rank1 frontier", frontier("rank1", "rank1"))
     run("rank1 reconcile", reconcile("rank1", "rank1"))
     run("rank1 ring_window m 3 and 8", windows)
+    run("packed column pass", columns("packed", "packed"))
+    run("rank column pass", columns("rank", "rank"))
+    run("rank1 column pass", columns("rank1", "rank1"))
 
 
 def sims(cases, expected, mesh, results):

@@ -8,8 +8,10 @@ the workers import no JAX.
   packed frontier loop at fuse 1, the packed reconcile, the packed window
   frontier at window_fuse = 5, the dense frontier at HALO_FUSE, the rank
   and rank1 frontier and reconcile, ring_window_shardmap_packed at m = 3
-  and 8): each process's shards against the reference's unsharded result,
-  with round counts, changed counts and residuals;
+  and 8), and the column pass of an uncapped converge (packed, rank,
+  rank1, every column dirty): each process's shards against the
+  reference's unsharded result, with round counts, changed counts and
+  residuals;
 * a seeded op sequence (puts, put_bulk, step, fast_forward,
   run_until_converged with and without a cutoff, converged(), reconcile,
   get and get_bulk at peers of both processes, a count query) on dense
@@ -48,6 +50,7 @@ FAMILIES = (
     "dense ring_round_shardmap", "packed frontier fuse 1", "packed reconcile",
     "packed window frontier m 5", "dense frontier HALO_FUSE", "rank frontier",
     "rank reconcile", "rank1 frontier", "rank1 reconcile", "rank1 ring_window m 3 and 8",
+    "packed column pass", "rank column pass", "rank1 column pass",
 )
 
 
