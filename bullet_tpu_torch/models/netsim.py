@@ -110,6 +110,7 @@ from ..parallel.shardmap_gossip import (
 from ..utils import observe
 from ..utils.encode import CLS_ABSENT, CLS_NUMBER, VID_NULL, number_key
 from .ingress import EngineHooks, EngineValidation, invalid_op_mask, traced_pipeline, veto_ops
+from .marks import ColumnMarks
 from .table import MISSING, GraphHost, flatten_value
 
 TopologyLike = Union[str, dict, topo.Topology]
@@ -463,24 +464,11 @@ class PeerNetworkSim:
         # schema validation, both zero-cost until something registers
         self.validation = EngineValidation(self)
         self.hooks = EngineHooks(self)
-        # frontier bookkeeping (ring/chain): per-column dirty flags [N]
-        # known only between a completed convergence and the next untracked
-        # mutation; None = unknown -> start all-dirty. The stripe loops'
-        # seeds are derived from it (_frontier_seed), the column pass takes
-        # it as it is
-        self._frontier_dirty: Optional[np.ndarray] = None
-        # the same marks by the column pass's 16-column group, kept beside
-        # the columns so that a converge need not reduce them; read only
-        # while _frontier_dirty is valid
-        self._frontier_groups: Optional[np.ndarray] = None
+        # the columns the next converge must pass (models/marks.py)
+        self._marks = ColumnMarks(lambda: (self._shape()[1], self._frontier_tile()))
         # (topology, the graph pass's reading of its neighbour matrix),
         # built on its first use (_graph_plan)
         self._graph_plan_of: Optional[Tuple[topo.Topology, pk.GraphPlan]] = None
-        # the topology the marks last found every column settled under: the
-        # graph pass passes every column after the topology changed (a
-        # partition healed), since a column settled under another topology
-        # need not be settled under this one
-        self._settled_under: Optional[topo.Topology] = None
         self.stats = {
             "ops_enqueued": 0,
             "ops_applied": 0,
@@ -849,7 +837,7 @@ class PeerNetworkSim:
         new_cap = self.capacity
         while new_cap < needed:
             new_cap *= 2
-        self._frontier_dirty = None  # column count changes with capacity
+        self._marks.forget()  # column count changes with capacity
         if isinstance(self.table, ShardedTable):
             self.table = self.table.map(lambda t: _grown(t, new_cap))  # each shard
         else:
@@ -936,16 +924,6 @@ class PeerNetworkSim:
         with observe.span("apply.respread.regather"):
             self.table = self._per_shard(lambda t: regather(t, *on[t[0].device]))
 
-    def _mark_dirty(self, slots: np.ndarray) -> None:
-        """Frontier bookkeeping: the columns ``slots`` need work."""
-        if self._frontier_dirty is None:
-            return
-        if self._frontier_tile() and len(self._frontier_dirty) == self._shape()[1]:
-            self._frontier_dirty[slots] = True
-            self._frontier_groups[slots // pk.COLUMN_GROUP] = True
-        else:
-            self._frontier_dirty = None
-
     def _apply_pending(self) -> int:
         """Drain + apply, layout-dispatched; returns the applied count. An
         apply that drained ops is the span ``apply``."""
@@ -961,9 +939,9 @@ class PeerNetworkSim:
     def _apply_dense(self, drained: List[np.ndarray]) -> int:
         """Apply the drained dense [P, B] op fields."""
         if self.hooks._traced_put:
-            self._frontier_dirty = None  # transforms may move slots
+            self._marks.forget()  # transforms may move slots
         else:
-            self._mark_dirty(drained[0])
+            self._marks.mark(drained[0])
         ingressed = None
         if self.hooks._traced_put or self.validation.active:
             # ingress sees the whole batch on the sim's device (a mesh's
@@ -1036,7 +1014,7 @@ class PeerNetworkSim:
                 reduced = pk.reduce_flat_ops(*flat)
             if reduced is None:
                 return 0
-            self._mark_dirty(reduced[1])
+            self._marks.mark(reduced[1])
             ops = np.stack(reduced)
         if isinstance(self.table, ShardedTable):
             # the winners are sorted by peer: each shard's are one run; the
@@ -1185,7 +1163,7 @@ class PeerNetworkSim:
                 self.stats["gossip_rounds"] += rounds
                 self.stats["merged_entries"] += sum(counts)
             elif rounds:
-                self._frontier_dirty = None  # untracked gossip advances columns
+                self._marks.forget()  # untracked gossip advances columns
                 for _ in range(rounds):
                     self.table, changed = self._round(self.table)
                     residual = int(changed)
@@ -1213,7 +1191,7 @@ class PeerNetworkSim:
             return "step"
         if self.mesh is not None:
             return "spmd"
-        if self._card_routes() and self.layout == "packed" and self._frontier_tracking_valid():
+        if self._card_routes() and self.layout == "packed" and self._marks.columns() is not None:
             return "frontier"
         return "window"
 
@@ -1250,18 +1228,16 @@ class PeerNetworkSim:
         # re-resolve: the apply refreshed the dirty-column tracking
         route = self._fast_forward_route()
         wrap = self.topology.kind == "ring"
-        p, n = self._shape()
+        p = self._shape()[0]
         if route == "frontier":
-            tile_n = self._frontier_tile()
-            t_total = n // tile_n
             self.table, rounds_exec, last_changed = pk.gossip_frontier_packed(
-                self.table, self._frontier_seed(t_total), wrap, rounds,
-                fuse=pk.STRIPE_FUSE, tile_n=tile_n,
+                self.table, self._marks.seed(self.device), wrap, rounds,
+                fuse=pk.STRIPE_FUSE, tile_n=self._frontier_tile(),
             )
-            self._finish_frontier(rounds_exec, last_changed, rounds)
+            self._marks.finish(rounds_exec, last_changed, rounds, self.topology)
             residual = int(last_changed)
         else:
-            self._frontier_dirty = None  # untracked gossip advances columns
+            self._marks.forget()  # untracked gossip advances columns
             left, residual = rounds, 0
             while left:
                 if route == "spmd":
@@ -1274,7 +1250,7 @@ class PeerNetworkSim:
                 residual = int(changed)
                 if residual == 0:
                     # fixed point: the table is settled until new ops land
-                    self._frontier_settled()
+                    self._marks.settle(self.topology)
                     break
         self.stats["gossip_rounds"] += rounds
         self.stats["windowed_rounds"] += rounds
@@ -1330,42 +1306,6 @@ class PeerNetworkSim:
         tables, round counts and residuals are the same."""
         return self.device.type == "cuda"
 
-    def _frontier_tracking_valid(self) -> bool:
-        """True when the dirty-column tracking is live for the current
-        shape: a fast_forward jump is then not blind."""
-        d = self._frontier_dirty
-        return d is not None and self._frontier_tile() > 0 and len(d) == self._shape()[1]
-
-    def _frontier_columns(self) -> Optional[np.ndarray]:
-        """The tracked dirty columns when valid, else None (all dirty)."""
-        return self._frontier_dirty if self._frontier_tracking_valid() else None
-
-    def _frontier_seed(self, t_total: int) -> torch.Tensor:
-        """Dirty-stripe seed for a frontier loop: the stripes that hold a
-        tracked dirty column when the tracking is valid (only stripes
-        touched since the last completed convergence need work), else
-        all-dirty."""
-        cols = self._frontier_columns()
-        if cols is None:
-            return torch.ones(t_total, dtype=torch.bool, device=self.device)
-        # 8 columns a word: a stripe (a multiple of 32 columns) is whole words
-        stripes = cols.view(np.uint64).reshape(t_total, -1).any(1)
-        return torch.from_numpy(stripes).to(self.device)
-
-    def _frontier_settled(self) -> None:
-        """A true fixed point: every column is settled until new ops land."""
-        if self._frontier_tile():
-            n = self._shape()[1]
-            self._frontier_dirty = np.zeros(n, dtype=bool)
-            self._frontier_groups = np.zeros(n // pk.COLUMN_GROUP, dtype=bool)
-            self._settled_under = self.topology
-
-    def _finish_frontier(self, rounds, final_changed, max_rounds):
-        if rounds < max_rounds or final_changed == 0:
-            self._frontier_settled()
-        else:
-            self._frontier_dirty = None  # cutoff: tracking is stale
-
     def _finish_converge(self, rounds, final_changed) -> int:
         with observe.span("converge.finish"):
             rounds = int(rounds)
@@ -1392,12 +1332,6 @@ class PeerNetworkSim:
         return (self._card_routes() and max_rounds > max(self.topology.diameter, 1)
                 and pk.column_pass_fits(rows, n, nf))
 
-    def _column_pass_groups(self) -> Tuple[Optional[np.ndarray], Optional[np.ndarray]]:
-        """(dirty columns, their 16-column groups' ids) for the column
-        pass, or (None, None) where the tracking is stale (every column)."""
-        cols = self._frontier_columns()
-        return cols, None if cols is None else np.flatnonzero(self._frontier_groups)
-
     def _converge_frontier_local(self, max_rounds: int) -> int:
         """Packed-family convergence of a ring or chain. On the card an
         uncapped converge settles the dirty columns in one column pass (the
@@ -1407,18 +1341,15 @@ class PeerNetworkSim:
         CPU the frontier loop's plain version runs unfused."""
         wrap = self.topology.kind == "ring"
         if self._column_pass_applies(max_rounds):
-            cols, groups = self._column_pass_groups()
             self.table, rounds, final_changed = pk.gossip_columns_packed(
-                self.table, cols, wrap, groups)
+                self.table, self._marks.columns(), wrap, self._marks.groups())
         else:
-            tile_n = self._frontier_tile()
-            t_total = self.table[0].shape[1] // tile_n
             fuse = pk.STRIPE_FUSE if self._card_routes() else 1
             self.table, rounds, final_changed = pk.gossip_frontier_packed(
-                self.table, self._frontier_seed(t_total), wrap, max_rounds, fuse=fuse,
-                tile_n=tile_n,
+                self.table, self._marks.seed(self.device), wrap, max_rounds, fuse=fuse,
+                tile_n=self._frontier_tile(),
             )
-        self._finish_frontier(rounds, final_changed, max_rounds)
+        self._marks.finish(rounds, final_changed, max_rounds, self.topology)
         return self._finish_converge(rounds, final_changed)
 
     def _converge_frontier_spmd(self, max_rounds: int) -> int:
@@ -1436,9 +1367,8 @@ class PeerNetworkSim:
         p, n = self._shape()
         wrap = self.topology.kind == "ring"
         if self._column_pass_applies(max_rounds):
-            cols, groups = self._column_pass_groups()
             self.table, rounds, final_changed = gossip_columns_shardmap_packed(
-                self.table, cols, wrap, groups)
+                self.table, self._marks.columns(), wrap, self._marks.groups())
         else:
             tile_n = self._frontier_tile()
             window = fuse = 1
@@ -1446,10 +1376,10 @@ class PeerNetworkSim:
                 window = pk.window_frontier_depth(p // len(self.mesh), n)
                 fuse = 1 if window else HALO_FUSE
             self.table, rounds, final_changed = gossip_frontier_shardmap_packed(
-                self.table, self._frontier_seed(n // tile_n), wrap, max_rounds, fuse=fuse,
+                self.table, self._marks.seed(self.device), wrap, max_rounds, fuse=fuse,
                 window_fuse=window, tile_n=tile_n,
             )
-        self._finish_frontier(rounds, final_changed, max_rounds)
+        self._marks.finish(rounds, final_changed, max_rounds, self.topology)
         return self._finish_converge(rounds, final_changed)
 
     def _graph_pass_applies(self) -> bool:
@@ -1473,18 +1403,16 @@ class PeerNetworkSim:
 
     def _graph_rounds(self, max_rounds: int) -> Tuple[int, int, List[int]]:
         """Up to ``max_rounds`` rounds of the whole-table loop as one graph
-        pass over the tracked dirty columns (all where the tracking is
-        stale or the topology changed since it was settled). Returns
+        pass over the dirty columns (all where the marks are stale). Returns
         (rounds, last round's count, each round's count). A pass that
-        reaches the fixed point leaves every column clean; one cut off
-        leaves the marks as they are, which still hold every column it may
-        have left unsettled."""
-        cols = self._frontier_columns() if self._settled_under is self.topology else None
-        groups = None if cols is None else np.flatnonzero(self._frontier_groups)
+        reaches the fixed point settles the marks; one cut off leaves them
+        as they are, which still hold every column it may have left
+        unsettled."""
         self.table, rounds, last, counts = pk.gossip_graph_packed(
-            self.table, self._graph_plan(), cols, max_rounds, groups)
+            self.table, self._graph_plan(), self._marks.columns(), max_rounds,
+            self._marks.groups())
         if last == 0:
-            self._frontier_settled()
+            self._marks.settle(self.topology)
         return rounds, last, counts
 
     def _converge_packed_loop(self, max_rounds: int) -> int:
@@ -1510,15 +1438,13 @@ class PeerNetworkSim:
         from ..ops.packed import STRIPE_FUSE
         from ..ops.ring_kernel import gossip_frontier_dense
 
-        tile_n = self._frontier_tile()
-        t_total = self._shape()[1] // tile_n
         fuse = STRIPE_FUSE if self._card_routes() else 1
         self.table, rounds, final_changed = gossip_frontier_dense(
-            self.table, self._frontier_seed(t_total),
+            self.table, self._marks.seed(self.device),
             self.topology.kind == "ring", self.mode, max_rounds,
-            fuse=fuse, tile_n=tile_n, lean=self.lean_gossip,
+            fuse=fuse, tile_n=self._frontier_tile(), lean=self.lean_gossip,
         )
-        self._finish_frontier(rounds, final_changed, max_rounds)
+        self._marks.finish(rounds, final_changed, max_rounds, self.topology)
         return self._finish_converge(rounds, final_changed)
 
     def _converge_dense_frontier_spmd(self, max_rounds: int) -> int:
@@ -1527,14 +1453,12 @@ class PeerNetworkSim:
         HALO_FUSE rounds fuse per exchange (8 boundary rows each way), with
         the exact classic round count rebuilt on the host; on the CPU it
         runs unfused, as the reference's interpret mode does."""
-        tile_n = self._frontier_tile()
-        t_total = self._shape()[1] // tile_n
         fuse = HALO_FUSE if self._card_routes() else 1
         self.table, rounds, final_changed = gossip_frontier_shardmap_dense(
-            self.table, self._frontier_seed(t_total), self.topology.kind == "ring",
-            self.mode, self.lean_gossip, max_rounds, fuse=fuse, tile_n=tile_n,
+            self.table, self._marks.seed(self.device), self.topology.kind == "ring",
+            self.mode, self.lean_gossip, max_rounds, fuse=fuse, tile_n=self._frontier_tile(),
         )
-        self._finish_frontier(rounds, final_changed, max_rounds)
+        self._marks.finish(rounds, final_changed, max_rounds, self.topology)
         return self._finish_converge(rounds, final_changed)
 
     def _converge_dense_loop(self, max_rounds: int) -> int:
@@ -1573,7 +1497,7 @@ class PeerNetworkSim:
             self.table, _ = gossip_round_mesh(self.table, self.mode, self.lean_gossip)
         self.stats["steps"] += 1
         self.last_residual = 0
-        self._frontier_settled()
+        self._marks.settle(self.topology)
         self._sync_clocks()
         self._fire_subscriptions()
 
@@ -2261,7 +2185,7 @@ class PeerNetworkSim:
         for ops in self._pending:
             ops.clear()
         self._pending_bulk.clear()
-        self._frontier_dirty = None
+        self._marks.forget()
         if self.layout in RANK_FAMILY:
             # bring the index current BEFORE swapping tables: a pending insert
             # could respread, and a rank1 re-key through prev_inverse only

@@ -2400,7 +2400,7 @@ def packed_main_path(args, dev, window=wall_window):
 
     def seed():
         """The dirty columns the next converge starts from."""
-        cols = sim._frontier_columns()
+        cols = sim._marks.columns()
         return f"{n if cols is None else int(cols.sum())}/{n} columns"
 
     _build.reset_launches()
@@ -2457,7 +2457,7 @@ def packed_main_path(args, dev, window=wall_window):
     capped = batch(max(1, args.packed_ops // 64), n_leaf)
     sim.put_bulk(*capped)
     sim.step(0)
-    seeded, stripes = seed(), int(sim._frontier_seed(t_total).sum())
+    seeded, stripes = seed(), int(sim._marks.seed(sim.device).sum())
     loops = _build.LAUNCHES["frontier_round_packed"]
     with window("packed capped converge", secs):
         cap_rounds = sim.run_until_converged(max_rounds=p // 2)
@@ -4758,7 +4758,7 @@ def bridge_main_path(args, dev, window=wall_window) -> dict:
             f"{secs['bridge converge']:.3f} s; == numpy per-leaf max over {written} leaves")
         sim.put_bulk(*batch(65536, n_leaf))
         sim.step(0)
-        cols = sim._frontier_columns()
+        cols = sim._marks.columns()
         rounds = converge("bridge incremental converge")
         check_leaf_values(sim, batches, slot_of_leaf, rng, "bridge incremental")
         log(f"  put_bulk 65536 ops + run_until_converged: {rounds} rounds in "

@@ -218,9 +218,9 @@ def test_sim_takes_the_pass_with_its_group_marks(layout, topology):
                 sim.put_bulk(peers, [f"k/{int(x)}" for x in keys], values)
                 sim.step(0)
             got = want = None
-            cols = forced._frontier_columns()
+            cols = forced._marks.columns()
             if cols is not None:
-                assert np.array_equal(np.flatnonzero(forced._frontier_groups),
+                assert np.array_equal(forced._marks.groups(),
                                       pk.column_groups(cols, 512))
         elif op == "converge":
             got, want = forced.run_until_converged(), twin.run_until_converged()

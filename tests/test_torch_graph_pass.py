@@ -110,7 +110,7 @@ def play(js, ps, seed: int):
         else:
             for sim in (js, ps):
                 sim.restore(sim.snapshot())
-            assert ps._frontier_columns() is None, what
+            assert ps._marks.columns() is None, what
             got = want = None
         assert got == want, what
         assert_same(js, ps, what)
@@ -166,6 +166,50 @@ def test_partition_heal_and_lossy_links(card_routes, layout):
     assert_same(js, ps, "lossy healed")
 
 
+@pytest.mark.parametrize("heal", ["ring", "chain"])
+@pytest.mark.parametrize("form,layout", [
+    ("uncapped", "packed"), ("capped", "packed"), ("fast_forward", "packed"),
+    ("reconcile", "packed"), ("reconcile", "dense")])
+def test_partition_heals_into_a_ring_or_chain(card_routes, form, layout, heal):
+    """A ring or chain of 8 peers converges; peer 3 is cut off and a write
+    lands on each side; the cut topology converges (on the packed layout
+    through the graph pass) or is reconciled. Healed, the next converge
+    (uncapped: the column pass; capped at the diameter: the stripe loop;
+    fast_forward(P + 1): the frontier route) must still pass the written
+    column, as the reference's sims given the same calls."""
+    p = 8
+    js = JaxSim(p, capacity=64, topology=heal, layout=layout)
+    ps = PeerNetworkSim(p, capacity=64, topology=heal, layout=layout, device="cpu",
+                        use_kernels=True)
+    for sim in (js, ps):
+        sim.put(5, "k0", 0)
+    assert ps.run_until_converged() == js.run_until_converged()
+    for sim, m in ((js, jtopo), (ps, topo)):
+        sim.topology = getattr(m, heal)(p).drop_peer(3)
+        sim.put(3, "k1", "isolated")
+        sim.put(0, "k1", 1)
+    if form == "reconcile":
+        assert ps.reconcile() == js.reconcile()
+    else:
+        assert ps.run_until_converged() == js.run_until_converged()
+    assert_same(js, ps, "cut")
+    assert ps.get(3, "k1") != ps.get(0, "k1")
+    for sim, m in ((js, jtopo), (ps, topo)):
+        sim.topology = getattr(m, heal)(p)
+    if form == "capped":
+        got, want = (sim.run_until_converged(max_rounds=sim.topology.diameter)
+                     for sim in (ps, js))
+    elif form == "fast_forward":
+        assert ps._fast_forward_route() == "frontier"
+        got, want = ps.fast_forward(p + 1), js.fast_forward(p + 1)
+    else:
+        got, want = ps.run_until_converged(), js.run_until_converged()
+    assert got == want
+    assert_same(js, ps, "healed")
+    if form != "capped":
+        assert ps.tables_equal() and ps.get(3, "k1") == ps.get(0, "k1")
+
+
 def test_settled_converge_takes_one_round(card_routes):
     ps = PeerNetworkSim(11, capacity=64, topology=topo.bridge((5, 5), 1), layout="packed",
                         device="cpu")
@@ -174,7 +218,7 @@ def test_settled_converge_takes_one_round(card_routes):
     before = ps.stats["gossip_rounds"]
     assert ps.run_until_converged() == 1 and ps.last_residual == 0
     assert ps.stats["gossip_rounds"] == before + 1
-    assert not ps._frontier_columns().any()
+    assert not ps._marks.columns().any()
 
 
 def settled_table(rng, nf: int, p: int, n: int, nb: np.ndarray):

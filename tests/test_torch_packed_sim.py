@@ -147,12 +147,12 @@ def test_frontier_incremental_seed():
         for peer, path, value in first:
             s.put(peer, path, value)
     assert js.run_until_converged() == ps.run_until_converged()
-    assert ps._frontier_dirty is not None and not ps._frontier_dirty.any()
+    assert ps._marks.columns() is not None and not ps._marks.columns().any()
     for s in (js, ps):
         for peer, path, value in second:
             s.put(peer, path, value)
-    seeds, seed_of = [], ps._frontier_seed
-    ps._frontier_seed = lambda t_total: seeds.append(seed_of(t_total)) or seeds[-1]
+    seeds, seed_of = [], ps._marks.seed
+    ps._marks.seed = lambda device: seeds.append(seed_of(device)) or seeds[-1]
     assert js.run_until_converged() == ps.run_until_converged()
     # only the stripe the two ops touched (their slots share stripe 0)
     assert seeds[-1].tolist() == [True] + [False] * 7
@@ -168,21 +168,21 @@ def test_frontier_seed_invalidation_paths():
     ps = packed(16, 256, use_kernels=True)
     ps.put(0, "x/a", 1)
     ps.run_until_converged()
-    assert ps._frontier_dirty is not None
+    assert ps._marks.columns() is not None
     ps.put(1, "x/a", 2)
     ps.step()  # untracked gossip
-    assert ps._frontier_dirty is None
+    assert ps._marks.columns() is None
     ps.run_until_converged()
     assert ps.tables_equal()
     snap = ps.snapshot()
     ps.restore(snap)
-    assert ps._frontier_dirty is None
+    assert ps._marks.columns() is None
     ps.run_until_converged()
-    assert ps._frontier_dirty is not None
+    assert ps._marks.columns() is not None
     for i in range(300):  # past capacity
         ps.put(i % 16, f"grow/{i}", i)
     ps.step(0)
-    assert ps._frontier_dirty is None
+    assert ps._marks.columns() is None
     ps.run_until_converged()
     assert ps.tables_equal() and ps.get(5, "x/a") == 2 and ps.get(3, "grow/299") == 299
 

@@ -211,14 +211,14 @@ def test_fast_forward_packed_tracking(tracking):
     if tracking == "invalid":
         snap = ps.snapshot()
         ps.restore(snap)
-    assert ps._frontier_tracking_valid() is (tracking == "valid")
+    assert (ps._marks.columns() is not None) is (tracking == "valid")
     for s in (js, ps):
         seed_puts(s, np.random.default_rng(6), 30)
     assert ps._fast_forward_route() == "window"
     for k in (3, 20):
         assert js.step(k) == ps.fast_forward(k)
         assert_same(js, ps)
-    assert ps.last_residual == 0 and ps._frontier_tracking_valid()
+    assert ps.last_residual == 0 and ps._marks.columns() is not None
 
 
 def test_fast_forward_frontier_route_matches_step(monkeypatch):
@@ -235,7 +235,7 @@ def test_fast_forward_frontier_route_matches_step(monkeypatch):
         assert js.step(k) == ps.fast_forward(k), k
         assert_same(js, ps)
         assert ps.stats["windowed_rounds"] == k
-        assert (ps._frontier_dirty is not None) is (ps.last_residual == 0)
+        assert (ps._marks.columns() is not None) is (ps.last_residual == 0)
 
 
 @pytest.mark.parametrize("layout", ["rank", "rank1"])
@@ -313,7 +313,7 @@ def test_fast_forward_route_table(monkeypatch):
         (pair(8, "star", "packed"), "step", "step", "step", "step"),
     ]
     for (js, ps), ref_cpu, ref_tpu, port_cpu, port_cuda in rows:
-        what = (ps.layout, ps.topology.kind, ps.num_peers, ps._frontier_dirty is not None)
+        what = (ps.layout, ps.topology.kind, ps.num_peers, ps._marks.columns() is not None)
         assert (ref_route(js, "cpu"), ref_route(js, "tpu")) == (ref_cpu, ref_tpu), what
         assert (port_route(ps, "cpu"), port_route(ps, "cuda")) == (port_cpu, port_cuda), what
     # at P = 8192 rank1 the reference's full-P stripe is past its budget

@@ -176,7 +176,7 @@ def test_fast_forward_spmd_matches_reference_and_step(layout, topology):
     assert ps.fast_forward(200) == js.fast_forward(200) == 0
     assert_same(js, ps)
     assert ps.stats["windowed_rounds"] == js.stats["windowed_rounds"] == 226
-    assert ps._frontier_tracking_valid()
+    assert ps._marks.columns() is not None
 
 
 # -------------------------------------------------- reconcile, snapshots
@@ -330,7 +330,7 @@ def test_dryrun_multichip_packed_mirrored():
         for p in range(8 * n_dev):
             sim.put(p, f"f/p{p}", p + 1)
         sim.run_until_converged()
-        assert sim.tables_equal() and not sim._frontier_dirty.any()
+        assert sim.tables_equal() and not sim._marks.columns().any()
         assert sim.get(0, f"f/p{8 * n_dev - 1}") == 8 * n_dev
         sims[layout] = sim
     np.testing.assert_array_equal(table_to_numpy(sims["rank"].table)[1],

@@ -95,7 +95,7 @@ def independent_loop(sim):
     run, counted on a copy of the table from the seed's compacted ids."""
     tile_n = sim._frontier_tile()
     t_total = N // tile_n
-    ids = pk.frontier_ids_compact(sim._frontier_seed(t_total), t_total)
+    ids = pk.frontier_ids_compact(sim._marks.seed(sim.device), t_total)
     table, wrap = _clone(sim.table), sim.topology.kind == "ring"
     max_rounds = max(2 * sim.topology.diameter + 2, 4)
     steps = stripes = 0
@@ -358,7 +358,7 @@ def test_column_pass_loop_counts_its_columns(layout, monkeypatch):
     observe.RECORDER.clear()
     with profile(activities=[ProfilerActivity.CPU]):
         for t in range(1, 4):
-            batch(sim, rng, t, "slots", lambda s: dirty.append(int(s._frontier_dirty.sum())))
+            batch(sim, rng, t, "slots", lambda s: dirty.append(int(s._marks.columns().sum())))
         sim.put(3, "t/r0/f0", 10 ** 9)
         sim.run_until_converged(max_rounds=sim.topology.diameter)  # capped: the stripe loop
     loops = [s.attrs for s in observe.spans() if s.name == "loop"]
