@@ -31,6 +31,7 @@ SOURCES = (
     "frontier_shard_window.cu", "compact_counts.cu",
     "apply_packed.cu", "packed_round.cu", "reconcile_packed.cu", "frontier_packed.cu",
     "window_packed.cu", "converge_columns.cu", "converge_columns_shard.cu", "converge_graph.cu",
+    "rekey_rank1.cu",
 )
 HEADERS = ("lexmax.cuh", "frontier.cuh", "column_runs.cuh")
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "bullet_tpu_torch"
@@ -49,7 +50,7 @@ LAUNCHES = {
     "frontier_shard_window": 0, "compact_counts window": 0,
     "apply_packed": 0, "packed_round": 0, "packed_round fused": 0, "reconcile_packed": 0,
     "frontier_round_packed": 0, "window_packed": 0, "window_shard": 0, "converge_columns": 0,
-    "converge_graph": 0, "column_summaries": 0, "settle_columns": 0,
+    "converge_graph": 0, "column_summaries": 0, "settle_columns": 0, "rekey_rank1": 0,
 }
 
 _P = ctypes.c_void_p
@@ -124,6 +125,11 @@ _SIGNATURES = {
     "bt_converge_graph": (
         _P, _P, ctypes.c_int, _P, _P, ctypes.c_int, _P, ctypes.c_int, ctypes.c_int,
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P,
+    ),
+    # the table, p, n, the old inverse (sorted ranks, vids) and its length,
+    # the vid -> rank map and its length, the searches' counter, the stream
+    "bt_rekey_rank1": (
+        _P, ctypes.c_int, ctypes.c_longlong, _P, _P, ctypes.c_int, _P, ctypes.c_int, _P, _P,
     ),
 }
 

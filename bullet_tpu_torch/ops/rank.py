@@ -32,6 +32,7 @@ from typing import Iterator, List, NamedTuple, Tuple
 import numpy as np
 import torch
 
+from .. import _build
 from .packed import CV_SHIFT, VID_MASK, PackedTable, apply_flat_packed
 
 RANK_SPAN = (1 << 31) - 1  # usable rank space: [1, 2^31 - 1]
@@ -155,16 +156,66 @@ def rank1_to_rank(
     return RankTable(rank=rt.rank, cv=cv)
 
 
+def rekey_rank1_torch(
+    table: Rank1Table, old_sranks: torch.Tensor, old_svids: torch.Tensor,
+    rank_map: torch.Tensor,
+) -> Rank1Table:
+    """Plain version of ``rekey_rank1``, in place on column blocks."""
+    for (rank,) in _column_blocks(table):
+        present, vid = decode_vids_rank1(rank, old_sranks, old_svids)
+        rank.copy_(torch.where(present, _lookup(rank_map, vid), 0))
+    return table
+
+
+# device -> int64 [1]: the binary searches that rekey_rank1's kernel ran on
+# that device, summed over its launches (tests and chip_smoke.py read and
+# zero it; the main path never waits on it)
+_REKEY_SEARCHES: dict = {}
+
+
+def rekey_searches(device) -> torch.Tensor:
+    """The counter of ``rekey_rank1``'s binary searches on ``device``: one
+    per run of equal ranks down a column (an entry > 0 that differs from
+    the row above, or stands in the first row)."""
+    device = torch.device(device)
+    if device not in _REKEY_SEARCHES:
+        _REKEY_SEARCHES[device] = torch.zeros(1, dtype=torch.int64, device=device)
+    return _REKEY_SEARCHES[device]
+
+
 def rekey_rank1(
     table: Rank1Table, old_sranks: torch.Tensor, old_svids: torch.Tensor,
     rank_map: torch.Tensor,
 ) -> Rank1Table:
     """Re-gather a rank1 table onto a fresh rank epoch, in place: decode
     each stale rank to its vid through the PRE-respread inverse
-    (``RankIndex.prev_inverse``), then gather the new rank."""
-    for (rank,) in _column_blocks(table):
-        present, vid = decode_vids_rank1(rank, old_sranks, old_svids)
-        rank.copy_(torch.where(present, _lookup(rank_map, vid), 0))
+    (``RankIndex.prev_inverse``), then gather the new rank. The CUDA kernel
+    (one pass down the columns, one search a run of equal ranks) for CUDA
+    tensors; the plain version for CPU tensors."""
+    rank = table.rank
+    device = rank.device
+    if device.type == "cpu":
+        return rekey_rank1_torch(table, old_sranks, old_svids, rank_map)
+    _build.require_cuda(device, "rekey_rank1")
+    p, n = rank.shape
+    _build.check_fields((rank,), (p, n), device, "rekey_rank1")
+    count = old_sranks.numel()
+    _build.check_fields((old_sranks, old_svids), (count,), device, "rekey_rank1 inverse")
+    _build.check_fields((rank_map,), (rank_map.numel(),), device, "rekey_rank1 rank_map")
+    if count and not rank_map.numel():
+        raise ValueError("rekey_rank1: an empty rank_map cannot re-key a non-empty inverse")
+    if rank.numel() == 0:
+        return table
+    searches = rekey_searches(device)
+    lib = _build.library()
+    with torch.cuda.device(device):
+        err = lib.bt_rekey_rank1(
+            rank.data_ptr(), p, n, old_sranks.data_ptr(), old_svids.data_ptr(), count,
+            rank_map.data_ptr(), rank_map.numel(), searches.data_ptr(),
+            _build.stream_of(device),
+        )
+    _build.check(err, "rekey_rank1")
+    _build.LAUNCHES["rekey_rank1"] += 1
     return table
 
 

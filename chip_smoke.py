@@ -302,6 +302,10 @@ KERNELS = {
     # pass, where the reference runs its whole-table round loop
     # (bullet_tpu/ops/packed.py:917)
     "converge_graph": ("bullet_tpu_torch/csrc/converge_graph.cu", "none"),
+    # the port's own: a rank1 table's re-key after a respread in one pass
+    # down its columns, where the reference runs XLA's searchsorted and
+    # gathers (bullet_tpu/ops/rank.py's rekey_rank1)
+    "rekey_rank1": ("bullet_tpu_torch/csrc/rekey_rank1.cu", "none"),
 }
 DENSE_KERNELS = ("merge", "ring_round", "frontier_round_dense")
 # the packed-family kernels: phase 5 drives them at nf = 3, phase 6 at nf = 1;
@@ -2585,9 +2589,81 @@ def fused_rounds(p: int, n: int, dev, window, secs: dict):
 # ------------------------------------------------------------------ phase 6
 
 
-def rank1_main_path(args, dev, window=wall_window, card=""):
+def rekey_after_respread(sim, rng, batches, slot_of_leaf, errs, times, card: str):
+    """Phase 6's forced respread at full size: batches of 256 values above
+    every earlier one, each converged, until a put exhausts their gap and
+    the RankIndex respreads. The converged table's re-key then runs on a
+    copy against the plain blocks on another (bit for bit; one launch; one
+    search a live column), is timed against its byte floor (CUDA events,
+    the best of 3 launches on fresh copies), and the sim's own step(0)
+    re-keys through the kernel and converges to the values numpy expects.
+    Only that step(0)'s launch stays in the launch count."""
+    from bullet_tpu_torch import _build
+    from bullet_tpu_torch.ops import rank as rk
+
+    p, n_leaf = sim.num_peers, len(slot_of_leaf)
+    top = 1 << 20  # above every value phase 6 wrote
+    forced = len(batches)
+    while True:
+        leaves = rng.choice(n_leaf, 256, replace=False)
+        vals = top + np.arange(256)
+        top += 256
+        batches.append((leaves, vals))
+        sim.put_bulk(rng.integers(0, p, 256).astype(np.int32), slot_of_leaf[leaves], vals)
+        if sim.rank_index.needs_rekey:
+            break
+        sim.step(0)
+        sim.run_until_converged()
+    if not sim.tables_equal():
+        raise AssertionError("the table before the respread's re-key is not converged")
+    dev = sim.table.rank.device
+    main_launches = _build.LAUNCHES["rekey_rank1"]  # the checks below are not the sim's
+    inverse = [sim._device_lut(a, dev) for a in (*sim.rank_index.prev_inverse,
+                                                 sim.rank_index.rank_map())]
+    before = sim.table.rank.clone()
+    mine, twin = rk.Rank1Table(before.clone()), rk.Rank1Table(before.clone())
+    searches = rk.rekey_searches(dev)
+    searches.zero_()
+    launches = _build.LAUNCHES["rekey_rank1"]
+    rk.rekey_rank1(mine, *inverse)
+    plain_ms = timed_once(lambda: rk.rekey_rank1_torch(twin, *inverse))[1]
+    errs["rekey_rank1"] = max_err(mine.rank, twin.rank)
+    live_columns = int(torch.count_nonzero(before[0]))
+    if errs["rekey_rank1"] or _build.LAUNCHES["rekey_rank1"] != launches + 1:
+        raise AssertionError(f"rekey_rank1: max err {errs['rekey_rank1']}, "
+                             f"{_build.LAUNCHES['rekey_rank1'] - launches} launches")
+    if int(searches) != live_columns:
+        raise AssertionError(f"rekey_rank1: {int(searches)} searches for {live_columns} "
+                             "live columns of a converged table")
+    del twin
+    ms = float("inf")
+    for _ in range(3):
+        mine.rank.copy_(before)
+        ms = min(ms, timed_once(lambda: rk.rekey_rank1(mine, *inverse))[1])
+    live = int(torch.count_nonzero(before))
+    nbytes = (before.numel() + live) * 4
+    times["rekey_rank1"] = (ms, plain_ms, bound(nbytes, 0))
+    del mine, before
+    log(f"  respread forced after {len(batches) - forced} batches: rekey_rank1 {ms:.3f} ms "
+        f"(bound {times['rekey_rank1'][2][0]:.3f} ms for {nbytes / 1e9:.2f} GB, "
+        f"{ms / times['rekey_rank1'][2][0]:.2f} x) against the plain blocks' "
+        f"{plain_ms:.3f} ms on {card}; bit-identical, {live_columns} searches for "
+        f"{live_columns} live columns")
+    _build.LAUNCHES["rekey_rank1"] = main_launches
+    sim.step(0)
+    sim.run_until_converged()
+    if _build.LAUNCHES["rekey_rank1"] != main_launches + 1 or sim.rank_index.needs_rekey:
+        raise AssertionError("the sim's step(0) did not re-key through one launch")
+    if sim.last_residual != 0 or not sim.tables_equal():
+        raise AssertionError("the rank1 sim did not converge after its re-key")
+    n_written = check_leaf_values(sim, batches, slot_of_leaf, rng, "rank1 respread")
+    log(f"  step(0) re-keyed through the kernel and converged; {n_written} leaves == numpy max")
+
+
+def rank1_main_path(args, dev, errs, times, window=wall_window, card=""):
     """Phase 6: the rank1 layout (4 B/entry) on a ring at P x N (default
-    1024 x 2^20, 4.3 GB). Returns (launches, windowed logical merges/s of
+    1024 x 2^20, 4.3 GB). Fills ``errs`` and ``times`` for the re-key after
+    a forced respread. Returns (launches, windowed logical merges/s of
     fast_forward(480))."""
     from bullet_tpu_torch import PeerNetworkSim, _build
 
@@ -2719,7 +2795,8 @@ def rank1_main_path(args, dev, window=wall_window, card=""):
     log(f"  reconcile (apply {args.rank1_ops + 1} late ops + one kernel pass): "
         f"{secs['rank1 reconcile']:.3f} s; converged() (count-only probe): True in "
         f"{secs['rank1 converged()']:.4f} s; {n_written} leaves == numpy per-leaf max")
-    launches = {k: _build.LAUNCHES[k] for k in PACKED_KERNELS}
+    rekey_after_respread(sim, rng, batches, slot_of_leaf, errs, times, card)
+    launches = {k: _build.LAUNCHES[k] for k in (*PACKED_KERNELS, "rekey_rank1")}
     log(f"  launches on the rank1 main path: {dict(_build.LAUNCHES)}")
     missing = [k for k, v in launches.items() if v <= 0]
     if missing:
@@ -4892,7 +4969,7 @@ def main() -> int:
     launches.update(packed_main_path(args, dev))
     free(dev)
     log(f"phase 6: rank1 main path, ring {args.peers} x {args.rank1_capacity}")
-    rank1_launches, _ = rank1_main_path(args, dev, card=smi)
+    rank1_launches, _ = rank1_main_path(args, dev, errs, times, card=smi)
     free(dev)
     log(f"phase 7: lean main path, ring {args.peers} x {args.lean_capacity}")
     lean_launches = lean_main_path(args, dev)
@@ -4927,7 +5004,8 @@ def main() -> int:
     launches["converge_graph"] = bridge_main_path(args, dev)["converge_graph"]
 
     # one row per kernel at the layout its main path drives (dense: phase
-    # 4, packed: phase 5), one per packed-family kernel at rank1 (phase 6),
+    # 4, packed: phase 5), one per packed-family kernel at rank1 and the
+    # re-key after its forced respread (phase 6),
     # the lean kernels (phase 7; the merge and the dense frontier at
     # nf = 4), the sharded ones (phase 8, and the fused per-shard frontier
     # at nf = 4 with its lean run's launches) and the packed family's mesh
@@ -4939,6 +5017,7 @@ def main() -> int:
     rows = [(name, name, launches[name])
             for name in (*DENSE_KERNELS, *PACKED_KERNELS, FUSED_ROUNDS, "converge_graph")]
     rows += [(tag(name, 1), name, rank1_launches[name]) for name in PACKED_KERNELS]
+    rows.append(("rekey_rank1", "rekey_rank1", rank1_launches["rekey_rank1"]))
     rows += [("ring_round_lean", "ring_round_lean", lean_launches["ring_round_lean"]),
              ("frontier_round_dense lean", "frontier_round_dense",
               lean_launches["frontier_round_dense"]),

@@ -17,12 +17,14 @@ from bullet_tpu import native as ref_native
 from bullet_tpu.ops import packed as jpk
 from bullet_tpu.ops import rank as jrk
 from bullet_tpu.parallel import topology as jax_topo
+from bullet_tpu_torch import _build
 from bullet_tpu_torch import native as port_native
 from bullet_tpu_torch.convert import FROM_NUMPY, table_to_numpy
 from bullet_tpu_torch.ops import packed as pk
 from bullet_tpu_torch.ops import rank as rk
 from _native_libs import load_native
 from test_torch_packed import _check_step, _ids, assert_same, check_apply_model
+from test_torch_rekey_rank1 import converged_table, luts, mixed_table, respread_index
 from test_torch_window import JAX_TABLE, LAYOUT, fields_np
 
 torch.set_num_threads(2)
@@ -245,6 +247,41 @@ def test_rekey_after_respread_matches_reference(monkeypatch, layout):
                              t(port.rank_map()))
     assert_same(got, want)
     np.testing.assert_array_equal(got.rank.numpy(), np.where(present, port.rank_map()[vid], 0))
+
+
+@pytest.mark.parametrize("case", ["uniform", "mixed", "ragged", "shard", "empty"])
+def test_rekey_rank1_shapes_match_reference(case):
+    """The plain re-key of a rank1 table, on the shapes the card's kernel
+    takes (``test_torch_rekey_rank1.py``) in small form, against the
+    reference's ``rekey_rank1``, after a real respread of both indexes:
+    uniform columns as a converge leaves them, mixed columns that are not
+    converged (ranks the old inverse lacks, 0, negatives), a ragged width,
+    a shard's rows, and an empty inverse (the reference's gather refuses
+    one; its host decode reads every rank as absent). A CPU table launches
+    nothing and counts no search."""
+    port = respread_index(np.random.default_rng(7), 300)
+    ref = respread_index(np.random.default_rng(7), 300, jrk.RankIndex)
+    assert_index_equal(port, ref)
+    inverse = luts(port, "cpu")
+    gen = torch.Generator()
+    gen.manual_seed(26)
+    p, n = (12, 61) if case == "ragged" else (16, 64)
+    make = converged_table if case in ("uniform", "shard") else mixed_table
+    rank = make(gen, inverse[0], p, n)
+    if case == "shard":
+        rank = rank[4:8].contiguous()
+    if case == "empty":
+        inverse[:2] = [torch.zeros(0, dtype=torch.int32)] * 2
+        assert (jrk.RankIndex().decode_ranks(rank.numpy()) < 0).all()
+        want = np.zeros_like(rank.numpy())
+    else:
+        want = np.asarray(jrk.rekey_rank1(jt([rank.numpy()]), *(jnp.asarray(a.numpy())
+                                                             for a in inverse)).rank)
+    launches = _build.LAUNCHES["rekey_rank1"]
+    got = rk.rekey_rank1(rk.Rank1Table(rank.clone()), *inverse)
+    np.testing.assert_array_equal(got.rank.numpy(), want)
+    assert _build.LAUNCHES["rekey_rank1"] == launches
+    assert torch.device("cpu") not in rk._REKEY_SEARCHES
 
 
 # ------------------------------------- the kernels at nf = 1 and nf = 2
